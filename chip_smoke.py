@@ -21,6 +21,21 @@ non-zero exit code and no result line:
    variant, with ``DQNConfig()`` swapped in) through the port's runner
    on the card, with each kernel's launch count read around that run
    alone: every stacked train step launches each kernel once.
+6. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
+   their plain versions on the card at the serving path's shapes and at
+   a ragged / windowed / softcapped one, timed like phase 3 beside one
+   PyTorch library call; rmsnorm is bound by bytes, attention by
+   operations (4 B Hq D flops per unmasked pair at the dtype's peak).
+7. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
+   on the card and on the CPU from the same params and tokens: prefill
+   of 96 tokens (past the window), then 8 decode steps; logits must
+   agree within 1e-4.
+8. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
+   h2o-danube-3-4b in bfloat16, random weights drawn on the card from
+   seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
+   the prefill and decode alone (24 ``flash_attention``, 49 x 33
+   ``rmsnorm``), then decode logits at 4 positions against the
+   teacher-forced ``forward`` on the card.
 
 Then one line with the card as ``nvidia-smi`` reports it, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -41,20 +56,36 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.erb import flat_width  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.kernels import lib  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_plain,
+    flash_attention,
+)
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather,
     replay_gather_plain,
 )
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.model import Model, forward, logits_fn  # noqa: E402
+from repro_torch.models.rope import positions_for  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
 from repro_torch.rl.fleet import FleetSteps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): bf16 on the
+# tensor cores, float32 outside them
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 N_AGENTS, BATCH = 4, 32  # the fleet's minibatch rows per step: N * B
+ZOO_ARCH = "h2o-danube-3-4b"
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
+RMS_EPS = get_config(ZOO_ARCH).norm_eps
+KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention)
 
 
 def emit(obj) -> None:
@@ -241,16 +272,24 @@ def phase_chunk(dev) -> None:
     require(l_err <= 1e-4, f"train chunk losses differ by {l_err}")
 
 
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
 def phase_main(dev) -> dict[str, int]:
     spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig())
     system = build(spec, fast=True, device=dev)
-    replay_gather.launches = 0
-    fused_td.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     report = system.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {"replay_gather": replay_gather.launches, "fused_td": fused_td.launches}
+    launches = read_launches()
     t1 = time.perf_counter()
     evaluate_into(report, system, spec.fast())
     eval_s = time.perf_counter() - t1
@@ -277,11 +316,273 @@ def phase_main(dev) -> dict[str, int]:
     )
     require(bool(np.isfinite(report.mean_dist_err)), "mean_dist_err is not finite")
     require(engine.n_chunk_steps > 0, "the main path trained nothing")
-    for name, n in launches.items():
+    for name in ("replay_gather", "fused_td"):
         require(
-            n == engine.n_chunk_steps,
-            f"{name} launched {n} times for {engine.n_chunk_steps} stacked steps",
+            launches[name] == engine.n_chunk_steps,
+            f"{name} launched {launches[name]} times for "
+            f"{engine.n_chunk_steps} stacked steps",
         )
+    return launches
+
+
+def check_rmsnorm(dev) -> dict:
+    """The prefill [B*S, d] and decode [B, d] calls of the zoo main path,
+    a ragged float32 one, and rows of 1001 elements, whose width is no
+    multiple of 16 bytes (the kernel's scalar path with a masked tail).
+    Tolerances: bf16 2e-2 (one bf16 rounding, as
+    tests/test_kernels_rmsnorm.py), f32 1e-5 (sum order and rsqrt)."""
+    rng = np.random.default_rng(3)
+    d = get_config(ZOO_ARCH).d_model
+    cases = (
+        ("prefill", ZOO_BATCH * ZOO_PROMPT, d, torch.bfloat16, 2e-2),
+        ("decode", ZOO_BATCH, d, torch.bfloat16, 2e-2),
+        ("ragged", 37, 1000, torch.float32, 1e-5),
+        ("tail", 37, 1001, torch.float32, 1e-5),
+        ("tail", 5, 1001, torch.bfloat16, 2e-2),
+    )
+    worst, timed = 0.0, {}
+    for name, n, width, dtype, tol in cases:
+        x = torch.tensor(rng.standard_normal((n, width)), dtype=dtype, device=dev)
+        scale = torch.tensor(
+            rng.standard_normal(width), dtype=torch.float32, device=dev
+        )
+        got = rmsnorm(x, scale, RMS_EPS)
+        want = rmsnorm_plain(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        require(
+            torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+            f"rmsnorm {name} [{n}, {width}] {dtype}: max|d|={err}",
+        )
+        worst = max(worst, err)
+        if name not in ("prefill", "decode"):
+            continue
+        nbytes = 2 * n * width * x.element_size() + width * 4
+        timed[name] = {
+            "ms": cuda_ms(lambda: rmsnorm(x, scale, RMS_EPS)),
+            "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, scale, RMS_EPS)),
+            "library_ms": cuda_ms(
+                lambda: torch.nn.functional.rms_norm(
+                    x.float(), (width,), scale, RMS_EPS
+                ).to(x.dtype)
+            ),
+            "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes",
+            "shape": [n, width, str(dtype).removeprefix("torch.")],
+        }
+    main = {"max_abs_err": worst, **timed["prefill"], "decode": timed["decode"]}
+    emit({"phase": "kernel", "name": "rmsnorm", **main})
+    return main
+
+
+def unmasked_pairs(s: int, window: int | None) -> int:
+    """(query, key) pairs a causal attention over ``s`` tokens computes."""
+    w = s if window is None else window
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def attention_bound(b, s, hq, hkv, d, dtype, window) -> tuple[float, str]:
+    flops = 4 * b * hq * d * unmasked_pairs(s, window)
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * elem  # q, o, k, v
+    f_ms, b_ms = flops / PEAK_FLOPS[dtype] * 1e3, bound_ms(nbytes)
+    return (f_ms, "operations") if f_ms >= b_ms else (b_ms, "bytes")
+
+
+def check_flash_attention(dev) -> dict:
+    """The zoo main path's prefill shape, a 4608-token one with the 4096
+    window live, and a float32 one with a softcap.  Tolerances: bf16 3e-2
+    (as tests/test_kernels.py), f32 2e-5."""
+    rng = np.random.default_rng(4)
+    cfg = get_config(ZOO_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w = cfg.sliding_window
+    cases = (
+        ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, torch.bfloat16, w, 0.0, 3e-2),
+        ("window", 1, 4608, hq, hkv, torch.bfloat16, w, 0.0, 3e-2),
+        ("softcap", 2, 333, 8, 2, torch.float32, None, 30.0, 2e-5),
+    )
+    worst, out = 0.0, {}
+    for name, b, s, nq, nkv, dtype, window, cap, tol in cases:
+        q, k, v = (
+            torch.tensor(rng.standard_normal((b, s, n, d)), dtype=dtype, device=dev)
+            for n in (nq, nkv, nkv)
+        )
+        kw = {"window": window, "softcap": cap}
+        got = flash_attention(q, k, v, **kw)
+        want = attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        require(
+            torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+            f"flash_attention {name} {[b, s, nq, nkv, d]} {dtype}: max|d|={err}",
+        )
+        worst = max(worst, err)
+        bound, by = attention_bound(b, s, nq, nkv, d, dtype, window)
+        shape = [b, s, nq, nkv, d, str(dtype).removeprefix("torch.")]
+        if name == "window":
+            out[name] = {
+                "ms": cuda_ms(
+                    lambda: flash_attention(q, k, v, **kw), reps=20, warmup=2
+                ),
+                "bound_ms": bound,
+                "bound_by": by,
+                "shape": shape,
+            }
+        elif name == "main":
+            # SDPA's boolean mask: True = attend (causal, inside the window)
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True
+                )
+
+            out[name] = {
+                "ms": cuda_ms(
+                    lambda: flash_attention(q, k, v, **kw), reps=50, warmup=5
+                ),
+                "plain_ms": cuda_ms(
+                    lambda: attention_plain(q, k, v, **kw), reps=20, warmup=2
+                ),
+                "library_ms": cuda_ms(library, reps=50, warmup=5),
+                "bound_ms": bound,
+                "bound_by": by,
+                "shape": shape,
+            }
+        del q, k, v, got, want
+    main = {"max_abs_err": worst, **out["main"], "window": out["window"]}
+    emit({"phase": "kernel", "name": "flash_attention", **main})
+    return main
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_zoo_chunk(dev) -> None:
+    """A narrow float32 h2o-danube-3-4b, card (kernels) vs CPU (plain
+    versions), from the same params and tokens: prefill past the window,
+    then decode steps fed the same tokens.  1e-4: two devices' sum orders
+    through 2 layers (TF32 off on the card)."""
+    cfg = replace(get_config(ZOO_ARCH).reduced(), n_kv_heads=2, sliding_window=64)
+    b, s, steps = 2, 96, 8
+    rng = np.random.default_rng(5)
+    toks = torch.tensor(
+        rng.integers(0, cfg.vocab_size, (b, s + steps)), dtype=torch.int32
+    )
+    cpu, gpu = Model(cfg, "cpu"), Model(cfg, dev)
+    params_cpu = cpu.init_params(0)
+    params_gpu = tree_to(params_cpu, dev)
+    reset_launches()
+    logits = {}
+    for name, model, params in (("cpu", cpu, params_cpu), ("gpu", gpu, params_gpu)):
+        t = toks.to(model.device)
+        last, pre = model.prefill_step(params, {"tokens": t[:, :s]})
+        caches = serve.load_prefill(model.init_caches(b, s + steps), pre)
+        out = [last]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=model.device)
+            lg, caches = model.serve_step(
+                params, caches, {"tokens": t[:, s + i : s + i + 1], "pos": pos}
+            )
+            out.append(lg)
+        logits[name] = torch.stack(out).float().cpu()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    err = float((logits["gpu"] - logits["cpu"]).abs().max())
+    emit(
+        {
+            "phase": "zoo_chunk",
+            "config": f"{cfg.name}, n_kv_heads=2, sliding_window=64, float32",
+            "prefill": s,
+            "steps": steps,
+            "logits_max_abs_err": err,
+            "launches": launches,
+        }
+    )
+    require(bool(torch.isfinite(logits["gpu"]).all()), "zoo chunk: non-finite logits")
+    require(err <= 1e-4, f"zoo chunk: card and CPU logits differ by {err}")
+    n_layers = cfg.n_layers
+    require(
+        launches["flash_attention"] == n_layers
+        and launches["rmsnorm"] == (2 * n_layers + 1) * (steps + 1),
+        f"zoo chunk: launches {launches}",
+    )
+
+
+def phase_zoo_main(dev) -> dict[str, int]:
+    """The serving CLI's path at full width, then decode logits at 4
+    positions against the teacher-forced forward on the card.
+
+    Tolerance: the bf16 3e-2 of tests/test_kernels.py, relative to the
+    largest logit.  The two paths round differently at every bf16 product
+    (a [B, 1, D] decode GEMM against a [B, S, D] one) through 24 layers of
+    a bf16 residual stream, so an element-wise allclose(3e-2, 3e-2) is too
+    tight at full depth (max |d| 0.057 on an H100); the float32 zoo_chunk
+    holds the arithmetic itself to 1e-4."""
+    t0 = time.perf_counter()
+    model, params, prompt = serve.setup(ZOO_ARCH, ZOO_BATCH, ZOO_PROMPT, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = serve.generate(model, params, prompt, ZOO_GEN)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # teacher-forced: the prompt and the fed tokens in one forward
+    toks = torch.cat([prompt, out.tokens[:, :ZOO_GEN]], 1)
+    at = [0, 10, 21, ZOO_GEN - 1]
+    pos = positions_for(cfg, ZOO_BATCH, toks.shape[1], device=dev)
+    hidden = forward(cfg, params, toks, pos, mode="train")[0]
+    want = logits_fn(cfg, params, hidden[:, [ZOO_PROMPT + i for i in at]]).float()
+    got = out.logits[at].transpose(0, 1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    n_layers = cfg.n_layers
+    emit(
+        {
+            "phase": "zoo_main",
+            "arch": ZOO_ARCH,
+            "cuts": "none (random weights from seed 0)",
+            "batch": ZOO_BATCH,
+            "prompt": ZOO_PROMPT,
+            "gen": ZOO_GEN,
+            "init_s": init_s,
+            "prefill_s": out.prefill_s,
+            "decode_s": out.decode_s,
+            "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
+            "peak_gb": peak_gb,
+            "launches": launches,
+            "teacher_forced_positions": at,
+            "teacher_forced_max_abs_err": err,
+            "teacher_forced_max_abs_logit": scale,
+            "teacher_forced_argmax_agree": agree,
+            "sample_ids": out.tokens[0, :8].tolist(),
+        }
+    )
+    require(bool(torch.isfinite(out.logits).all()), "zoo main: non-finite logits")
+    require(
+        launches["flash_attention"] == n_layers,
+        f"flash_attention launched {launches['flash_attention']} times, not {n_layers}",
+    )
+    want_rms = (2 * n_layers + 1) * (ZOO_GEN + 1)
+    require(
+        launches["rmsnorm"] == want_rms,
+        f"rmsnorm launched {launches['rmsnorm']} times, not {want_rms}",
+    )
+    require(
+        err <= 3e-2 * scale,
+        f"zoo main: decode vs teacher-forced logits max|d|={err}, max|logit|={scale}",
+    )
     return launches
 
 
@@ -295,6 +596,12 @@ def main() -> int:
     }
     phase_chunk(dev)
     launches = phase_main(dev)
+    results["rmsnorm"] = check_rmsnorm(dev)
+    results["flash_attention"] = check_flash_attention(dev)
+    phase_zoo_chunk(dev)
+    zoo_launches = phase_zoo_main(dev)
+    for name in ("rmsnorm", "flash_attention"):
+        launches[name] = zoo_launches[name]
     meta = {
         "replay_gather": (
             "src/repro_torch/csrc/replay_gather.cu",
@@ -303,6 +610,14 @@ def main() -> int:
         "fused_td": (
             "src/repro_torch/csrc/fused_td.cu",
             "src/repro/kernels/fused_td/kernel.py:38",
+        ),
+        "rmsnorm": (
+            "src/repro_torch/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm/kernel.py:27",
+        ),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:106",
         ),
     }
     kernels = [
@@ -316,10 +631,11 @@ def main() -> int:
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             "check": "pass",
+            **{k: r[k] for k in ("decode", "window") if k in r},
         }
         for name, r in results.items()
     ]

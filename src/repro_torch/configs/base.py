@@ -1,0 +1,302 @@
+"""Config system of the model zoo: architecture configs, the registry
+and the analytic parameter count.
+
+A copy of the reference's ``repro/configs/base.py`` (the port imports
+nothing of ``repro``).  Every architecture gets a module in
+``repro_torch/configs/<id>.py`` that builds a :class:`ModelConfig` with
+the published hyper-parameters and registers it under its id.
+``reduced()`` derives the CPU-smoke variant (2 layers, d_model<=512,
+<=4 experts) from the same config, so the CPU tests run the code path of
+the full-width run.  The port registers only the architectures whose
+blocks it has ported (see :data:`ASSIGNED`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+# ---------------------------------------------------------------------------
+# Block kinds
+# ---------------------------------------------------------------------------
+ATTN = "attn"  # (GQA / MHA) attention mixer
+MLA = "mla"  # DeepSeek multi-head latent attention mixer
+MAMBA = "mamba"  # Mamba-1 selective SSM mixer
+SLSTM = "slstm"  # xLSTM sLSTM block (scalar memory, strictly recurrent)
+MLSTM = "mlstm"  # xLSTM mLSTM block (matrix memory, parallelizable)
+
+FFN_DENSE = "dense"
+FFN_MOE = "moe"
+FFN_NONE = "none"
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0  # routed experts
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0  # 0 => direct q projection (DeepSeek-V2-Lite)
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 => ceil(d_model / 16)
+    chunk: int = 64  # remat chunk for the selective scan
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    # mLSTM: matrix-memory heads, projection factor for the up projection.
+    mlstm_proj_factor: float = 2.0
+    # sLSTM: post-block gated FFN factor (xLSTM paper uses 4/3 * d).
+    slstm_ffn_factor: float = 4.0 / 3.0
+    conv_width: int = 4
+    chunk: int = 64
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 => d_model // n_heads
+    # --- block layout -----------------------------------------------------
+    # Repeating pattern of (mixer, ffn) kinds. The pattern tiles over
+    # n_layers - first_k_dense; the first first_k_dense layers are unrolled
+    # (attn + dense FFN), DeepSeek style.
+    pattern: tuple[tuple[str, str], ...] = ((ATTN, FFN_DENSE),)
+    first_k_dense: int = 0
+    first_k_dense_d_ff: int = 0
+    # --- attention ---------------------------------------------------------
+    qkv_bias: bool = False
+    sliding_window: int | None = None
+    rope: str = "rope"  # rope | mrope | none
+    rope_theta: float = 10_000.0
+    attn_logit_softcap: float = 0.0
+    # --- sub-configs --------------------------------------------------------
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    mla: MLAConfig | None = None
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    xlstm: XLSTMConfig = field(default_factory=XLSTMConfig)
+    # --- io ------------------------------------------------------------------
+    # "tokens": int32 token ids; "embeds": precomputed frontend embeddings
+    # (audio codec frames / vision patches) — the one allowed stub.
+    input_kind: str = "tokens"
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)  # t,h,w splits of head_dim/2
+    # --- misc ----------------------------------------------------------------
+    mlp_variant: str = "swiglu"  # swiglu | gelu
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # Sub-quadratic decode path exists (SSM / hybrid / sliding window)?
+    subquadratic: bool = False
+    # citation for the config numbers
+    source: str = ""
+
+    # -- derived -------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def layer_pattern(self) -> tuple[tuple[str, str], ...]:
+        """Full per-layer (mixer, ffn) list, prefix + tiled pattern."""
+        body = self.n_layers - self.first_k_dense
+        p = len(self.pattern)
+        if body % p != 0:
+            raise ValueError(f"{self.name}: pattern period {p} !| {body}")
+        prefix = ((ATTN, FFN_DENSE),) * self.first_k_dense
+        return prefix + self.pattern * (body // p)
+
+    @property
+    def n_groups(self) -> int:
+        return (self.n_layers - self.first_k_dense) // len(self.pattern)
+
+    def reduced(self) -> "ModelConfig":
+        """CPU smoke variant of the same family: 2 pattern periods,
+        d_model<=512, <=4 experts, short rope."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        moe = self.moe
+        if moe.n_experts:
+            moe = replace(
+                moe,
+                n_experts=min(4, moe.n_experts),
+                top_k=min(2, moe.top_k),
+                n_shared_experts=min(1, moe.n_shared_experts),
+                d_ff_expert=min(128, moe.d_ff_expert),
+            )
+        mla = self.mla
+        if mla is not None:
+            mla = replace(
+                mla,
+                kv_lora_rank=64,
+                rope_head_dim=16,
+                nope_head_dim=32,
+                v_head_dim=32,
+                q_lora_rank=(32 if mla.q_lora_rank else 0),
+            )
+        # compress long patterns (e.g. jamba's 8-layer period) to the unique
+        # (mixer, ffn) combos so the smoke variant stays <=4 layers while
+        # still exercising every block kind of the family
+        pattern = tuple(dict.fromkeys(self.pattern))[:4]
+        n_layers = self.first_k_dense + len(pattern) * max(1, 2 // len(pattern))
+        return replace(
+            self,
+            name=self.name + "-smoke",
+            pattern=pattern,
+            n_layers=n_layers,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            first_k_dense_d_ff=min(self.first_k_dense_d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=(d_model // n_heads),
+            sliding_window=(64 if self.sliding_window else None),
+            moe=moe,
+            mla=mla,
+            ssm=replace(self.ssm, d_state=8, chunk=16),
+            mrope_sections=tuple(
+                s * (d_model // n_heads) // self.resolved_head_dim or 1
+                for s in self.mrope_sections
+            ),
+            dtype="float32",
+        )
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name.endswith("-smoke"):
+        return get_config(name[: -len("-smoke")]).reduced()
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in ASSIGNED:
+        raise KeyError(
+            f"{name} is not ported yet: the model zoo's later slices port its "
+            "blocks (ROADMAP queue 1, model zoo); only "
+            f"{', '.join(sorted(_REGISTRY))} runs in repro_torch so far"
+        )
+    raise KeyError(f"unknown config {name!r}")
+
+
+def list_configs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+_LOADED = False
+
+# the reference's assigned architectures; the port registers the ones
+# whose blocks it has ported (the serving slice: dense GQA only)
+ASSIGNED = (
+    "h2o-danube-3-4b",
+    "jamba-1.5-large-398b",
+    "xlstm-125m",
+    "musicgen-medium",
+    "qwen2.5-14b",
+    "moonshot-v1-16b-a3b",
+    "deepseek-v2-lite-16b",
+    "qwen3-moe-235b-a22b",
+    "starcoder2-15b",
+    "qwen2-vl-2b",
+)
+
+
+def _ensure_loaded() -> None:
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    import importlib
+
+    importlib.import_module("repro_torch.configs.h2o_danube3")
+
+
+def param_count(cfg: ModelConfig) -> tuple[int, int]:
+    """(total params, active params per token) — analytic, for roofline."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    active = total
+    for mixer, ffn in cfg.layer_pattern:
+        if mixer == ATTN:
+            m = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d
+        elif mixer == MLA:
+            a = cfg.mla
+            q_dim = a.nope_head_dim + a.rope_head_dim
+            m = (
+                d * (a.q_lora_rank or 0)
+                + (a.q_lora_rank or d) * cfg.n_heads * q_dim
+                + d * (a.kv_lora_rank + a.rope_head_dim)
+                + a.kv_lora_rank * cfg.n_heads * (a.nope_head_dim + a.v_head_dim)
+                + cfg.n_heads * a.v_head_dim * d
+            )
+        elif mixer == MAMBA:
+            di = cfg.ssm.expand * d
+            dtr = cfg.ssm.dt_rank or -(-d // 16)
+            m = (
+                d * 2 * di
+                + di * cfg.ssm.d_conv
+                + di * (dtr + 2 * cfg.ssm.d_state)
+                + dtr * di
+                + di * cfg.ssm.d_state
+                + di
+                + di * d
+            )
+        elif mixer == MLSTM:
+            di = int(cfg.xlstm.mlstm_proj_factor * d)
+            m = d * 2 * di + di * cfg.xlstm.conv_width + 3 * di * di + 3 * di + di * d
+        elif mixer == SLSTM:
+            dff = int(cfg.xlstm.slstm_ffn_factor * d)
+            m = 4 * d * d + 4 * d + 2 * d * dff
+        else:
+            raise ValueError(mixer)
+        total += m
+        active += m
+        if ffn == FFN_DENSE:
+            f = 3 * d * cfg.d_ff if cfg.mlp_variant == "swiglu" else 2 * d * cfg.d_ff
+            total += f
+            active += f
+        elif ffn == FFN_MOE:
+            fe = 3 * d * cfg.moe.d_ff_expert
+            total += (
+                fe * (cfg.moe.n_experts + cfg.moe.n_shared_experts)
+                + d * cfg.moe.n_experts
+            )
+            active += (
+                fe * (cfg.moe.top_k + cfg.moe.n_shared_experts)
+                + d * cfg.moe.n_experts
+            )
+    return total, active

@@ -8,6 +8,10 @@ keep the ``x @ w`` layout and biases stay as they are.  Leading axes
 (a stacked agent axis) pass through untouched, so the same functions
 convert one agent's tree and a stacked fleet's.
 
+The model zoo's params (:func:`zoo_params_from_numpy`) keep the
+reference's layout leaf for leaf: nested dicts, ``x @ w`` weights, the
+per-group leaves stacked on a leading ``[G, ...]`` axis.
+
 The port's own init cannot reproduce JAX's threefry bits, so tests seed
 the port from converted reference params.
 """
@@ -83,6 +87,21 @@ def fleet_state_from_numpy(
     )
 
 
+def _leaf_from_numpy(v, device) -> torch.Tensor:
+    v = np.asarray(v)
+    if v.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits as torch's
+        return torch.from_numpy(v.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(v, device=device)  # a copy
+
+
+def zoo_params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
+    """Reference model-zoo params (``init_params``'s pytree as numpy) ->
+    the port's nested dict of tensors on ``device``, dtypes kept."""
+    if isinstance(tree, dict):
+        return {k: zoo_params_from_numpy(v, device) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
 def fleet_state_to_numpy(state: FleetState) -> dict:
     """Port :class:`FleetState` -> numpy dict (the inverse)."""
     return {
@@ -100,4 +119,5 @@ __all__ = [
     "dqn_params_to_numpy",
     "fleet_state_from_numpy",
     "fleet_state_to_numpy",
+    "zoo_params_from_numpy",
 ]

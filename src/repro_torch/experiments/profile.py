@@ -37,7 +37,7 @@ from repro_torch.rl.fleet import FleetSteps
 ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
-def _device_summary(prof, wall_s: float) -> dict:
+def device_summary(prof, wall_s: float) -> dict:
     rows = [
         e
         for e in prof.key_averages()
@@ -86,7 +86,7 @@ def _profile_steps(cfg: DQNConfig, n_agents: int, k_steps: int = 8) -> dict:
     _timed(lambda: steps.train_chunk(state, pool, idx))  # warm-up
     with profile(activities=ACTIVITIES) as prof:
         _, wall_s = _timed(lambda: steps.train_chunk(state, pool, idx))
-    dev = _device_summary(prof, wall_s)
+    dev = device_summary(prof, wall_s)
     return {
         "agents": n_agents,
         "steps": k_steps,
@@ -117,9 +117,9 @@ def profile_main_path() -> dict:
         "wall_s": run_s,
         "agent_steps": system.engine.n_steps_trained,
         "stacked_steps": system.engine.n_chunk_steps,
-        **_device_summary(prof_run, prun_s),
+        **device_summary(prof_run, prun_s),
     }
-    out["eval"] = {"wall_s": eval_s, **_device_summary(prof_eval, peval_s)}
+    out["eval"] = {"wall_s": eval_s, **device_summary(prof_eval, peval_s)}
     out["step"] = _profile_steps(spec.dqn, spec.sys.n_agents)
     out["mean_dist_err"] = report.mean_dist_err
     return out

@@ -2,6 +2,9 @@
 
 * :mod:`repro_torch.kernels.replay_gather` — the fleet's minibatch gather;
 * :mod:`repro_torch.kernels.fused_td` — the TD-target + Huber tail;
+* :mod:`repro_torch.kernels.rmsnorm` — the model zoo's RMSNorm;
+* :mod:`repro_torch.kernels.flash_attention` — the model zoo's prefill
+  attention;
 * :mod:`repro_torch.kernels.lib` — builds ``csrc/*.cu`` with ``nvcc`` and
   loads the library with ``ctypes``.
 """

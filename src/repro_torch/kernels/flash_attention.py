@@ -1,0 +1,148 @@
+"""Fused attention forward (FlashAttention-2): causal, GQA, sliding window,
+tanh logit softcap.
+
+The model zoo's prefill runs it once per attention layer (24 times per
+prefill of h2o-danube-3-4b).
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
+(``flash_attention_bhsd``; layout and padding in ``ops.py``, oracle
+``ref.py::attention_ref``) with the hand-written CUDA kernel
+``repro_torch/csrc/flash_attention.cu``.  The kernel takes the model's
+``[B, S, H, D]`` layout directly (no transpose, no padding: the kv tail is
+masked by the true length) and reads kv head ``h // (Hq / Hkv)`` in place.
+What bounds it on an H100: operations; its design (one CTA per q tile and
+head, online softmax, float32 FMAs from shared memory, fully masked tiles
+never visited) is set out in the source.
+
+On a CPU tensor :func:`flash_attention` computes :func:`attention_plain`;
+on a CUDA tensor it launches the kernel or raises.  ``launches`` counts
+kernel launches only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import lib
+
+NEG_INF = -1e30  # the reference's mask value
+MAX_HEAD_DIM = 128  # the kernel's largest head_dim
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The plain PyTorch version (``attention_ref``: the S x S softmax
+    materialised in float32): what the CPU runs and what the kernel is
+    checked against on the card.  q [B,S,Hq,D], k/v [B,S,Hkv,D] ->
+    [B,S,Hq,D] in q's dtype."""
+    s, hq, d = q.shape[1:]
+    g = hq // k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    kr = k.repeat_interleave(g, dim=2).float()
+    vr = v.repeat_interleave(g, dim=2).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(
+            f"flash_attention wants q [B,S,Hq,D] and k, v [B,S,Hkv,D]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, hq, d = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d) or hq % k.shape[2]:
+        raise ValueError(
+            f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+        )
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes head_dim 1..{MAX_HEAD_DIM}, not {d}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, not {window}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(
+            "flash_attention wants q, k, v all float32 or all bfloat16; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention operands are on different devices")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention operands must be contiguous")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """q [B,S,Hq,D], k/v [B,S,Hkv,D] (float32 or bfloat16, contiguous,
+    Hq a multiple of Hkv, D <= 128) -> [B,S,Hq,D] in q's dtype."""
+    _check(q, k, v, window)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_plain(
+            q, k, v, causal=causal, window=window, scale=scale, softcap=softcap
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    b, s, hq, d = q.shape
+    kernels = lib.load()
+    if q.dtype == torch.float32:
+        fn = kernels.flash_attention_f32
+    else:
+        fn = kernels.flash_attention_bf16
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(),
+            k.data_ptr(),
+            v.data_ptr(),
+            out.data_ptr(),
+            b,
+            s,
+            hq,
+            k.shape[2],
+            d,
+            float(scale),
+            float(softcap),
+            int(causal),
+            0 if window is None else int(window),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    lib.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+__all__ = ["MAX_HEAD_DIM", "attention_plain", "flash_attention"]

@@ -28,7 +28,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("replay_gather.cu", "fused_td.cu")
+SOURCES = ("replay_gather.cu", "fused_td.cu", "rmsnorm.cu", "flash_attention.cu")
 
 
 def _build_dir() -> Path:
@@ -119,6 +119,15 @@ def load() -> ctypes.CDLL:
         lib.replay_gather_f32.restype = i32
         lib.fused_td_f32.argtypes = [ptr] * 6 + [i32, i32, ctypes.c_float, ptr]
         lib.fused_td_f32.restype = i32
+        f32 = ctypes.c_float
+        for name in ("rmsnorm_f32", "rmsnorm_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ptr, i32, i32, f32, i32, ptr]
+            fn.restype = i32
+        for name in ("flash_attention_f32", "flash_attention_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32, i32, i32, ptr]
+            fn.restype = i32
         _LIB = lib
     return _LIB
 

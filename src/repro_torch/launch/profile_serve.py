@@ -1,0 +1,79 @@
+"""Where the model zoo's serving path spends its time on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Profiles the run ``chip_smoke.py``'s ``zoo_main`` drives: h2o-danube-3-4b
+at full width in bfloat16, random weights from seed 0, batch 4, prompt
+1000, 32 greedy steps (``repro_torch.launch.serve.generate``).  One
+warm-up generation, one plain generation for the wall times, then the
+prefill and the decode loop each under ``torch.profiler`` (CPU + CUDA
+activities).  Prints one JSON object with, for the prefill and the
+decode separately: the unprofiled wall seconds, the device's busy
+seconds (CUDA kernel and memcpy time the profiler saw), the idle share
+``1 - busy / profiled wall``, the device operations launched and the ten
+kernels with the most device time.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+from torch.profiler import profile
+
+from repro_torch.experiments.profile import ACTIVITIES, device_summary
+from repro_torch.launch import serve
+
+ARCH, BATCH, PROMPT, GEN = "h2o-danube-3-4b", 4, 1000, 32
+
+
+def profile_serve() -> dict:
+    model, params, prompt = serve.setup(ARCH, BATCH, PROMPT, 0)
+    serve.generate(model, params, prompt, GEN)  # warm-up: cuBLAS, lazy loading
+    plain = serve.generate(model, params, prompt, GEN)
+
+    with profile(activities=ACTIVITIES) as prof_prefill:
+        t0 = time.perf_counter()
+        _, pre = model.prefill_step(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    caches = serve.load_prefill(model.init_caches(BATCH, PROMPT + GEN), pre)
+    tok = plain.tokens[:, :1]
+    with profile(activities=ACTIVITIES) as prof_decode:
+        t0 = time.perf_counter()
+        for i in range(GEN):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device="cuda")
+            lg, caches = model.serve_step(params, caches, {"tokens": tok, "pos": pos})
+            tok = lg.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    decode = device_summary(prof_decode, decode_s)
+    return {
+        "arch": ARCH,
+        "batch": BATCH,
+        "prompt": PROMPT,
+        "gen": GEN,
+        "prefill": {
+            "wall_s": plain.prefill_s,
+            **device_summary(prof_prefill, prefill_s),
+        },
+        "decode": {
+            "wall_s": plain.decode_s,
+            "tok_per_s": GEN * BATCH / plain.decode_s,
+            "device_ops_per_step": decode["device_ops"] / GEN,
+            **decode,
+        },
+    }
+
+
+def main() -> int:
+    result = profile_serve()
+    result["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

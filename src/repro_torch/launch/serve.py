@@ -1,0 +1,157 @@
+"""Serving CLI of the port: one prefill, then batched greedy decode of a
+model-zoo config (the reference's ``repro/launch/serve.py``, transformer
+mode).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
+        --batch 4 --prompt-len 1000 --gen 32 [--seed 0] [--device cpu]
+
+The weights are random, drawn on the device from ``--seed``; the prompt
+is drawn with numpy from the same seed, as the reference draws it.
+``--arch NAME-smoke`` serves the config's reduced CPU variant.  The
+fleet's localization serving plane (``--fleet`` in the reference) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.models.model import Model
+
+
+@dataclass
+class Generation:
+    tokens: torch.Tensor  # [B, gen + 1] greedy ids: the prefill's, then each step's
+    logits: torch.Tensor  # [gen, B, V] float32 logits of each decode step
+    prefill_s: float  # wall seconds of the prefill, synchronised
+    decode_s: float  # wall seconds of the decode loop, synchronised
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def load_prefill(caches, pre_caches):
+    """Copy the prefill's k/v/kpos into the decode caches (the reference's
+    ``_load_prefill``).
+
+    Every prefill leaf must either match its decode leaf exactly or be a
+    same-rank prefix of it (kv caches sized for the whole conversation);
+    anything else is a wiring bug, and silently keeping the empty decode
+    cache would serve garbage, so it raises."""
+    if isinstance(caches, dict):
+        if not isinstance(pre_caches, dict) or caches.keys() != pre_caches.keys():
+            raise ValueError("prefill caches do not have the decode caches' leaves")
+        return {k: load_prefill(caches[k], pre_caches[k]) for k in caches}
+    dst, src = caches, pre_caches
+    if dst.shape == src.shape:
+        return src.to(dst.dtype)
+    if dst.dim() == src.dim() and all(
+        sd <= dd for sd, dd in zip(src.shape, dst.shape, strict=True)
+    ):
+        # group-stacked kv: [G, B, L, H, D] <- [G, B, s, H, D]
+        dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
+        return dst
+    raise ValueError(
+        f"prefill cache leaf {tuple(src.shape)} does not fit decode cache "
+        f"leaf {tuple(dst.shape)} (rank or axis mismatch)"
+    )
+
+
+def prompt_tokens(
+    vocab_size: int, batch: int, prompt_len: int, seed: int
+) -> np.ndarray:
+    """The reference driver's prompt: numpy ``default_rng(seed)`` ids."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab_size, (batch, prompt_len))
+
+
+def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Generation:
+    """Prefill ``prompt`` [B, S] once, then ``gen`` greedy decode steps,
+    each feeding the previous step's argmax."""
+    dev = model.device
+    b, s = prompt.shape
+    t0 = time.perf_counter()
+    last_logits, pre_caches = model.prefill_step(params, {"tokens": prompt})
+    # decode caches sized for the whole conversation; the prefill's k/v in
+    caches = load_prefill(model.init_caches(b, s + gen), pre_caches)
+    tok = last_logits.argmax(-1).to(torch.int32)[:, None]
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    tokens, logits = [tok], []
+    t0 = time.perf_counter()
+    for i in range(gen):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        lg, caches = model.serve_step(params, caches, {"tokens": tok, "pos": pos})
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        tokens.append(tok)
+        logits.append(lg.float())
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    if logits:
+        stacked = torch.stack(logits)
+    else:
+        stacked = torch.empty(0, b, model.cfg.vocab_size, device=dev)
+    return Generation(torch.cat(tokens, 1), stacked, prefill_s, decode_s)
+
+
+def setup(arch: str, batch: int, prompt_len: int, seed: int, device=None):
+    """(model, params, prompt) as the CLI builds them: random params drawn on
+    the device from ``seed``, the prompt from numpy's ``default_rng(seed)``."""
+    model = Model(get_config(arch), device)
+    if model.cfg.input_kind != "tokens":
+        raise NotImplementedError(
+            f"{arch}: embedding inputs are not ported yet (ROADMAP queue 1)"
+        )
+    params = model.init_params(seed)
+    tok = prompt_tokens(model.cfg.vocab_size, batch, prompt_len, seed)
+    prompt = torch.tensor(tok, dtype=torch.int32, device=model.device)
+    return model, params, prompt
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default=None, help="transformer config to decode")
+    ap.add_argument(
+        "--fleet", action="store_true", help="the fleet serving plane (not ported)"
+    )
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument(
+        "--device", default=None, help="torch device (default: the CUDA card)"
+    )
+    args = ap.parse_args(argv)
+    if args.fleet:
+        ap.exit(2, "--fleet: not ported yet: ROADMAP queue 1 item 8\n")
+    if args.arch is None:
+        ap.error("--arch is required")
+
+    model, params, prompt = setup(
+        args.arch, args.batch, args.prompt_len, args.seed, args.device
+    )
+    b, s = prompt.shape
+    out = generate(model, params, prompt, args.gen)
+    print(f"prefill [{b}x{s}] in {out.prefill_s:.2f}s")
+    tok_s = args.gen * b / out.decode_s if out.decode_s > 0 else float("inf")
+    print(
+        f"decoded {args.gen} tokens x {b} reqs in {out.decode_s:.2f}s "
+        f"({tok_s:.1f} tok/s)"
+    )
+    print("sample token ids:", out.tokens[0, :16].cpu().numpy())
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

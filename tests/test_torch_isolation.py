@@ -44,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference():
         check=True,
     ).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
-    assert n_modules >= 25  # every module of the port was imported
+    assert n_modules >= 45  # every module of the port was imported, the zoo's too
     assert bad == "[]"
 
 
@@ -52,9 +52,12 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs on it")
     from repro_torch.configs.adfll_dqn import ADFLLConfig, DQNConfig
+    from repro_torch.configs.base import get_config
     from repro_torch.core.federated import ADFLLSystem
     from repro_torch.experiments.__main__ import main
     from repro_torch.experiments.runner import run
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
     from repro_torch.rl.agent import DQNAgent
     from repro_torch.rl.fleet import FleetEngine
     from repro_torch.rl.synth import paper_eight_tasks
@@ -66,7 +69,10 @@ def test_entry_points_default_to_cuda():
         lambda: ADFLLSystem(ADFLLConfig(), cfg, paper_eight_tasks(), [0, 1]),
         lambda: run("paper_fig2", fast=True),
         lambda: main(["--scenario", "paper_fig2", "--fast"]),
+        lambda: Model(get_config("h2o-danube-3-4b-smoke")),
+        lambda: serve.main(["--arch", "h2o-danube-3-4b-smoke", "--gen", "1"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert FleetEngine(cfg, device="cpu").device.type == "cpu"
+    assert Model(get_config("h2o-danube-3-4b-smoke"), "cpu").device.type == "cpu"
