@@ -23,9 +23,12 @@ non-zero exit code and no result line:
    alone: every stacked train step launches each kernel once.
 6. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes and at
-   a ragged / windowed / softcapped one, timed like phase 3 beside one
-   PyTorch library call; rmsnorm is bound by bytes, attention by
-   operations (4 B Hq D flops per unmasked pair at the dtype's peak).
+   ragged / windowed / softcapped / odd-head-dim ones, each attention case
+   on the route it must take (tensor cores for bf16 with D % 8 == 0, the
+   scalar kernel otherwise), timed like phase 3 beside one PyTorch library
+   call (attention: SDPA with the boolean mask, and with ``is_causal``
+   where the window does not bind); rmsnorm is bound by bytes, attention
+   by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
 7. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
@@ -33,8 +36,9 @@ non-zero exit code and no result line:
 8. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
    h2o-danube-3-4b in bfloat16, random weights drawn on the card from
    seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
-   the prefill and decode alone (24 ``flash_attention``, 49 x 33
-   ``rmsnorm``), then decode logits at 4 positions against the
+   the prefill and decode alone (24 ``flash_attention``, all on the
+   tensor-core route, 49 x 33 ``rmsnorm``), then decode logits at 4
+   positions against the
    teacher-forced ``forward`` on the card.
 
 Then one line with the card as ``nvidia-smi`` reports it, one
@@ -64,6 +68,7 @@ from repro_torch.kernels import lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
     flash_attention,
+    route,
 )
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
@@ -275,6 +280,7 @@ def phase_chunk(dev) -> None:
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
 
 
 def read_launches() -> dict[str, int]:
@@ -391,68 +397,92 @@ def attention_bound(b, s, hq, hkv, d, dtype, window) -> tuple[float, str]:
 
 def check_flash_attention(dev) -> dict:
     """The zoo main path's prefill shape, a 4608-token one with the 4096
-    window live, and a float32 one with a softcap.  Tolerances: bf16 3e-2
-    (as tests/test_kernels.py), f32 2e-5."""
+    window live, a float32 one with a softcap, and the edges of the
+    tensor-core route: a single tile, tails at S = 1000 and 130, GQA
+    groups 1, 4 and 8, a window that cuts inside a tile, a bf16 softcap,
+    D = 40 (one zero-padded half) and D = 36 (the scalar route).  v has a
+    different spread for every key, so a key taken in the wrong order
+    shows.  Each case must move its route's launch count.  Tolerances: bf16
+    3e-2 (as tests/test_kernels.py), f32 2e-5."""
     rng = np.random.default_rng(4)
     cfg = get_config(ZOO_ARCH)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     w = cfg.sliding_window
+    bf, f32 = torch.bfloat16, torch.float32
     cases = (
-        ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, torch.bfloat16, w, 0.0, 3e-2),
-        ("window", 1, 4608, hq, hkv, torch.bfloat16, w, 0.0, 3e-2),
-        ("softcap", 2, 333, 8, 2, torch.float32, None, 30.0, 2e-5),
+        ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, d, bf, w, 0.0, 3e-2),
+        ("window", 1, 4608, hq, hkv, d, bf, w, 0.0, 3e-2),
+        ("softcap", 2, 333, 8, 2, d, f32, None, 30.0, 2e-5),
+        ("tile", 1, 64, 1, 1, 64, bf, None, 0.0, 3e-2),
+        ("group1", 2, 1000, 8, 8, d, bf, None, 0.0, 3e-2),
+        ("group4", 1, 130, 8, 2, d, bf, None, 0.0, 3e-2),
+        ("group8", 1, 130, 8, 1, d, bf, None, 0.0, 3e-2),
+        ("window48", 2, 200, 4, 1, 64, bf, 48, 0.0, 3e-2),
+        ("softcap_bf16", 1, 300, 4, 2, 128, bf, None, 30.0, 3e-2),
+        ("d40", 2, 150, 4, 2, 40, bf, None, 0.0, 3e-2),
+        ("d36", 1, 150, 4, 2, 36, bf, None, 0.0, 3e-2),
     )
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     worst, out = 0.0, {}
-    for name, b, s, nq, nkv, dtype, window, cap, tol in cases:
-        q, k, v = (
-            torch.tensor(rng.standard_normal((b, s, n, d)), dtype=dtype, device=dev)
-            for n in (nq, nkv, nkv)
+    for name, b, s, nq, nkv, hd, dtype, window, cap, tol in cases:
+        q, k = (
+            torch.tensor(rng.standard_normal((b, s, n, hd)), dtype=dtype, device=dev)
+            for n in (nq, nkv)
+        )
+        spread = rng.uniform(0.25, 2.0, (1, s, 1, 1))
+        v = torch.tensor(
+            rng.standard_normal((b, s, nkv, hd)) * spread, dtype=dtype, device=dev
         )
         kw = {"window": window, "softcap": cap}
+        way = route(dtype, hd)
+        before = dict(flash_attention.launches_by_route)
         got = flash_attention(q, k, v, **kw)
         want = attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in flash_attention.launches_by_route.items()}
+        require(
+            moved == {r: int(r == way) for r in moved},
+            f"flash_attention {name}: expected one {way} launch, got {moved}",
+        )
         err = float((got.float() - want.float()).abs().max())
         require(
             torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-            f"flash_attention {name} {[b, s, nq, nkv, d]} {dtype}: max|d|={err}",
+            f"flash_attention {name} {[b, s, nq, nkv, hd]} {dtype}: max|d|={err}",
         )
         worst = max(worst, err)
-        bound, by = attention_bound(b, s, nq, nkv, d, dtype, window)
-        shape = [b, s, nq, nkv, d, str(dtype).removeprefix("torch.")]
-        if name == "window":
-            out[name] = {
-                "ms": cuda_ms(
-                    lambda: flash_attention(q, k, v, **kw), reps=20, warmup=2
-                ),
-                "bound_ms": bound,
-                "bound_by": by,
-                "shape": shape,
-            }
-        elif name == "main":
-            # SDPA's boolean mask: True = attend (causal, inside the window)
-            i = torch.arange(s, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-            def library():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True
-                )
-
-            out[name] = {
-                "ms": cuda_ms(
-                    lambda: flash_attention(q, k, v, **kw), reps=50, warmup=5
-                ),
-                "plain_ms": cuda_ms(
-                    lambda: attention_plain(q, k, v, **kw), reps=20, warmup=2
-                ),
-                "library_ms": cuda_ms(library, reps=50, warmup=5),
-                "bound_ms": bound,
-                "bound_by": by,
-                "shape": shape,
-            }
-        del q, k, v, got, want
+        if name not in ("main", "window"):
+            continue
+        bound, by = attention_bound(b, s, nq, nkv, hd, dtype, window)
+        # SDPA's boolean mask: True = attend (causal, inside the window)
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        reps = 50 if name == "main" else 20
+        out[name] = {
+            "route": way,
+            "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=reps, warmup=5),
+            "library_ms": cuda_ms(
+                lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                reps=reps,
+                warmup=5,
+            ),
+            "bound_ms": bound,
+            "bound_by": by,
+            "shape": [b, s, nq, nkv, hd, str(dtype).removeprefix("torch.")],
+        }
+        if name == "main":
+            # the window (4096) does not bind at S = 1000: is_causal computes
+            # the same function and may take SDPA's flash backend
+            require(s <= window, "the main case's window must not bind")
+            out[name]["library_causal_ms"] = cuda_ms(
+                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                reps=reps,
+                warmup=5,
+            )
+            out[name]["plain_ms"] = cuda_ms(
+                lambda: attention_plain(q, k, v, **kw), reps=20, warmup=2
+            )
+        del q, k, v, got, want, mask
     main = {"max_abs_err": worst, **out["main"], "window": out["window"]}
     emit({"phase": "kernel", "name": "flash_attention", **main})
     return main
@@ -510,12 +540,13 @@ def phase_zoo_chunk(dev) -> None:
     n_layers = cfg.n_layers
     require(
         launches["flash_attention"] == n_layers
-        and launches["rmsnorm"] == (2 * n_layers + 1) * (steps + 1),
-        f"zoo chunk: launches {launches}",
+        and launches["rmsnorm"] == (2 * n_layers + 1) * (steps + 1)
+        and flash_attention.launches_by_route["scalar"] == n_layers,
+        f"zoo chunk: launches {launches}, {flash_attention.launches_by_route}",
     )
 
 
-def phase_zoo_main(dev) -> dict[str, int]:
+def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, int]]:
     """The serving CLI's path at full width, then decode logits at 4
     positions against the teacher-forced forward on the card.
 
@@ -534,6 +565,7 @@ def phase_zoo_main(dev) -> dict[str, int]:
     reset_launches()
     out = serve.generate(model, params, prompt, ZOO_GEN)
     launches = read_launches()
+    by_route = dict(flash_attention.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # teacher-forced: the prompt and the fed tokens in one forward
@@ -562,6 +594,7 @@ def phase_zoo_main(dev) -> dict[str, int]:
             "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
             "peak_gb": peak_gb,
             "launches": launches,
+            "flash_attention_launches_by_route": by_route,
             "teacher_forced_positions": at,
             "teacher_forced_max_abs_err": err,
             "teacher_forced_max_abs_logit": scale,
@@ -574,6 +607,10 @@ def phase_zoo_main(dev) -> dict[str, int]:
         launches["flash_attention"] == n_layers,
         f"flash_attention launched {launches['flash_attention']} times, not {n_layers}",
     )
+    require(
+        by_route == {"wgmma": n_layers, "scalar": 0},
+        f"flash_attention routes {by_route}: every prefill layer must take wgmma",
+    )
     want_rms = (2 * n_layers + 1) * (ZOO_GEN + 1)
     require(
         launches["rmsnorm"] == want_rms,
@@ -583,7 +620,7 @@ def phase_zoo_main(dev) -> dict[str, int]:
         err <= 3e-2 * scale,
         f"zoo main: decode vs teacher-forced logits max|d|={err}, max|logit|={scale}",
     )
-    return launches
+    return launches, by_route
 
 
 def main() -> int:
@@ -599,7 +636,7 @@ def main() -> int:
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)
     phase_zoo_chunk(dev)
-    zoo_launches = phase_zoo_main(dev)
+    zoo_launches, by_route = phase_zoo_main(dev)
     for name in ("rmsnorm", "flash_attention"):
         launches[name] = zoo_launches[name]
     meta = {
@@ -635,10 +672,13 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             "check": "pass",
-            **{k: r[k] for k in ("decode", "window") if k in r},
+            **{k: r[k] for k in ("decode", "window", "library_causal_ms") if k in r},
         }
         for name, r in results.items()
     ]
+    for entry in kernels:
+        if entry["name"] == "flash_attention":
+            entry["launches_by_route"] = by_route
     print(smi)
     emit({"kernels": kernels})
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

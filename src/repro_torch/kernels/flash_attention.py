@@ -6,17 +6,27 @@ prefill of h2o-danube-3-4b).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention_bhsd``; layout and padding in ``ops.py``, oracle
-``ref.py::attention_ref``) with the hand-written CUDA kernel
-``repro_torch/csrc/flash_attention.cu``.  The kernel takes the model's
+``ref.py::attention_ref``) with the hand-written CUDA kernels of
+``repro_torch/csrc/flash_attention.cu``.  Both take the model's
 ``[B, S, H, D]`` layout directly (no transpose, no padding: the kv tail is
-masked by the true length) and reads kv head ``h // (Hq / Hkv)`` in place.
-What bounds it on an H100: operations; its design (one CTA per q tile and
-head, online softmax, float32 FMAs from shared memory, fully masked tiles
-never visited) is set out in the source.
+masked by the true length) and read kv head ``h // (Hq / Hkv)`` in place.
+Attention is bound by operations on an H100.  A CUDA call takes one of two
+routes, chosen by :func:`route` before the launch (no fallback between
+them):
+
+* ``"wgmma"`` (bf16, ``D % 8 == 0``; every head dim the zoo's configs
+  use): tensor-core products (``wgmma``) on tiles that TMA brings into
+  shared memory through two-slot k and v rings, the online softmax in
+  registers,
+  P rounded to bf16 for the second product (the one change of arithmetic
+  against the reference).  TMA wants 16-byte aligned operands and row
+  strides: :func:`check_tma_operands` raises otherwise.
+* ``"scalar"`` (float32, and bf16 with ``D % 8 != 0``): float32 FMAs from
+  shared memory, the reference's arithmetic, far from the tensor cores.
 
 On a CPU tensor :func:`flash_attention` computes :func:`attention_plain`;
-on a CUDA tensor it launches the kernel or raises.  ``launches`` counts
-kernel launches only.
+on a CUDA tensor it launches a kernel or raises.  ``launches`` counts
+kernel launches only, ``launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from repro_torch.kernels import lib
 NEG_INF = -1e30  # the reference's mask value
 MAX_HEAD_DIM = 128  # the kernel's largest head_dim
 _DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("wgmma", "scalar")
+TMA_ALIGN = 16  # bytes: TMA's rule for a tensor's base and row strides
 
 
 def attention_plain(
@@ -91,6 +103,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
         raise ValueError("flash_attention operands must be contiguous")
 
 
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call with operands of ``dtype`` and ``head_dim``
+    (already checked: at most 128) takes: ``"wgmma"`` for bf16 with
+    ``head_dim % 8 == 0``, else ``"scalar"``."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0:
+        return "wgmma"
+    return "scalar"
+
+
+def check_tma_operands(*tensors: torch.Tensor) -> None:
+    """Raise unless every operand of the ``"wgmma"`` route starts on a
+    16-byte boundary and its rows (``D`` elements) are a multiple of 16
+    bytes long, as the kernel's TMA tensor maps need."""
+    for t in tensors:
+        row = t.shape[-1] * t.element_size()
+        if t.data_ptr() % TMA_ALIGN or row % TMA_ALIGN:
+            raise ValueError(
+                f"flash_attention's tensor-core route wants {TMA_ALIGN}-byte aligned "
+                f"operands and rows; got an operand at byte {t.data_ptr() % TMA_ALIGN} "
+                f"past a boundary with {row}-byte rows"
+            )
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -116,8 +151,12 @@ def flash_attention(
     if out.numel() == 0:
         return out
     b, s, hq, d = q.shape
+    way = route(q.dtype, d)
     kernels = lib.load()
-    if q.dtype == torch.float32:
+    if way == "wgmma":
+        check_tma_operands(q, k, v)
+        fn = kernels.flash_attention_bf16_wgmma
+    elif q.dtype == torch.float32:
         fn = kernels.flash_attention_f32
     else:
         fn = kernels.flash_attention_bf16
@@ -140,9 +179,18 @@ def flash_attention(
         )
     lib.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[way] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
-__all__ = ["MAX_HEAD_DIM", "attention_plain", "flash_attention"]
+__all__ = [
+    "MAX_HEAD_DIM",
+    "ROUTES",
+    "attention_plain",
+    "check_tma_operands",
+    "flash_attention",
+    "route",
+]

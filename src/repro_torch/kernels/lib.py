@@ -124,7 +124,11 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, i32, i32, f32, i32, ptr]
             fn.restype = i32
-        for name in ("flash_attention_f32", "flash_attention_bf16"):
+        for name in (
+            "flash_attention_f32",
+            "flash_attention_bf16",
+            "flash_attention_bf16_wgmma",
+        ):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32, i32, i32, ptr]
             fn.restype = i32

@@ -24,7 +24,9 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
+    check_tma_operands,
     flash_attention,
+    route,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 
@@ -115,8 +117,10 @@ def _check_attention(ref, arrays, dtype, atol, **kw):
     want_kernel = ref.flash(*jt, causal=True, block_q=64, block_k=64, **kw)
     want_oracle = ref.attention_ref(*jt, causal=True, **kw)
     before = flash_attention.launches
+    before_route = dict(flash_attention.launches_by_route)
     got = flash_attention(*tt, causal=True, **kw)
     assert flash_attention.launches == before
+    assert flash_attention.launches_by_route == before_route
     assert got.dtype == tt[0].dtype and got.shape == tt[0].shape
     for want in (want_kernel, want_oracle):
         np.testing.assert_allclose(_f32(got), _f32(want), atol=atol, rtol=atol)
@@ -169,6 +173,40 @@ def test_attention_rejects_bad_operands(rng):
         flash_attention(big, big, big)  # head_dim above the kernel's 128
 
 
+@pytest.mark.parametrize(
+    "dtype,d,want",
+    [
+        (torch.bfloat16, 120, "wgmma"),  # h2o-danube-3-4b
+        (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 40, "wgmma"),  # one 64-column half, zero-padded
+        (torch.bfloat16, 8, "wgmma"),
+        (torch.bfloat16, 36, "scalar"),  # rows of 72 bytes: no TMA
+        (torch.bfloat16, 1, "scalar"),
+        (torch.float32, 120, "scalar"),  # the reference's float32 arithmetic
+        (torch.float32, 64, "scalar"),
+    ],
+)
+def test_flash_attention_route(dtype, d, want):
+    assert route(dtype, d) == want
+
+
+def test_tma_operands_must_be_16_byte_aligned():
+    """The tensor-core route's TMA maps want 16-byte aligned bases and
+    rows: a contiguous view one element into its storage is refused."""
+    shape = (1, 16, 2, 64)
+    base = torch.zeros(2 * 16 * 64 + 8, dtype=torch.bfloat16)
+    ok = base[: 2 * 16 * 64].view(shape)
+    off = base[1 : 1 + 2 * 16 * 64].view(shape)
+    assert ok.data_ptr() % 16 == 0 and off.is_contiguous()
+    check_tma_operands(ok, ok, ok)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_tma_operands(ok, off, ok)
+    odd = torch.zeros(1, 16, 2, 36, dtype=torch.bfloat16)  # 72-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        check_tma_operands(odd)
+
+
 # -- on the card -----------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize(
@@ -195,21 +233,36 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rng, n, d, dtype, atol):
 @pytest.mark.parametrize(
     "b,s,hq,hkv,d,dtype,window,softcap,atol",
     [
-        (4, 1000, 32, 8, 120, torch.bfloat16, 4096, 0.0, 3e-2),
-        (1, 4608, 32, 8, 120, torch.bfloat16, 4096, 0.0, 3e-2),
+        (4, 1000, 32, 8, 120, torch.bfloat16, 4096, 0.0, 3e-2),  # zoo prefill
+        (1, 4608, 32, 8, 120, torch.bfloat16, 4096, 0.0, 3e-2),  # window live
         (2, 333, 8, 2, 120, torch.float32, None, 30.0, 2e-5),
         (1, 97, 4, 1, 40, torch.float32, 16, 0.0, 2e-5),
+        (1, 64, 1, 1, 64, torch.bfloat16, None, 0.0, 3e-2),  # a single tile
+        (2, 1000, 8, 8, 120, torch.bfloat16, None, 0.0, 3e-2),  # group 1, tail
+        (1, 130, 8, 2, 120, torch.bfloat16, None, 0.0, 3e-2),  # group 4, tail
+        (1, 130, 8, 1, 120, torch.bfloat16, None, 0.0, 3e-2),  # group 8
+        (2, 200, 4, 1, 64, torch.bfloat16, 48, 0.0, 3e-2),  # window inside a tile
+        (1, 300, 4, 2, 128, torch.bfloat16, None, 30.0, 3e-2),  # bf16 softcap
+        (2, 150, 4, 2, 40, torch.bfloat16, None, 0.0, 3e-2),  # one padded half
+        (1, 150, 4, 2, 36, torch.bfloat16, None, 0.0, 3e-2),  # scalar route
     ],
 )
 def test_flash_attention_kernel_matches_plain_on_card(
     cuda, rng, b, s, hq, hkv, d, dtype, window, softcap, atol
 ):
-    q, k, v = (
-        torch.tensor(a, dtype=dtype, device=cuda) for a in _qkv(rng, b, s, hq, hkv, d)
-    )
+    qa, ka, va = _qkv(rng, b, s, hq, hkv, d)
+    # a different spread for every key, so that keys taken in the wrong
+    # order inside a tile show in the output
+    va = va * rng.uniform(0.25, 2.0, (1, s, 1, 1)).astype(np.float32)
+    q, k, v = (torch.tensor(a, dtype=dtype, device=cuda) for a in (qa, ka, va))
+    way = route(dtype, d)
     before = flash_attention.launches
+    before_route = dict(flash_attention.launches_by_route)
     got = flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_route == {
+        r: n + (r == way) for r, n in before_route.items()
+    }
     want = attention_plain(q, k, v, window=window, softcap=softcap)
     torch.testing.assert_close(got, want, atol=atol, rtol=atol)
