@@ -10,10 +10,19 @@ non-zero exit code and no result line:
 2. build   — compile ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a`` and load the library.
 3. kernels — each hand-written kernel against its plain PyTorch version
-   on the card, at the fleet's shapes and at a ragged shape, with
-   CUDA-event times for the kernel, the plain version and (where one
-   exists) a single PyTorch library call, and the least time the card
-   could take (bytes over 3.35 TB/s; both kernels are bound by bytes).
+   on the card, at the fleet's shapes and at a ragged shape (and
+   ``replay_gather`` in every 16-byte phase of its rows), with times for
+   the kernel, the plain version and (where one exists) a single PyTorch
+   library call, and the least time the card could take (bytes over 3.35
+   TB/s; both kernels are bound by bytes).  Three times per kernel (see
+   ``repro_torch/kernels/launch_cost.py``): ``ms``, CUDA events around
+   back-to-back calls from Python (host and device together);
+   ``device_ms``, 100 calls captured in one CUDA graph and replayed
+   (the device alone; capture also proves the call capturable), with
+   ``library_device_ms`` the same for the library call; ``floor_ms``, one
+   ATen elementwise launch (``torch.mul`` that keeps its operand's dtype)
+   on a tensor of about the call's output size, timed like ``ms``: the least one launch from Python costs
+   on this host.
 4. chunk   — one ``FleetSteps.train_chunk`` at ``DQNConfig()`` widths
    (N=4 agents, K=4 steps) on the card and on the CPU from one state,
    pool and index tensor; params must agree within 1e-4.
@@ -29,6 +38,8 @@ non-zero exit code and no result line:
    call (attention: SDPA with the boolean mask, and with ``is_causal``
    where the window does not bind); rmsnorm is bound by bytes, attention
    by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
+   rmsnorm's cases cover both of its routes (``cta``, ``masked``), and
+   each must move its route's launch count.
 7. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
@@ -37,9 +48,9 @@ non-zero exit code and no result line:
    h2o-danube-3-4b in bfloat16, random weights drawn on the card from
    seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
    the prefill and decode alone (24 ``flash_attention``, all on the
-   tensor-core route, 49 x 33 ``rmsnorm``), then decode logits at 4
-   positions against the
-   teacher-forced ``forward`` on the card.
+   tensor-core route, 49 x 33 ``rmsnorm``, all on the ``cta`` route:
+   49 at prefill, 49 x 32 at decode), then decode logits
+   at 4 positions against the teacher-forced ``forward`` on the card.
 
 Then one line with the card as ``nvidia-smi`` reports it, one
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -71,6 +82,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     route,
 )
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
+from repro_torch.kernels.launch_cost import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather,
     replay_gather_plain,
@@ -91,6 +103,13 @@ ZOO_ARCH = "h2o-danube-3-4b"
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
 RMS_EPS = get_config(ZOO_ARCH).norm_eps
 KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention)
+# sub-entries and extra times a kernel's entry of the kernels line carries
+EXTRA_FIELDS = (
+    "decode",
+    "window",
+    "library_causal_ms",
+    "library_causal_device_ms",
+)
 
 
 def emit(obj) -> None:
@@ -100,22 +119,6 @@ def emit(obj) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def cuda_ms(fn, reps: int = 200, warmup: int = 20) -> float:
-    """Mean device time of one ``fn()`` over ``reps`` back-to-back calls
-    (CUDA events; a launch-bound call shows its launch cost here)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: int) -> float:
@@ -153,31 +156,63 @@ def phase_build() -> None:
     emit({"phase": "build", "library": str(path), "seconds": time.perf_counter() - t0})
 
 
+def timings(fn, library, floor, **kw) -> dict:
+    """``ms`` and ``device_ms`` of the kernel's call, the same two of the
+    library call (None where there is none), and ``floor_ms``."""
+    return {
+        "ms": cuda_ms(fn, **kw),
+        "device_ms": graph_ms(fn),
+        "library_ms": None if library is None else cuda_ms(library, **kw),
+        "library_device_ms": None if library is None else graph_ms(library),
+        "floor_ms": cuda_ms(floor, **kw),
+    }
+
+
 def check_replay_gather(dev) -> dict:
+    """The main path's call (w = 1 over N * B rows), a weighted one, a
+    narrow one, and every (destination, source) phase of a 16-byte vector
+    at the fleet's width: output rows i of each i % 4 read pool rows of
+    each idx % 4 (1033 = 1 mod 4), from a pool based on and 4 bytes off a
+    16-byte boundary.  Exact: a copy and one multiply."""
     rng = np.random.default_rng(0)
     feat = flat_width(DQNConfig().box_size)  # 1033
     worst = 0.0
     timed = None
     rows = N_AGENTS * BATCH
-    cases = ((16384, feat, rows, True), (16384, feat, rows, False), (128, 33, 5, False))
-    for cap, f, b, unit_w in cases:
-        pool = torch.tensor(rng.standard_normal((cap, f)), dtype=torch.float32)
-        idx = torch.tensor(rng.integers(0, cap, b), dtype=torch.int32)
+    i = np.arange(64)
+    phased = 4 * (i // 4 + 3 * (i % 7)) + (i // 16 + i) % 4  # all 16 pairs
+    cases = (
+        (16384, feat, rng.integers(0, 16384, rows), True, 0),
+        (16384, feat, rng.integers(0, 16384, rows), False, 0),
+        (128, 33, rng.integers(0, 128, 5), False, 0),
+        (256, feat, phased, False, 0),
+        (256, feat, phased, False, 1),
+    )
+    for cap, f, idx_np, unit_w, offset in cases:
+        b = len(idx_np)
+        flat = torch.tensor(rng.standard_normal(cap * f + offset), dtype=torch.float32)
+        pool = flat.to(dev)[offset:].view(cap, f)  # contiguous, maybe 4 B off
+        idx = torch.tensor(idx_np, dtype=torch.int32, device=dev)
         w = torch.tensor(np.ones(b) if unit_w else rng.random(b), dtype=torch.float32)
-        pool, idx, w = pool.to(dev), idx.to(dev), w.to(dev)
+        w = w.to(dev)
         got = replay_gather(pool, idx, w)
         want = replay_gather_plain(pool, idx, w)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        require(torch.equal(got, want), f"replay_gather {cap}x{f}/{b}: max|d|={err}")
+        what = f"replay_gather {cap}x{f}/{b}, pool {4 * offset} B off"
+        require(torch.equal(got, want), f"{what}: max|d|={err}")
         worst = max(worst, err)
         if timed is None:  # the main path's call: w = 1 over N*B rows
             read = int(torch.unique(idx).numel())  # rows this call must read
+            w_col = w[:, None]
             nbytes = read * f * 4 + b * f * 4 + b * 8
             timed = {
-                "ms": cuda_ms(lambda: replay_gather(pool, idx, w)),
+                **timings(
+                    lambda: replay_gather(pool, idx, w),
+                    lambda: torch.index_select(pool, 0, idx),
+                    lambda: torch.mul(got, w_col),
+                ),
                 "plain_ms": cuda_ms(lambda: replay_gather_plain(pool, idx, w)),
-                "library_ms": cuda_ms(lambda: torch.index_select(pool, 0, idx)),
                 "bound_ms": bound_ms(nbytes),
                 "shape": [cap, f, b],
             }
@@ -220,9 +255,14 @@ def check_fused_td(dev) -> dict:
         if timed is None:
             nbytes = b * (a + 3) * 4 + 2 * b * 4
             timed = {
-                "ms": cuda_ms(lambda: fused_td(q_sel, q_next, r, d, gamma)),
-                "plain_ms": cuda_ms(lambda: fused_td_plain(q_sel, q_next, r, d, gamma)),
-                "library_ms": None,
+                **timings(
+                    lambda: fused_td(q_sel, q_next, r, d, gamma),
+                    None,
+                    lambda: torch.mul(q_next, gamma),
+                ),
+                "plain_ms": cuda_ms(
+                    lambda: fused_td_plain(q_sel, q_next, r, d, gamma)
+                ),
                 "bound_ms": bound_ms(nbytes),
                 "shape": [b, a],
             }
@@ -280,7 +320,8 @@ def phase_chunk(dev) -> None:
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
-    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
+    for k in (rmsnorm, flash_attention):
+        k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
 
 
 def read_launches() -> dict[str, int]:
@@ -332,29 +373,48 @@ def phase_main(dev) -> dict[str, int]:
 
 
 def check_rmsnorm(dev) -> dict:
-    """The prefill [B*S, d] and decode [B, d] calls of the zoo main path,
-    a ragged float32 one, and rows of 1001 elements, whose width is no
-    multiple of 16 bytes (the kernel's scalar path with a masked tail).
-    Tolerances: bf16 2e-2 (one bf16 rounding, as
-    tests/test_kernels_rmsnorm.py), f32 1e-5 (sum order and rsqrt)."""
+    """The prefill [B*S, d] and decode [B, d] calls of the zoo main path
+    (the ``cta`` route), float32 rows, many and few 16 KB rows (the
+    reference's largest, d = 8192 bf16), and the ``masked`` route:
+    rows of 1001 elements, whose width is no multiple of 16 bytes, rows
+    over 16 KB, and an x 2 bytes off a 16-byte boundary.  Each case must
+    move its route's launch count.  Tolerances: bf16 2e-2 (one bf16
+    rounding, as tests/test_kernels_rmsnorm.py), f32 1e-5 (sum order and
+    rsqrt)."""
     rng = np.random.default_rng(3)
     d = get_config(ZOO_ARCH).d_model
+    bf, f32 = torch.bfloat16, torch.float32
     cases = (
-        ("prefill", ZOO_BATCH * ZOO_PROMPT, d, torch.bfloat16, 2e-2),
-        ("decode", ZOO_BATCH, d, torch.bfloat16, 2e-2),
-        ("ragged", 37, 1000, torch.float32, 1e-5),
-        ("tail", 37, 1001, torch.float32, 1e-5),
-        ("tail", 5, 1001, torch.bfloat16, 2e-2),
+        ("prefill", ZOO_BATCH * ZOO_PROMPT, d, bf, "cta", 0, 2e-2),
+        ("decode", ZOO_BATCH, d, bf, "cta", 0, 2e-2),
+        ("many_f32", 1500, 1000, f32, "cta", 0, 1e-5),
+        ("many_16k", 1024, 8192, bf, "cta", 0, 2e-2),
+        ("one_f32", 1, d, f32, "cta", 0, 1e-5),
+        ("ragged", 37, 1000, f32, "cta", 0, 1e-5),
+        ("few_16k", 4, 8192, bf, "cta", 0, 2e-2),
+        ("tail", 37, 1001, f32, "masked", 0, 1e-5),
+        ("tail", 5, 1001, bf, "masked", 0, 2e-2),
+        ("wide", 6, 8200, bf, "masked", 0, 2e-2),
+        ("unaligned", ZOO_BATCH, d, bf, "masked", 1, 2e-2),
     )
     worst, timed = 0.0, {}
-    for name, n, width, dtype, tol in cases:
-        x = torch.tensor(rng.standard_normal((n, width)), dtype=dtype, device=dev)
+    for name, n, width, dtype, way, offset, tol in cases:
+        flat = torch.tensor(
+            rng.standard_normal(n * width + offset), dtype=dtype, device=dev
+        )
+        x = flat[offset:].view(n, width)
         scale = torch.tensor(
             rng.standard_normal(width), dtype=torch.float32, device=dev
         )
+        before = dict(rmsnorm.launches_by_route)
         got = rmsnorm(x, scale, RMS_EPS)
         want = rmsnorm_plain(x, scale, RMS_EPS)
         torch.cuda.synchronize()
+        moved = {r: k - before[r] for r, k in rmsnorm.launches_by_route.items()}
+        require(
+            moved == {r: int(r == way) for r in moved},
+            f"rmsnorm {name}: expected one {way} launch, got {moved}",
+        )
         err = float((got.float() - want.float()).abs().max())
         require(
             torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
@@ -365,13 +425,15 @@ def check_rmsnorm(dev) -> dict:
             continue
         nbytes = 2 * n * width * x.element_size() + width * 4
         timed[name] = {
-            "ms": cuda_ms(lambda: rmsnorm(x, scale, RMS_EPS)),
-            "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, scale, RMS_EPS)),
-            "library_ms": cuda_ms(
+            "route": way,
+            **timings(
+                lambda: rmsnorm(x, scale, RMS_EPS),
                 lambda: torch.nn.functional.rms_norm(
                     x.float(), (width,), scale, RMS_EPS
-                ).to(x.dtype)
+                ).to(x.dtype),
+                lambda: torch.mul(x, 2.0),
             ),
+            "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, scale, RMS_EPS)),
             "bound_ms": bound_ms(nbytes),
             "bound_by": "bytes",
             "shape": [n, width, str(dtype).removeprefix("torch.")],
@@ -460,9 +522,10 @@ def check_flash_attention(dev) -> dict:
         reps = 50 if name == "main" else 20
         out[name] = {
             "route": way,
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw), reps=reps, warmup=5),
-            "library_ms": cuda_ms(
+            **timings(
+                lambda: flash_attention(q, k, v, **kw),
                 lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                lambda: torch.mul(q, 0.5),
                 reps=reps,
                 warmup=5,
             ),
@@ -474,11 +537,11 @@ def check_flash_attention(dev) -> dict:
             # the window (4096) does not bind at S = 1000: is_causal computes
             # the same function and may take SDPA's flash backend
             require(s <= window, "the main case's window must not bind")
-            out[name]["library_causal_ms"] = cuda_ms(
-                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-                reps=reps,
-                warmup=5,
-            )
+            def causal():
+                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            out[name]["library_causal_ms"] = cuda_ms(causal, reps=reps, warmup=5)
+            out[name]["library_causal_device_ms"] = graph_ms(causal)
             out[name]["plain_ms"] = cuda_ms(
                 lambda: attention_plain(q, k, v, **kw), reps=20, warmup=2
             )
@@ -546,7 +609,7 @@ def phase_zoo_chunk(dev) -> None:
     )
 
 
-def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, int]]:
+def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     """The serving CLI's path at full width, then decode logits at 4
     positions against the teacher-forced forward on the card.
 
@@ -565,7 +628,10 @@ def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, int]]:
     reset_launches()
     out = serve.generate(model, params, prompt, ZOO_GEN)
     launches = read_launches()
-    by_route = dict(flash_attention.launches_by_route)
+    by_route = {
+        "flash_attention": dict(flash_attention.launches_by_route),
+        "rmsnorm": dict(rmsnorm.launches_by_route),
+    }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # teacher-forced: the prompt and the fed tokens in one forward
@@ -594,7 +660,7 @@ def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, int]]:
             "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
             "peak_gb": peak_gb,
             "launches": launches,
-            "flash_attention_launches_by_route": by_route,
+            "launches_by_route": by_route,
             "teacher_forced_positions": at,
             "teacher_forced_max_abs_err": err,
             "teacher_forced_max_abs_logit": scale,
@@ -608,13 +674,18 @@ def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, int]]:
         f"flash_attention launched {launches['flash_attention']} times, not {n_layers}",
     )
     require(
-        by_route == {"wgmma": n_layers, "scalar": 0},
+        by_route["flash_attention"] == {"wgmma": n_layers, "scalar": 0},
         f"flash_attention routes {by_route}: every prefill layer must take wgmma",
     )
     want_rms = (2 * n_layers + 1) * (ZOO_GEN + 1)
     require(
         launches["rmsnorm"] == want_rms,
         f"rmsnorm launched {launches['rmsnorm']} times, not {want_rms}",
+    )
+    want_routes = {"cta": want_rms, "masked": 0}
+    require(
+        by_route["rmsnorm"] == want_routes,
+        f"rmsnorm routes {by_route['rmsnorm']}, not {want_routes}",
     )
     require(
         err <= 3e-2 * scale,
@@ -670,15 +741,19 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r.get("bound_by", "bytes"),
             "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "floor_ms": r["floor_ms"],
             "shape": r["shape"],
             "check": "pass",
-            **{k: r[k] for k in ("decode", "window", "library_causal_ms") if k in r},
+            **({"kernel_route": r["route"]} if "route" in r else {}),
+            **{k: r[k] for k in EXTRA_FIELDS if k in r},
         }
         for name, r in results.items()
     ]
     for entry in kernels:
-        if entry["name"] == "flash_attention":
-            entry["launches_by_route"] = by_route
+        if entry["name"] in by_route:
+            entry["launches_by_route"] = by_route[entry["name"]]
     print(smi)
     emit({"kernels": kernels})
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -7,11 +7,54 @@ first use they are compiled with ``nvcc`` for Hopper (``sm_90a``), one
 if set; else ``build/repro_torch/`` at the root of the checkout
 (git-ignored) when the package runs from its ``src/`` tree; else, for an
 installed package, ``$XDG_CACHE_HOME/repro_torch`` (default
-``~/.cache/repro_torch``), a per-user directory.  The library's file name carries a hash of
-the sources and flags, so an edited source is rebuilt and an unchanged
-one is reused.  The library is loaded with ``ctypes``: every pointer
-and the stream are ``c_void_p``, and every C entry point returns
+``~/.cache/repro_torch``), a per-user directory.  The library's file
+name carries a hash of the sources, their header and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  The library
+is loaded with ``ctypes``; every C entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+**Two calling conventions, until the last two kernels move.**  The
+per-argument path (one ``c_void_p`` or ``c_int`` ``argtypes`` entry per
+argument, bound in :func:`load`, under a ``torch.cuda.device`` guard and
+with a ``torch.cuda.Stream`` object) serves only ``fused_td`` and
+``flash_attention``.  Each moves to the lean path with its own redesign,
+and the last of them deletes the per-argument ``argtypes`` in
+:func:`load` and this paragraph; until then a change to how kernels
+launch is made on both paths.
+
+**The lean launch path** (``replay_gather`` and ``rmsnorm``).  A
+wrapper's host cost is paid on every call, and at the fleet's and the
+zoo decode's shapes it is the whole cost of the call, so the path keeps
+only what a launch needs:
+
+* :func:`load` binds each lean C entry point once, with its ``argtypes``,
+  to a module-level handle (:data:`replay_gather_f32`,
+  :data:`rmsnorm_f32`, :data:`rmsnorm_bf16`); a wrapper calls the handle,
+  with no ``load()`` or ``getattr`` on the library per call.
+* A lean entry point takes one argument: a pointer to a C struct of the
+  launch's arguments, which the wrapper packs into ``bytes`` with a
+  precompiled ``struct.Struct`` (:data:`REPLAY_GATHER_ARGS`,
+  :data:`RMSNORM_ARGS`), through its kernel module's ``launch_args``,
+  the one place that packs it.  ``ctypes`` converts each declared argument on
+  its own, at a few hundred nanoseconds each; one packed buffer costs one
+  conversion and the pack.  :func:`load` checks each format's size
+  against the C struct's ``sizeof``.
+* The device guard is in C (``csrc/launch.cuh``): the entry point takes
+  the operands' device index, calls ``cudaGetDevice`` and
+  ``cudaSetDevice`` only when the index differs, and restores it after
+  the launch.
+* The stream is a raw ``cudaStream_t`` read by :data:`raw_stream`
+  (``torch._C._cuda_getCurrentRawStream``, the call Inductor's generated
+  code makes) for that device index, without building a
+  ``torch.cuda.Stream``.  It follows ``torch.cuda.stream(...)`` and graph
+  capture like ``torch.cuda.current_stream(dev).cuda_stream`` (a ``cuda``
+  test holds the two equal on three streams).
+* The wrapper still checks device, dtype, shape and contiguity, reading
+  each tensor attribute once (:func:`device_index` reads ``is_cuda`` and
+  ``get_device()``, which build no ``torch.device``), allocates outputs
+  with ``torch.empty``, and raises through :func:`check` when the entry
+  point's ``cudaGetLastError()`` is not 0.  No entry point synchronises
+  or allocates, so the launches can be captured in a CUDA graph.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc``.
@@ -23,12 +66,16 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("replay_gather.cu", "fused_td.cu", "rmsnorm.cu", "flash_attention.cu")
+HEADERS = ("launch.cuh",)  # included by the sources; part of the build's hash
 
 
 def _build_dir() -> Path:
@@ -51,7 +98,21 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
+# The lean entry points' argument structs, field by field as in the C
+# sources: pointers (and the stream) first, then 32-bit fields.
+# replay_gather.cu ReplayGatherArgs: buffer, idx, w, out, stream; device,
+# batch, feat; 4 bytes of padding to sizeof.
+REPLAY_GATHER_ARGS = struct.Struct("@5P3i4x")
+# rmsnorm.cu RmsnormArgs: x, scale, out, stream; device, n, d, route,
+# threads, rows_per_cta, vec; eps.
+RMSNORM_ARGS = struct.Struct("@4P7if")
+
 _LIB: ctypes.CDLL | None = None
+# The lean launch path's handles, bound by load(); None until then.
+replay_gather_f32 = None
+rmsnorm_f32 = None
+rmsnorm_bf16 = None
+raw_stream = None  # device index -> its current stream as a cudaStream_t
 
 
 def nvcc_path() -> str:
@@ -70,7 +131,7 @@ def nvcc_path() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libreprotorch_kernels-{h.hexdigest()[:16]}.so"
 
@@ -110,20 +171,28 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _LIB
+    """The loaded kernel library (built on first call).  Also binds the
+    lean launch path's module-level handles."""
+    global _LIB, replay_gather_f32, rmsnorm_f32, rmsnorm_bf16, raw_stream
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.replay_gather_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
-        lib.replay_gather_f32.restype = i32
-        lib.fused_td_f32.argtypes = [ptr] * 6 + [i32, i32, ctypes.c_float, ptr]
-        lib.fused_td_f32.restype = i32
-        f32 = ctypes.c_float
-        for name in ("rmsnorm_f32", "rmsnorm_bf16"):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # lean entry points: one packed argument struct each
+        for name in ("replay_gather_f32", "rmsnorm_f32", "rmsnorm_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, i32, i32, f32, i32, ptr]
-            fn.restype = i32
+            fn.argtypes, fn.restype = [ctypes.c_char_p], i32
+        for name, fmt in (
+            ("replay_gather_args_size", REPLAY_GATHER_ARGS),
+            ("rmsnorm_args_size", RMSNORM_ARGS),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [], i32
+            if fn() != fmt.size:
+                raise RuntimeError(
+                    f"{name}: the C struct has {fn()} bytes, its format {fmt.size}"
+                )
+        lib.fused_td_f32.argtypes = [ptr] * 6 + [i32, i32, f32, ptr]
+        lib.fused_td_f32.restype = i32
         for name in (
             "flash_attention_f32",
             "flash_attention_bf16",
@@ -132,8 +201,31 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32, i32, i32, ptr]
             fn.restype = i32
+        replay_gather_f32 = lib.replay_gather_f32
+        rmsnorm_f32, rmsnorm_bf16 = lib.rmsnorm_f32, lib.rmsnorm_bf16
+        raw_stream = torch._C._cuda_getCurrentRawStream
         _LIB = lib
     return _LIB
+
+
+def device_index(kernel: str, *tensors) -> int:
+    """The CUDA device index of ``tensors`` when all lie on one card, -1
+    when all lie on the CPU; raise when they lie on different devices or
+    on another kind of device (a wrapper never falls back from one)."""
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        for t in tensors[1:]:
+            if not t.is_cuda or t.get_device() != index:
+                raise ValueError(f"{kernel} operands are on different devices")
+        return index
+    dev = first.device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{kernel} operands are on different devices")
+    if dev.type != "cpu":
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    return -1
 
 
 def check(rc: int, kernel: str) -> None:
@@ -142,4 +234,16 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
 
 
-__all__ = ["BUILD_DIR", "CSRC", "SOURCES", "build", "check", "library_path", "load"]
+__all__ = [
+    "BUILD_DIR",
+    "CSRC",
+    "HEADERS",
+    "REPLAY_GATHER_ARGS",
+    "RMSNORM_ARGS",
+    "SOURCES",
+    "build",
+    "check",
+    "device_index",
+    "library_path",
+    "load",
+]

@@ -28,7 +28,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     route,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    REGISTER_ROW_BYTES,
+    SPREAD_ROWS,
+    launch_plan,
+    rmsnorm,
+    rmsnorm_plain,
+)
 
 EPS = 1e-5  # the reference kernels' default
 
@@ -97,6 +103,49 @@ def test_rmsnorm_rejects_bad_operands(rng):
         rmsnorm(x.double(), torch.ones(8), EPS)
     with pytest.raises(ValueError):
         rmsnorm(x.t().contiguous().t(), torch.ones(8), EPS)  # not contiguous
+
+
+def test_rmsnorm_never_falls_back_off_the_cpu(rng):
+    x = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    with pytest.raises(ValueError, match="different devices"):
+        rmsnorm(x.to("meta"), torch.ones(8), EPS)
+    before = dict(rmsnorm.launches_by_route)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rmsnorm(x.to("meta"), torch.ones(8, device="meta"), EPS)
+    assert rmsnorm.launches_by_route == before
+
+
+# rows of d * elem bytes: 16-byte multiples up to 16 KB are held in
+# registers on the cta route, 128 threads a row when they hold it and the
+# rows fill the card, else 256; the rest take the masked route
+@pytest.mark.parametrize("n", [1, 4, 4000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [1000, 1001, 3840, 8192, 8200])
+def test_rmsnorm_launch_plan(n, dtype, d):
+    elem = torch.finfo(dtype).bits // 8
+    row = d * elem
+    way, threads, rows_per_cta, vec = launch_plan(n, d, elem)
+    assert vec == (row % 16 == 0)
+    if not vec or row > REGISTER_ROW_BYTES:
+        assert way == "masked"
+        assert (threads, rows_per_cta) == (32, 8)
+    else:
+        assert way == "cta" and rows_per_cta == 1
+        assert threads * 4 * 16 >= row  # 4 vectors of 16 bytes a thread
+        narrow = n >= SPREAD_ROWS and 128 * 4 * 16 >= row
+        assert threads == (128 if narrow else 256)
+    # the zoo's shapes: prefill [4000, 3840] and decode [4, 3840] in bf16
+    if (d, dtype) == (3840, torch.bfloat16):
+        assert (way, threads) == ("cta", 128 if n == 4000 else 256)
+    # 8192 bf16 (the reference's largest) is held; 8200 bf16 is not
+    if dtype == torch.bfloat16 and d in (8192, 8200):
+        assert (way == "masked") == (d == 8200)
+
+
+@pytest.mark.parametrize("d,elem", [(3840, 2), (1000, 4), (64, 2)])
+def test_rmsnorm_launch_plan_unaligned_takes_the_masked_route(d, elem):
+    for n in (4, 4000):
+        assert launch_plan(n, d, elem, aligned=False) == ("masked", 32, 8, False)
 
 
 # -- flash attention -------------------------------------------------------------
@@ -266,3 +315,79 @@ def test_flash_attention_kernel_matches_plain_on_card(
     }
     want = attention_plain(q, k, v, window=window, softcap=softcap)
     torch.testing.assert_close(got, want, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,d,dtype,way,atol",
+    [
+        (4000, 3840, torch.bfloat16, "cta", 2e-2),  # zoo prefill
+        (1500, 1000, torch.float32, "cta", 1e-5),
+        (1024, 8192, torch.bfloat16, "cta", 2e-2),  # 16 KB rows, 256 threads
+        (1024, 4096, torch.float32, "cta", 1e-5),
+        (1030, 64, torch.bfloat16, "cta", 2e-2),
+        (4, 3840, torch.bfloat16, "cta", 2e-2),  # zoo decode
+        (1, 3840, torch.float32, "cta", 1e-5),  # 256 threads
+        (37, 1000, torch.float32, "cta", 1e-5),
+        (4, 8192, torch.bfloat16, "cta", 2e-2),
+        (3, 24, torch.bfloat16, "cta", 2e-2),
+        (37, 1001, torch.float32, "masked", 1e-5),  # no multiple of 16 bytes
+        (5, 1001, torch.bfloat16, "masked", 2e-2),
+        (6, 8200, torch.bfloat16, "masked", 2e-2),  # over 16 KB
+        (2000, 8200, torch.float32, "masked", 1e-5),
+    ],
+)
+def test_rmsnorm_each_route_matches_plain_on_card(cuda, rng, n, d, dtype, way, atol):
+    x = torch.tensor(rng.standard_normal((n, d)) * 3.0, dtype=dtype, device=cuda)
+    scale = torch.tensor(rng.standard_normal(d), dtype=torch.float32, device=cuda)
+    before = dict(rmsnorm.launches_by_route)
+    got = rmsnorm(x, scale, EPS)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches_by_route == {
+        r: k + (r == way) for r, k in before.items()
+    }
+    torch.testing.assert_close(got, rmsnorm_plain(x, scale, EPS), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_unaligned_operand_takes_the_masked_route_on_card(cuda, rng):
+    """A contiguous view one element past a 16-byte boundary."""
+    flat = torch.tensor(
+        rng.standard_normal(4 * 3840 + 1), dtype=torch.bfloat16, device=cuda
+    )
+    x = flat[1:].view(4, 3840)
+    scale = torch.tensor(rng.standard_normal(3840), dtype=torch.float32, device=cuda)
+    before = rmsnorm.launches_by_route["masked"]
+    got = rmsnorm(x, scale, EPS)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches_by_route["masked"] == before + 1
+    torch.testing.assert_close(got, rmsnorm_plain(x, scale, EPS), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 4000])
+def test_rmsnorm_side_stream_and_graph_replay_on_card(cuda, rng, n):
+    """Launched on a side stream, and captured in a CUDA graph whose
+    replay (after x changes in place) equals an eager call, bit for bit."""
+    d = 3840
+    x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.bfloat16, device=cuda)
+    scale = torch.tensor(rng.standard_normal(d), dtype=torch.float32, device=cuda)
+    want = rmsnorm(x, scale, EPS)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = rmsnorm(x, scale, EPS)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rmsnorm(x, scale, EPS)
+    x.copy_(torch.tensor(rng.standard_normal((n, d)), dtype=torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, rmsnorm(x, scale, EPS))
+    torch.testing.assert_close(
+        captured, rmsnorm_plain(x, scale, EPS), atol=2e-2, rtol=2e-2
+    )
