@@ -11,7 +11,10 @@ non-zero exit code and no result line:
    ``sm_90a`` and load the library.
 3. kernels — each hand-written kernel against its plain PyTorch version
    on the card, at the fleet's shapes and at a ragged shape (and
-   ``replay_gather`` in every 16-byte phase of its rows), with times for
+   ``replay_gather`` in every 16-byte phase of its rows; ``fused_td``, the
+   whole TD tail, also with one action, with out-of-range actions and
+   through its gradient, and timed as forward and backward of the tail
+   through autograd, ``tail_ms``), with times for
    the kernel, the plain version and (where one exists) a single PyTorch
    library call, and the least time the card could take (bytes over 3.35
    TB/s; both kernels are bound by bytes).  Three times per kernel (see
@@ -21,8 +24,8 @@ non-zero exit code and no result line:
    (the device alone; capture also proves the call capturable), with
    ``library_device_ms`` the same for the library call; ``floor_ms``, one
    ATen elementwise launch (``torch.mul`` that keeps its operand's dtype)
-   on a tensor of about the call's output size, timed like ``ms``: the least one launch from Python costs
-   on this host.
+   on a tensor of about the call's output size, timed like ``ms``: the
+   least one launch from Python costs on this host.
 4. chunk   — one ``FleetSteps.train_chunk`` at ``DQNConfig()`` widths
    (N=4 agents, K=4 steps) on the card and on the CPU from one state,
    pool and index tensor; params must agree within 1e-4.
@@ -72,7 +75,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core.erb import flat_width  # noqa: E402
+from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.kernels import lib  # noqa: E402
@@ -105,6 +108,9 @@ RMS_EPS = get_config(ZOO_ARCH).norm_eps
 KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention)
 # sub-entries and extra times a kernel's entry of the kernels line carries
 EXTRA_FIELDS = (
+    "tail_ms",
+    "plain_tail_ms",
+    "tail_floor_ms",
     "decode",
     "window",
     "library_causal_ms",
@@ -123,6 +129,12 @@ def require(cond: bool, msg: str) -> None:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def sector_bytes(base: int, offsets) -> int:
+    """Bytes of the distinct 32-byte sectors that 4-byte loads at byte
+    ``offsets`` from address ``base`` touch: what a gather must move."""
+    return 32 * len({(base + int(o)) // 32 for o in offsets})
 
 
 def phase_device() -> tuple[str, str]:
@@ -221,50 +233,102 @@ def check_replay_gather(dev) -> dict:
 
 
 def check_fused_td(dev) -> dict:
+    """The fleet's TD tail (N=4 agents, B=32 rows, A=6 actions, rows of
+    F=1033 with action, reward and done at columns 515, 516 and 1032), a
+    ragged one (N=3, B=50), one agent with one action, and out-of-range
+    actions (A and beyond select NaN, -1 .. -A wrap, a NaN action reads
+    as 0): all four outputs, and the gradient through ``td_loss`` against
+    autograd through the plain version, within 1e-6.  Timed: the main
+    path's call (``ms``, ``device_ms``), and ``tail_ms``, forward and
+    backward of the whole tail through autograd, beside the plain tail's
+    and one multiply's (``tail_floor_ms``)."""
     rng = np.random.default_rng(1)
-    gamma = DQNConfig().gamma
-    worst = 0.0
-    timed = None
-    for b, a in ((N_AGENTS * BATCH, 6), (200, 6)):
-        ins = [
-            rng.standard_normal((b, 1)),
-            rng.standard_normal((b, a)),
-            rng.standard_normal((b, 1)),
-            rng.random((b, 1)) < 0.3,
-        ]
-        q_sel, q_next, r, d = (
-            torch.tensor(x, dtype=torch.float32, device=dev) for x in ins
+    cfg = DQNConfig()
+    columns = flat_columns(cfg.box_size)
+    cols = tuple(columns[k].start for k in ("action", "reward", "done"))
+    feat, gamma = columns["done"].stop, cfg.gamma
+    edge = [2.7, -0.5, np.nan, -1, -6, 6, 7, -7, -100, 1e10, 5.9, 0]
+    cases = (
+        ("fleet", N_AGENTS, BATCH, cfg.n_actions),
+        ("ragged", 3, 50, 6),
+        ("one_action", 1, 7, 1),
+        ("out_of_range", 2, len(edge), 6),
+    )
+    worst, timed = 0.0, None
+    for name, n, b, a in cases:
+        q, q_next = (
+            torch.tensor(
+                rng.standard_normal((n, b, a)), dtype=torch.float32, device=dev
+            )
+            for _ in range(2)
         )
-        loss, dq = fused_td(q_sel, q_next, r, d, gamma)
-        loss_p, dq_p = fused_td_plain(q_sel, q_next, r, d, gamma)
-        # backward: the autograd.Function's g * dq against autograd
-        # through the plain version, under the per-agent mean over B
-        q1 = q_sel.clone().requires_grad_(True)
-        td_loss(q1, q_next, r, d, gamma).mean().backward()
-        q2 = q_sel.clone().requires_grad_(True)
-        fused_td_plain(q2, q_next, r, d, gamma)[0].mean().backward()
+        rows_np = rng.standard_normal((n, b, feat))
+        rows_np[..., cols[0]] = rng.integers(0, a, (n, b))
+        rows_np[..., cols[2]] = rng.random((n, b)) < 0.3
+        if name == "out_of_range":
+            rows_np[0, :, cols[0]] = edge
+        rows = torch.tensor(rows_np, dtype=torch.float32, device=dev)
+        got = fused_td(q, q_next, rows, cols, gamma)
+        want = fused_td_plain(q, q_next, rows, cols, gamma)
+        grads = []
+        for tail in (td_loss, lambda *xs: fused_td_plain(*xs).loss):
+            leaf = q.clone().requires_grad_(True)
+            loss = tail(leaf, q_next, rows, cols, gamma).sum()
+            grads.append(torch.autograd.grad(loss, leaf)[0])
         torch.cuda.synchronize()
-        pairs = ((loss, loss_p, "loss"), (dq, dq_p, "dq"), (q1.grad, q2.grad, "grad"))
-        for x, y, what in pairs:
-            err = float((x - y).abs().max())
+        for what, x, y in (*zip(got._fields, got, want), ("grad", *grads)):
+            err = float((x - y).abs().nan_to_num(0.0).max())
             worst = max(worst, err)
             require(
-                torch.allclose(x, y, rtol=1e-6, atol=1e-6),
-                f"fused_td B={b} {what}: max|d|={err}",
+                torch.allclose(x, y, rtol=1e-6, atol=1e-6, equal_nan=True),
+                f"fused_td {name} {[n, b, a]} {what}: max|d|={err}",
             )
-        if timed is None:
-            nbytes = b * (a + 3) * 4 + 2 * b * 4
+        if name == "out_of_range":
+            require(
+                bool(torch.isnan(got.loss[0]) and torch.isfinite(got.loss[1])),
+                f"fused_td: out-of-range actions gave loss {got.loss.tolist()}",
+            )
+        if timed is None:  # the main path's call
+            leaf = q.clone().requires_grad_(True)
+            # read: q_next whole, the sectors of q that hold the selected
+            # actions and the sectors of rows that hold the three columns
+            # (at F = 1033 action and reward share one in 7 of 8 rows); written:
+            # loss_rows, dq, loss and grad_q
+            row = np.arange(n * b)
+            sel = row * a + rows_np[..., cols[0]].ravel().astype(np.int64)
+            row_cols = row[:, None] * feat + np.array(cols)
+            nbytes = (
+                4 * n * b * a
+                + sector_bytes(q.data_ptr(), 4 * sel)
+                + sector_bytes(rows.data_ptr(), 4 * row_cols.ravel())
+                + 4 * (2 * n * b + n + n * b * a)
+            )
             timed = {
                 **timings(
-                    lambda: fused_td(q_sel, q_next, r, d, gamma),
+                    lambda: fused_td(q, q_next, rows, cols, gamma),
                     None,
                     lambda: torch.mul(q_next, gamma),
                 ),
                 "plain_ms": cuda_ms(
-                    lambda: fused_td_plain(q_sel, q_next, r, d, gamma)
+                    lambda: fused_td_plain(q, q_next, rows, cols, gamma)
+                ),
+                "tail_ms": cuda_ms(
+                    lambda: torch.autograd.grad(
+                        td_loss(leaf, q_next, rows, cols, gamma).sum(), leaf
+                    )
+                ),
+                "plain_tail_ms": cuda_ms(
+                    lambda: torch.autograd.grad(
+                        fused_td_plain(leaf, q_next, rows, cols, gamma).loss.sum(),
+                        leaf,
+                    )
+                ),
+                # the least a forward and backward through autograd costs
+                "tail_floor_ms": cuda_ms(
+                    lambda: torch.autograd.grad(torch.mul(leaf, gamma).sum(), leaf)
                 ),
                 "bound_ms": bound_ms(nbytes),
-                "shape": [b, a],
+                "shape": [n, b, a, feat],
             }
     emit({"phase": "kernel", "name": "fused_td", "max_abs_err": worst, **timed})
     return {"max_abs_err": worst, **timed}

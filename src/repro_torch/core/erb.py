@@ -139,10 +139,21 @@ FLAT_FIELDS: tuple[str, ...] = (
 )
 
 
+def flat_columns(obs_shape: tuple[int, ...]) -> dict[str, slice]:
+    """Each field's columns in a flat row, in FLAT_FIELDS order."""
+    obs_f = int(np.prod(obs_shape))
+    widths = {"obs": obs_f, "loc": 3, "next_obs": obs_f, "next_loc": 3}
+    cols, start = {}, 0
+    for k in FLAT_FIELDS:
+        width = widths.get(k, 1)  # action, reward, done: one column each
+        cols[k] = slice(start, start + width)
+        start += width
+    return cols
+
+
 def flat_width(obs_shape: tuple[int, ...]) -> int:
     """Row width of the flattened experience layout."""
-    obs_f = int(np.prod(obs_shape))
-    return 2 * obs_f + 3 + 3 + 3  # obs+next_obs, loc+next_loc, a/r/done
+    return flat_columns(obs_shape)[FLAT_FIELDS[-1]].stop
 
 
 def erb_flatten(erb: ERB) -> np.ndarray:

@@ -63,6 +63,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxD = 128;         // largest head_dim
@@ -772,57 +774,86 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
 
 }  // namespace
 
+// The arguments of one launch, packed by the Python wrapper into one
+// buffer (kernels/lib.py::FLASH_ATTENTION_ARGS mirrors this layout field
+// by field): pointers and the stream first, then 32-bit fields.
 // q [b, s, hq, d], k/v [b, s, hkv, d], o [b, s, hq, d], contiguous; hq a
 // multiple of hkv; 1 <= d <= 128; window <= 0 means none, softcap <= 0
-// means none.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o, int b, int s,
-                                   int hq, int hkv, int d, float scale,
-                                   float softcap, int causal, int window,
-                                   void* stream) {
-  return launch(q, k, v, o, b, s, hq, hkv, d, scale, softcap, causal, window,
-                stream);
+// means none.
+struct FlashAttentionArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  void* stream;  // a raw cudaStream_t of `device`
+  int32_t device;
+  int32_t b;
+  int32_t s;
+  int32_t hq;
+  int32_t hkv;
+  int32_t d;
+  int32_t causal;
+  int32_t window;
+  float scale;
+  float softcap;
+};
+
+// sizeof(FlashAttentionArgs), which the wrapper checks its layout against.
+extern "C" int flash_attention_args_size() {
+  return static_cast<int>(sizeof(FlashAttentionArgs));
 }
 
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int b, int s,
-                                    int hq, int hkv, int d, float scale,
-                                    float softcap, int causal, int window,
-                                    void* stream) {
-  using bf = __nv_bfloat16;
-  return launch(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                static_cast<const bf*>(v), static_cast<bf*>(o), b, s, hq, hkv,
-                d, scale, softcap, causal, window, stream);
+namespace {
+
+template <typename T>
+int launch_scalar(const FlashAttentionArgs* a) {
+  const repro_torch::DeviceGuard guard(a->device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  return launch(static_cast<const T*>(a->q), static_cast<const T*>(a->k),
+                static_cast<const T*>(a->v), static_cast<T*>(a->o), a->b,
+                a->s, a->hq, a->hkv, a->d, a->scale, a->softcap, a->causal,
+                a->window, a->stream);
+}
+
+}  // namespace
+
+// The scalar route.  Each entry point makes `device` current if it is
+// not, launches on `stream` and returns cudaGetLastError().
+extern "C" int flash_attention_f32(const FlashAttentionArgs* a) {
+  return launch_scalar<float>(a);
+}
+
+extern "C" int flash_attention_bf16(const FlashAttentionArgs* a) {
+  return launch_scalar<__nv_bfloat16>(a);
 }
 
 // The tensor-core route: as above, bf16 only, d % 8 == 0 and q, k, v
 // 16-byte aligned (TMA's rule for the base and the row strides).  Returns
 // cudaErrorInvalidValue if the operands break that rule or a tensor map
 // cannot be built.
-extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
-                                          const void* v, void* o, int b, int s,
-                                          int hq, int hkv, int d, float scale,
-                                          float softcap, int causal, int window,
-                                          void* stream) {
+extern "C" int flash_attention_bf16_wgmma(const FlashAttentionArgs* a) {
+  const repro_torch::DeviceGuard guard(a->device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const int b = a->b, s = a->s, hq = a->hq, hkv = a->hkv, d = a->d;
   if (b <= 0 || s <= 0 || hq <= 0) return static_cast<int>(cudaGetLastError());
-  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(a->q) |
+                         reinterpret_cast<uintptr_t>(a->k) |
+                         reinterpret_cast<uintptr_t>(a->v)) & 15) == 0;
   if (d % 8 != 0 || d > kMaxD || !aligned) return cudaErrorInvalidValue;
   const tc::EncodeTiled encode = tc::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!tc::make_map(encode, &mq, q, b, s, hq, d) ||
-      !tc::make_map(encode, &mk, k, b, s, hkv, d) ||
-      !tc::make_map(encode, &mv, v, b, s, hkv, d)) {
+  if (!tc::make_map(encode, &mq, a->q, b, s, hq, d) ||
+      !tc::make_map(encode, &mk, a->k, b, s, hkv, d) ||
+      !tc::make_map(encode, &mv, a->v, b, s, hkv, d)) {
     return cudaErrorInvalidValue;
   }
-  auto* out = static_cast<__nv_bfloat16*>(o);
-  auto* st = static_cast<cudaStream_t>(stream);
+  auto* out = static_cast<__nv_bfloat16*>(a->o);
+  auto* st = static_cast<cudaStream_t>(a->stream);
   if (d <= tc::kAtom) {
-    return tc::launch<1>(mq, mk, mv, out, b, s, hq, hkv, d, scale, softcap,
-                         causal, window, st);
+    return tc::launch<1>(mq, mk, mv, out, b, s, hq, hkv, d, a->scale,
+                         a->softcap, a->causal, a->window, st);
   }
-  return tc::launch<2>(mq, mk, mv, out, b, s, hq, hkv, d, scale, softcap,
-                       causal, window, st);
+  return tc::launch<2>(mq, mk, mv, out, b, s, hq, hkv, d, a->scale,
+                       a->softcap, a->causal, a->window, st);
 }

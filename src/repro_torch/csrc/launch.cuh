@@ -1,5 +1,5 @@
-// The host side of a lean launch, shared by the kernels whose C entry
-// points take the device index (replay_gather.cu, rmsnorm.cu).
+// The host side of a lean launch, shared by every kernel's C entry point
+// (replay_gather.cu, fused_td.cu, rmsnorm.cu, flash_attention.cu).
 //
 // The Python wrapper passes the operands' device index and the raw handle
 // of that device's current stream; the entry point makes the device

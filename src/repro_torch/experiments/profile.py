@@ -14,12 +14,14 @@ sum of CUDA kernel and memcpy time the profiler saw), the idle share
 operations launched, and the ten kernels with the most device time.  A
 third section profiles eight stacked train steps alone
 (``FleetSteps.train_chunk`` for the scenario's agents on a random pool):
-wall and device time and device operations per step.
+the median unprofiled wall of a step over ten chunks, then, from one
+profiled chunk, wall and device time and device operations per step.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
 from dataclasses import replace
@@ -84,12 +86,14 @@ def _profile_steps(cfg: DQNConfig, n_agents: int, k_steps: int = 8) -> dict:
         rng.integers(0, rows, (k_steps, n_agents, cfg.batch_size)).astype(np.int32)
     ).cuda()
     _timed(lambda: steps.train_chunk(state, pool, idx))  # warm-up
+    plain = [_timed(lambda: steps.train_chunk(state, pool, idx))[1] for _ in range(10)]
     with profile(activities=ACTIVITIES) as prof:
         _, wall_s = _timed(lambda: steps.train_chunk(state, pool, idx))
     dev = device_summary(prof, wall_s)
     return {
         "agents": n_agents,
         "steps": k_steps,
+        "plain_wall_ms_per_step": statistics.median(plain) / k_steps * 1e3,
         "wall_ms_per_step": wall_s / k_steps * 1e3,
         "device_ms_per_step": dev["device_busy_s"] / k_steps * 1e3,
         "device_ops_per_step": dev["device_ops"] / k_steps,

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 * :mod:`repro_torch.kernels.replay_gather` — the fleet's minibatch gather;
-* :mod:`repro_torch.kernels.fused_td` — the TD-target + Huber tail;
+* :mod:`repro_torch.kernels.fused_td` — the DQN update's TD tail (action
+  select, TD target, Huber loss, per-agent mean and its gradient);
 * :mod:`repro_torch.kernels.rmsnorm` — the model zoo's RMSNorm;
 * :mod:`repro_torch.kernels.flash_attention` — the model zoo's prefill
   attention;

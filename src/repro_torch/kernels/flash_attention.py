@@ -24,6 +24,11 @@ them):
 * ``"scalar"`` (float32, and bf16 with ``D % 8 != 0``): float32 FMAs from
   shared memory, the reference's arithmetic, far from the tensor cores.
 
+The wrapper takes the lean launch path of :mod:`repro_torch.kernels.lib`
+(entry points bound once, arguments packed into one struct, device
+guard in C, raw stream handle); the call is device-bound, so this keeps
+one calling convention for all kernels rather than saving time.
+
 On a CPU tensor :func:`flash_attention` computes :func:`attention_plain`;
 on a CUDA tensor it launches a kernel or raises.  ``launches`` counts
 kernel launches only, ``launches_by_route`` splits them by route.
@@ -40,6 +45,12 @@ MAX_HEAD_DIM = 128  # the kernel's largest head_dim
 _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("wgmma", "scalar")
 TMA_ALIGN = 16  # bytes: TMA's rule for a tensor's base and row strides
+
+# The packed ``FlashAttentionArgs`` of ``csrc/flash_attention.cu`` for one
+# launch, from (q, k, v, o) pointers, the raw stream, the device index,
+# b, s, hq, hkv, d, causal, window (0: none), scale and softcap: the one
+# place that packs it.
+launch_args = lib.FLASH_ATTENTION_ARGS.pack
 
 
 def attention_plain(
@@ -97,8 +108,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
             "flash_attention wants q, k, v all float32 or all bfloat16; got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention operands are on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention operands must be contiguous")
 
@@ -141,43 +150,45 @@ def flash_attention(
     _check(q, k, v, window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    index = lib.device_index("flash_attention", q, k, v)
+    if index < 0:
         return attention_plain(
             q, k, v, causal=causal, window=window, scale=scale, softcap=softcap
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     b, s, hq, d = q.shape
     way = route(q.dtype, d)
-    kernels = lib.load()
+    if lib.raw_stream is None:
+        lib.load()
     if way == "wgmma":
         check_tma_operands(q, k, v)
-        fn = kernels.flash_attention_bf16_wgmma
+        fn = lib.flash_attention_bf16_wgmma
     elif q.dtype == torch.float32:
-        fn = kernels.flash_attention_f32
+        fn = lib.flash_attention_f32
     else:
-        fn = kernels.flash_attention_bf16
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(),
-            k.data_ptr(),
-            v.data_ptr(),
-            out.data_ptr(),
-            b,
-            s,
-            hq,
-            k.shape[2],
-            d,
-            float(scale),
-            float(softcap),
-            int(causal),
-            0 if window is None else int(window),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    lib.check(rc, "flash_attention")
+        fn = lib.flash_attention_bf16
+    args = launch_args(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        out.data_ptr(),
+        lib.raw_stream(index),
+        index,
+        b,
+        s,
+        hq,
+        k.shape[2],
+        d,
+        int(causal),
+        0 if window is None else int(window),
+        scale,
+        softcap,
+    )
+    rc = fn(args)
+    if rc:
+        lib.check(rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_by_route[way] += 1
     return out
@@ -192,5 +203,6 @@ __all__ = [
     "attention_plain",
     "check_tma_operands",
     "flash_attention",
+    "launch_args",
     "route",
 ]

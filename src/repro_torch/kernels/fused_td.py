@@ -1,23 +1,36 @@
-"""Fused TD-target + Huber loss: the elementwise tail of a DQN update.
+"""Fused TD tail of the stacked DQN update: from the Q-values to each
+agent's mean Huber loss and its gradient, in one launch.
 
-    target = r + gamma * (1 - done) * max_a q_next[a]    (target net)
-    delta  = q_sel - target
-    loss   = 0.5 delta^2 if |delta| <= 1 else |delta| - 0.5
-    dq     = dloss/dq_sel = clip(delta, -1, 1)
+    a        = the row's stored action, truncated to an int
+    q_sel    = q[a]                                (jnp.take_along_axis)
+    target   = r + gamma * (1 - done) * max_a q_next[a]    (target net)
+    delta    = q_sel - target
+    loss_row = 0.5 delta^2 if |delta| <= 1 else |delta| - 0.5
+    dq       = dloss_row/dq_sel = clip(delta, -1, 1)
+    loss     = mean_b loss_row                     (per agent)
+    grad_q   = dq / B at the selected action, 0 elsewhere
 
 Replaces the TPU kernel ``src/repro/kernels/fused_td/kernel.py``
-(``fused_td``; ``custom_vjp`` in ``ops.py``, oracle ``ref.py``) with the
-hand-written CUDA kernel ``repro_torch/csrc/fused_td.cu``.  What bounds
-it on an H100: bytes, ``(A + 5) * 4`` a sample, a few kilobytes at the
-fleet's shapes, so the launch dominates; the fleet therefore calls it
-once per train step on the flattened rows of all agents.  Unlike the TPU
-kernel it masks the tail, so any B works.
+(``fused_td``: ``loss_row`` and ``dq``; ``custom_vjp`` in ``ops.py``,
+oracle ``ref.py``) and the operations its caller ran around it in the
+same XLA program (``src/repro/rl/fleet.py::make_dqn_loss_fn``: the
+``take_along_axis`` select before it, the mean after it, the select's
+gradient scatter in backward) with the hand-written CUDA kernel
+``repro_torch/csrc/fused_td.cu``.  What bounds it on an H100: bytes, a
+few kilobytes at the fleet's shapes, so the launch dominates the call;
+the wrapper takes the lean launch path of :mod:`repro_torch.kernels.lib`
+(entry point bound once, its arguments packed into one struct, device
+guard in C, raw stream handle).  ``action``, ``reward`` and ``done`` are
+read in place from the gathered replay rows at the column offsets
+``cols`` (:func:`repro_torch.core.erb.flat_columns`).
+
+An action out of range follows JAX: ``a`` in ``[-A, -1]`` wraps, any
+other selects NaN (and a NaN action truncates to 0, as ``astype``).
 
 :func:`td_loss` wraps it in a ``torch.autograd.Function``: the forward
-returns the per-row loss and saves ``dq``; the backward returns
-``grad * dq`` for ``q_sel`` and nothing for the target-side inputs.  A
-per-agent mean over B taken outside gives the reference's ``g * dq / B``
-(``ops.py:34-36``).
+returns ``loss [N]`` and saves ``grad_q``; the backward returns
+``grad[:, None, None] * grad_q`` for ``q`` (the reference's
+``g * dq / B``) and nothing for the target-side inputs.
 
 On CPU tensors :func:`fused_td` computes :func:`fused_td_plain`; on CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
@@ -26,92 +39,139 @@ launches only.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import lib
 
+# The packed ``FusedTdArgs`` of ``csrc/fused_td.cu`` for one launch, from
+# the (q, q_next, rows, loss_rows, dq, loss, grad_q) pointers, the raw
+# stream, the device index, n, b, a, f, the action, reward and done
+# columns, and gamma: the one place that packs it.
+launch_args = lib.FUSED_TD_ARGS.pack
 
-def fused_td_plain(q_sel, q_next, reward, done, gamma: float):
-    """The plain PyTorch version (the reference's ``fused_td_ref``
-    arithmetic): what the CPU runs and what the kernel is checked
-    against on the card.  Returns ``(loss [B, 1], dq [B, 1])``."""
-    best = q_next.max(-1, keepdim=True).values
-    target = reward + gamma * (1.0 - done) * best
+
+class TDOut(NamedTuple):
+    loss: torch.Tensor  # [N] each agent's mean loss
+    loss_rows: torch.Tensor  # [N, B]
+    dq: torch.Tensor  # [N, B] clip(delta, -1, 1)
+    grad_q: torch.Tensor  # [N, B, A] dq / B at the selected action
+
+
+def fused_td_plain(q, q_next, rows, cols, gamma: float) -> TDOut:
+    """The plain PyTorch version in the reference's order (select the
+    action, ``fused_td_ref``'s arithmetic per row, the mean per agent):
+    what the CPU runs and what the kernel is checked against on the
+    card."""
+    a, b = q.shape[2], q.shape[1]
+    col_a, col_r, col_d = cols
+    # the action as jnp.take_along_axis(q, action.astype(int32)) selects:
+    # truncated, NaN read as 0, [-A, -1] wrapped, NaN where still out of
+    # range (torch.gather would raise)
+    t = torch.nan_to_num(rows[..., col_a].trunc(), nan=0.0)
+    t = torch.where(t < 0, t + a, t)
+    valid = (t >= 0) & (t < a)
+    index = torch.where(valid, t, 0.0).long()[..., None]
+    q_sel = torch.where(valid, q.gather(2, index)[..., 0], torch.nan)
+    best = q_next.max(-1).values
+    target = rows[..., col_r] + gamma * (1.0 - rows[..., col_d]) * best
     delta = q_sel - target
     absd = delta.abs()
-    loss = torch.where(absd <= 1.0, 0.5 * delta * delta, absd - 0.5)
-    return loss, delta.clamp(-1.0, 1.0)
+    loss_rows = torch.where(absd <= 1.0, 0.5 * delta * delta, absd - 0.5)
+    dq = delta.clamp(-1.0, 1.0)
+    g = torch.where(valid, dq / b, 0.0)
+    grad_q = torch.zeros_like(q).scatter_(2, index, g[..., None])
+    return TDOut(loss_rows.sum(1) / b, loss_rows, dq, grad_q)
 
 
-def _check(q_sel, q_next, reward, done) -> None:
-    if q_next.dim() != 2 or q_next.shape[1] < 1:
-        raise ValueError(f"fused_td wants q_next [B, A>=1]; got {tuple(q_next.shape)}")
-    col = (q_next.shape[0], 1)
-    for name, t in (("q_sel", q_sel), ("reward", reward), ("done", done)):
-        if tuple(t.shape) != col:
-            raise ValueError(f"fused_td wants {name} {col}; got {tuple(t.shape)}")
-    ts = (q_sel, q_next, reward, done)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("fused_td operands must be float32")
-    if any(t.device != q_next.device for t in ts):
-        raise ValueError("fused_td operands are on different devices")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("fused_td operands must be contiguous")
-
-
-def fused_td(q_sel, q_next, reward, done, gamma: float):
-    """q_sel [B, 1], q_next [B, A], reward [B, 1], done [B, 1] (float32)
-    -> (loss [B, 1], dq [B, 1])."""
-    _check(q_sel, q_next, reward, done)
-    if q_next.device.type == "cpu":
-        return fused_td_plain(q_sel, q_next, reward, done, gamma)
-    if q_next.device.type != "cuda":
-        raise ValueError(f"fused_td: unsupported device {q_next.device}")
-    b, a = q_next.shape
-    loss = torch.empty((b, 1), dtype=torch.float32, device=q_next.device)
-    dq = torch.empty_like(loss)
-    if b == 0:
-        return loss, dq
-    with torch.cuda.device(q_next.device):
-        rc = lib.load().fused_td_f32(
-            q_sel.data_ptr(),
-            q_next.data_ptr(),
-            reward.data_ptr(),
-            done.data_ptr(),
-            loss.data_ptr(),
-            dq.data_ptr(),
-            b,
-            a,
-            float(gamma),
-            torch.cuda.current_stream().cuda_stream,
+def _check(q, q_next, rows, cols) -> tuple[int, int, int, int]:
+    """Raise on operands the kernel does not take; return n, b, a, f
+    (each attribute read once)."""
+    qs, ns, rs = q.shape, q_next.shape, rows.shape
+    if len(qs) != 3 or ns != qs or len(rs) != 3 or rs[:2] != qs[:2] or qs[2] < 1:
+        raise ValueError(
+            "fused_td wants q, q_next [N, B, A>=1] and rows [N, B, F]; got "
+            f"{tuple(qs)}, {tuple(ns)}, {tuple(rs)}"
         )
-    lib.check(rc, "fused_td")
+    f = rs[2]
+    col_a, col_r, col_d = cols
+    if not (0 <= col_a < f and 0 <= col_r < f and 0 <= col_d < f):
+        raise ValueError(f"fused_td: columns {cols} do not index rows of {f}")
+    qt, nt, rt = q.dtype, q_next.dtype, rows.dtype
+    if not (qt is torch.float32 and nt is torch.float32 and rt is torch.float32):
+        raise TypeError(f"fused_td operands must be float32; got {qt}, {nt}, {rt}")
+    if not (q.is_contiguous() and q_next.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("fused_td operands must be contiguous")
+    return qs[0], qs[1], qs[2], f
+
+
+def fused_td(q, q_next, rows, cols, gamma: float) -> TDOut:
+    """q, q_next [N, B, A] f32, rows [N, B, F] f32, ``cols`` the
+    (action, reward, done) column offsets of ``rows`` -> :class:`TDOut`."""
+    n, b, a, f = _check(q, q_next, rows, cols)
+    index = lib.device_index("fused_td", q, q_next, rows)
+    if index < 0:
+        return fused_td_plain(q, q_next, rows, cols, gamma)
+    loss, loss_rows, dq = q.new_empty(n), q.new_empty(n, b), q.new_empty(n, b)
+    out = TDOut(loss, loss_rows, dq, q.new_empty(n, b, a))
+    if n == 0:
+        return out
+    if lib.raw_stream is None:
+        lib.load()
+    args = launch_args(
+        q.data_ptr(),
+        q_next.data_ptr(),
+        rows.data_ptr(),
+        loss_rows.data_ptr(),
+        dq.data_ptr(),
+        loss.data_ptr(),
+        out.grad_q.data_ptr(),
+        lib.raw_stream(index),
+        index,
+        n,
+        b,
+        a,
+        f,
+        *cols,
+        gamma,
+    )
+    rc = lib.fused_td_f32(args)
+    if rc:
+        lib.check(rc, "fused_td")
     fused_td.launches += 1
-    return loss, dq
+    return out
 
 
 fused_td.launches = 0
 
 
 class TDLoss(torch.autograd.Function):
-    """Per-row Huber TD loss, differentiable in ``q_sel`` only."""
+    """Per-agent mean Huber TD loss, differentiable in ``q`` only."""
 
     @staticmethod
-    def forward(ctx, q_sel, q_next, reward, done, gamma: float):
-        loss, dq = fused_td(q_sel, q_next, reward, done, gamma)
-        ctx.save_for_backward(dq)
-        return loss
+    def forward(ctx, q, q_next, rows, cols, gamma: float):
+        out = fused_td(q, q_next, rows, cols, gamma)
+        ctx.save_for_backward(out.grad_q)
+        return out.loss
 
     @staticmethod
     def backward(ctx, grad):
-        (dq,) = ctx.saved_tensors
-        return grad * dq, None, None, None, None
+        (grad_q,) = ctx.saved_tensors
+        return grad[:, None, None] * grad_q, None, None, None, None
 
 
-def td_loss(q_sel, q_next, reward, done, gamma: float) -> torch.Tensor:
-    """Per-row TD loss ``[B, 1]`` through the fused kernel, with the
-    fused ``dq`` as its gradient (take the mean outside)."""
-    return TDLoss.apply(q_sel, q_next, reward, done, gamma)
+def td_loss(q, q_next, rows, cols, gamma: float) -> torch.Tensor:
+    """Each agent's mean TD loss ``[N]`` through the fused kernel, with
+    the fused ``grad_q`` as its gradient."""
+    return TDLoss.apply(q, q_next, rows, cols, gamma)
 
 
-__all__ = ["TDLoss", "fused_td", "fused_td_plain", "td_loss"]
+__all__ = [
+    "TDLoss",
+    "TDOut",
+    "fused_td",
+    "fused_td_plain",
+    "launch_args",
+    "td_loss",
+]

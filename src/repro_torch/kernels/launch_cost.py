@@ -19,12 +19,14 @@ of ``replay_gather``'s launch path at the fleet's shape (pool [16384,
 1033] float32, 128 rows): the wrapper's checks and device index, the
 output's allocation, the pointers, the raw stream handle, the packing of
 the argument struct, the ``ctypes`` call with and without its launch,
-and the whole wrapper; the pieces the per-argument launch path pays
-besides (a ``torch.cuda.device`` guard, the library lookup, a
-``torch.cuda.Stream`` object); ``index_select``, also through
-``torch.ops`` (the path from Python that an op registered with
-``TORCH_LIBRARY`` would take); and one ATen elementwise launch.  The same
-for ``rmsnorm`` at the zoo's decode shape ([4, 3840] bfloat16).  Then the
+and the whole wrapper; ``index_select``, also through ``torch.ops`` (the
+path from Python that an op registered with ``TORCH_LIBRARY`` would
+take); and one ATen elementwise launch.  The same for ``fused_td`` at the
+fleet's shape (q, q_next [4, 32, 6], rows [4, 32, 1033] float32: the
+main path's call, which allocates its four outputs, ``td_loss``'s
+forward, and the whole tail forward and backward through autograd beside
+one multiply's) and for ``rmsnorm`` at the zoo's decode shape ([4, 3840]
+bfloat16).  Then the
 device time of ``rmsnorm``'s kernels at the decode and prefill ([4000,
 3840] bfloat16) shapes under each plan that can take them (128 or 256
 threads on the ``cta`` route, the ``masked`` route), forced through the C
@@ -44,6 +46,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.adfll_dqn import DQNConfig
+from repro_torch.core.erb import flat_columns, flat_width
+from repro_torch.kernels import fused_td as td
 from repro_torch.kernels import lib
 from repro_torch.kernels import replay_gather as rg
 from repro_torch.kernels import rmsnorm as rn
@@ -136,11 +141,6 @@ def gather_pieces(dev: torch.device) -> dict:
     args = rg.launch_args(*ptrs, index, rows, feat)
     no_launch = rg.launch_args(*ptrs, index, 0, feat)  # back after the guard
     select_op = torch.ops.aten.index_select.default
-
-    def guard():
-        with torch.cuda.device(dev):
-            pass
-
     pieces = {
         "check": lambda: rg._check(pool, idx, w),
         "device_index": lambda: lib.device_index("replay_gather", pool, idx, w),
@@ -159,11 +159,6 @@ def gather_pieces(dev: torch.device) -> dict:
         "ctypes_launch": lambda: lib.replay_gather_f32(args),
         "ctypes_no_launch": lambda: lib.replay_gather_f32(no_launch),
         "wrapper": lambda: rg.replay_gather(pool, idx, w),
-        # what the per-argument launch path pays besides: a device guard
-        # object, the library lookup, a torch.cuda.Stream object
-        "device_guard": guard,
-        "load_getattr": lambda: lib.load().replay_gather_f32,
-        "stream_object": lambda: torch.cuda.current_stream().cuda_stream,
         "index_select": lambda: torch.index_select(pool, 0, idx),
         # the same ATen op through torch.ops, the path from Python that an
         # op registered with TORCH_LIBRARY takes
@@ -179,6 +174,68 @@ def gather_pieces(dev: torch.device) -> dict:
             "wrapper": graph_ms(pieces["wrapper"]),
             "index_select": graph_ms(pieces["index_select"]),
         },
+    }
+
+
+def fused_td_operands(dev) -> tuple:
+    """fused_td's operands at the fleet's shape: q, q_next [4, 32, A],
+    rows [4, 32, F] with in-range actions, the (action, reward, done)
+    columns and gamma, all from ``DQNConfig()`` and the flat-row layout."""
+    cfg = DQNConfig()
+    rng = np.random.default_rng(3)
+    n, b, a = 4, cfg.batch_size, cfg.n_actions
+    columns = flat_columns(cfg.box_size)
+    cols = tuple(columns[k].start for k in ("action", "reward", "done"))
+    q, q_next = rng.standard_normal((2, n, b, a))
+    rows = rng.random((n, b, flat_width(cfg.box_size)))
+    rows[..., cols[0]] = rng.integers(0, a, (n, b))
+    q, q_next, rows = (
+        torch.tensor(x, dtype=torch.float32, device=dev) for x in (q, q_next, rows)
+    )
+    return q, q_next, rows, cols, cfg.gamma
+
+
+def fused_td_pieces(dev: torch.device) -> dict:
+    """fused_td's wrapper at the fleet's shape, piece by piece, beside one
+    ATen launch; and the whole TD tail forward and backward."""
+    q, q_next, rows, cols, gamma = fused_td_operands(dev)
+    (n, b, a), f = q.shape, rows.shape[2]
+    lib.load()
+    index = dev.index
+    out = td.fused_td(q, q_next, rows, cols, gamma)
+    ptrs = (q.data_ptr(), q_next.data_ptr(), rows.data_ptr())
+    ptrs += tuple(x.data_ptr() for x in (out.loss_rows, out.dq, out.loss))
+    ptrs += (out.grad_q.data_ptr(), lib.raw_stream(index))
+    args = td.launch_args(*ptrs, index, n, b, a, f, *cols, gamma)
+    leaf = q.clone().requires_grad_(True)
+    pieces = {
+        "check": lambda: td._check(q, q_next, rows, cols),
+        "device_index": lambda: lib.device_index("fused_td", q, q_next, rows),
+        "new_empty_x4": lambda: (
+            q.new_empty(n),
+            q.new_empty(n, b),
+            q.new_empty(n, b),
+            q.new_empty(n, b, a),
+        ),
+        "pack": lambda: td.launch_args(*ptrs, index, n, b, a, f, *cols, gamma),
+        "ctypes_launch": lambda: lib.fused_td_f32(args),
+        "wrapper": lambda: td.fused_td(q, q_next, rows, cols, gamma),
+        "apply": lambda: td.td_loss(leaf, q_next, rows, cols, gamma),
+        "tail": lambda: torch.autograd.grad(
+            td.td_loss(leaf, q_next, rows, cols, gamma).sum(), leaf
+        ),
+        # one multiply forward and backward: autograd's own round trip
+        "autograd_floor": lambda: torch.autograd.grad(
+            torch.mul(leaf, gamma).sum(), leaf
+        ),
+        "floor_mul": lambda: torch.mul(q_next, gamma),
+    }
+    timed = ("wrapper", "tail", "autograd_floor", "floor_mul")
+    return {
+        "shape": [n, b, a, f],
+        "host_us": {name: host_us(fn) for name, fn in pieces.items()},
+        "ms": {name: cuda_ms(pieces[name]) for name in timed},
+        "device_ms": {"wrapper": graph_ms(pieces["wrapper"])},
     }
 
 
@@ -277,6 +334,7 @@ def main() -> int:
         "nvidia_smi": smi,
         "torch": torch.__version__,
         "replay_gather": gather_pieces(dev),
+        "fused_td": fused_td_pieces(dev),
         "rmsnorm_decode": rmsnorm_pieces(dev),
         "rmsnorm_plans": rmsnorm_plans(dev),
     }

@@ -13,28 +13,22 @@ edited source is rebuilt and an unchanged one is reused.  The library
 is loaded with ``ctypes``; every C entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 
-**Two calling conventions, until the last two kernels move.**  The
-per-argument path (one ``c_void_p`` or ``c_int`` ``argtypes`` entry per
-argument, bound in :func:`load`, under a ``torch.cuda.device`` guard and
-with a ``torch.cuda.Stream`` object) serves only ``fused_td`` and
-``flash_attention``.  Each moves to the lean path with its own redesign,
-and the last of them deletes the per-argument ``argtypes`` in
-:func:`load` and this paragraph; until then a change to how kernels
-launch is made on both paths.
-
-**The lean launch path** (``replay_gather`` and ``rmsnorm``).  A
+**The launch path.**  Every kernel launches the same lean way.  A
 wrapper's host cost is paid on every call, and at the fleet's and the
 zoo decode's shapes it is the whole cost of the call, so the path keeps
 only what a launch needs:
 
-* :func:`load` binds each lean C entry point once, with its ``argtypes``,
+* :func:`load` binds each C entry point once, with its ``argtypes``,
   to a module-level handle (:data:`replay_gather_f32`,
-  :data:`rmsnorm_f32`, :data:`rmsnorm_bf16`); a wrapper calls the handle,
-  with no ``load()`` or ``getattr`` on the library per call.
-* A lean entry point takes one argument: a pointer to a C struct of the
+  :data:`fused_td_f32`, :data:`rmsnorm_f32`, :data:`rmsnorm_bf16`,
+  :data:`flash_attention_f32`, :data:`flash_attention_bf16`,
+  :data:`flash_attention_bf16_wgmma`); a wrapper calls the handle, with
+  no ``load()`` or ``getattr`` on the library per call.
+* An entry point takes one argument: a pointer to a C struct of the
   launch's arguments, which the wrapper packs into ``bytes`` with a
   precompiled ``struct.Struct`` (:data:`REPLAY_GATHER_ARGS`,
-  :data:`RMSNORM_ARGS`), through its kernel module's ``launch_args``,
+  :data:`FUSED_TD_ARGS`, :data:`RMSNORM_ARGS`,
+  :data:`FLASH_ATTENTION_ARGS`), through its kernel module's ``launch_args``,
   the one place that packs it.  ``ctypes`` converts each declared argument on
   its own, at a few hundred nanoseconds each; one packed buffer costs one
   conversion and the pack.  :func:`load` checks each format's size
@@ -98,20 +92,44 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-# The lean entry points' argument structs, field by field as in the C
+# The entry points' argument structs, field by field as in the C
 # sources: pointers (and the stream) first, then 32-bit fields.
 # replay_gather.cu ReplayGatherArgs: buffer, idx, w, out, stream; device,
 # batch, feat; 4 bytes of padding to sizeof.
 REPLAY_GATHER_ARGS = struct.Struct("@5P3i4x")
+# fused_td.cu FusedTdArgs: q, q_next, rows, loss_rows, dq, loss, grad_q,
+# stream; device, n, b, a, f, col_action, col_reward, col_done; gamma; 4
+# bytes of padding to sizeof.
+FUSED_TD_ARGS = struct.Struct("@8P8if4x")
 # rmsnorm.cu RmsnormArgs: x, scale, out, stream; device, n, d, route,
 # threads, rows_per_cta, vec; eps.
 RMSNORM_ARGS = struct.Struct("@4P7if")
+# flash_attention.cu FlashAttentionArgs: q, k, v, o, stream; device, b, s,
+# hq, hkv, d, causal, window; scale, softcap.
+FLASH_ATTENTION_ARGS = struct.Struct("@5P8i2f")
+# each entry point, and the sizeof function of the struct it takes
+ENTRY_POINTS = {
+    "replay_gather_f32": ("replay_gather_args_size", REPLAY_GATHER_ARGS),
+    "fused_td_f32": ("fused_td_args_size", FUSED_TD_ARGS),
+    "rmsnorm_f32": ("rmsnorm_args_size", RMSNORM_ARGS),
+    "rmsnorm_bf16": ("rmsnorm_args_size", RMSNORM_ARGS),
+    "flash_attention_f32": ("flash_attention_args_size", FLASH_ATTENTION_ARGS),
+    "flash_attention_bf16": ("flash_attention_args_size", FLASH_ATTENTION_ARGS),
+    "flash_attention_bf16_wgmma": (
+        "flash_attention_args_size",
+        FLASH_ATTENTION_ARGS,
+    ),
+}
 
 _LIB: ctypes.CDLL | None = None
-# The lean launch path's handles, bound by load(); None until then.
+# The entry points' handles (ENTRY_POINTS), bound by load(); None until then.
 replay_gather_f32 = None
+fused_td_f32 = None
 rmsnorm_f32 = None
 rmsnorm_bf16 = None
+flash_attention_f32 = None
+flash_attention_bf16 = None
+flash_attention_bf16_wgmma = None
 raw_stream = None  # device index -> its current stream as a cudaStream_t
 
 
@@ -172,37 +190,27 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call).  Also binds the
-    lean launch path's module-level handles."""
-    global _LIB, replay_gather_f32, rmsnorm_f32, rmsnorm_bf16, raw_stream
+    entry points' module-level handles."""
+    global _LIB, replay_gather_f32, fused_td_f32, rmsnorm_f32, rmsnorm_bf16
+    global flash_attention_f32, flash_attention_bf16, flash_attention_bf16_wgmma
+    global raw_stream
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # lean entry points: one packed argument struct each
-        for name in ("replay_gather_f32", "rmsnorm_f32", "rmsnorm_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = [ctypes.c_char_p], i32
-        for name, fmt in (
-            ("replay_gather_args_size", REPLAY_GATHER_ARGS),
-            ("rmsnorm_args_size", RMSNORM_ARGS),
-        ):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = [], i32
-            if fn() != fmt.size:
+        for name, (size_name, fmt) in ENTRY_POINTS.items():
+            size = getattr(lib, size_name)
+            size.argtypes, size.restype = [], ctypes.c_int
+            if size() != fmt.size:
                 raise RuntimeError(
-                    f"{name}: the C struct has {fn()} bytes, its format {fmt.size}"
+                    f"{size_name}: the C struct has {size()} bytes, its format "
+                    f"{fmt.size}"
                 )
-        lib.fused_td_f32.argtypes = [ptr] * 6 + [i32, i32, f32, ptr]
-        lib.fused_td_f32.restype = i32
-        for name in (
-            "flash_attention_f32",
-            "flash_attention_bf16",
-            "flash_attention_bf16_wgmma",
-        ):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 4 + [i32] * 5 + [f32, f32, i32, i32, ptr]
-            fn.restype = i32
-        replay_gather_f32 = lib.replay_gather_f32
+            fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
+        replay_gather_f32, fused_td_f32 = lib.replay_gather_f32, lib.fused_td_f32
         rmsnorm_f32, rmsnorm_bf16 = lib.rmsnorm_f32, lib.rmsnorm_bf16
+        flash_attention_f32 = lib.flash_attention_f32
+        flash_attention_bf16 = lib.flash_attention_bf16
+        flash_attention_bf16_wgmma = lib.flash_attention_bf16_wgmma
         raw_stream = torch._C._cuda_getCurrentRawStream
         _LIB = lib
     return _LIB
@@ -237,6 +245,9 @@ def check(rc: int, kernel: str) -> None:
 __all__ = [
     "BUILD_DIR",
     "CSRC",
+    "ENTRY_POINTS",
+    "FLASH_ATTENTION_ARGS",
+    "FUSED_TD_ARGS",
     "HEADERS",
     "REPLAY_GATHER_ARGS",
     "RMSNORM_ARGS",

@@ -10,10 +10,13 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   once: each step gathers the ``N * B`` minibatch rows from the pooled
   ``[R, F]`` device replay with the ``replay_gather`` kernel, runs the
   stacked DQN forward (grouped convs, batched matmuls), ends in the
-  ``fused_td`` kernel on the flattened rows, backpropagates, applies the
-  stacked AdamW and syncs each slot's target on its own count.  The
-  reference ``lax.scan``s the steps and ``vmap``s the agents; here the
-  steps are a Python loop and the agent axis is a batch dimension.
+  ``fused_td`` kernel, which computes the whole TD tail (action select,
+  TD target, Huber loss, per-agent mean and its gradient) of all agents
+  in one launch from the stacked Q-values and the gathered rows,
+  backpropagates, applies the stacked AdamW and syncs each slot's target
+  on its own count.  The reference ``lax.scan``s the steps and ``vmap``s
+  the agents; here the steps are a Python loop and the agent axis is a
+  batch dimension.
 * :class:`CollectSteps` / :func:`collect_fleet` — the collection phase:
   one stacked q-value forward per environment step for a cohort, with
   epsilon-greedy sampling on the host consuming each agent's own rng in
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.adfll_dqn import DQNConfig
-from repro_torch.core.erb import ERB, erb_add, erb_flatten, flat_width
+from repro_torch.core.erb import ERB, erb_add, erb_flatten, flat_columns, flat_width
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_td import td_loss
 from repro_torch.kernels.replay_gather import replay_gather
@@ -103,53 +106,40 @@ class FleetSteps:
         self.device = resolve_device(device)
         self.opt_cfg = make_dqn_opt_cfg(cfg)
         self.box = tuple(cfg.box_size)
-        self.obs_f = int(np.prod(self.box))
         self.feat = flat_width(self.box)
+        self.columns = flat_columns(self.box)
+        # where the TD tail reads action, reward and done in a row
+        self.td_cols = tuple(
+            self.columns[k].start for k in ("action", "reward", "done")
+        )
 
     def split_rows(self, rows: torch.Tensor) -> dict[str, torch.Tensor]:
-        """[N, B, F] flat rows -> batch dict (``FLAT_FIELDS`` column order;
-        ``action`` is stored as float32 and cast back to an index)."""
+        """[N, B, F] flat rows -> the DQN inputs ``obs``, ``loc``,
+        ``next_obs``, ``next_loc`` (``FLAT_FIELDS`` column order); the TD
+        tail reads ``action``, ``reward`` and ``done`` from the rows."""
         n, b, _ = rows.shape
-        o, out = 0, {}
-        for key, width in (
-            ("obs", self.obs_f),
-            ("loc", 3),
-            ("action", 1),
-            ("reward", 1),
-            ("next_obs", self.obs_f),
-            ("next_loc", 3),
-            ("done", 1),
-        ):
-            v = rows[:, :, o : o + width]
-            o += width
-            if key in ("obs", "next_obs"):
-                v = v.reshape(n, b, *self.box)
-            elif key == "action":
-                v = v.to(torch.int64)
+        out = {}
+        for key in ("obs", "loc", "next_obs", "next_loc"):
+            v = rows[:, :, self.columns[key]]
+            if key.endswith("obs"):
+                out[key] = v.reshape(n, b, *self.box)
             else:
-                v = v.contiguous()
-            out[key] = v
+                out[key] = v.contiguous()
         return out
 
-    def loss(self, params: dict, target: dict, batch: dict) -> torch.Tensor:
+    def loss(
+        self, params: dict, target: dict, batch: dict, rows: torch.Tensor
+    ) -> torch.Tensor:
         """Per-slot mean TD loss ``[N]`` (``fleet.py::make_dqn_loss_fn``
-        over the agent axis); the TD tail runs once on all N*B rows."""
+        over the agent axis) of the ``[N, B, F]`` rows split into
+        ``batch``; the TD tail is one ``fused_td`` launch for all agents."""
         cfg = self.cfg
         q = dqn_apply_stacked(cfg, params, batch["obs"], batch["loc"])
-        n, b, a = q.shape
-        q_sel = q.gather(2, batch["action"]).reshape(n * b, 1)
         with torch.no_grad():
             q_next = dqn_apply_stacked(
                 cfg, target, batch["next_obs"], batch["next_loc"]
             )
-        rows = td_loss(
-            q_sel,
-            q_next.reshape(n * b, a),
-            batch["reward"].reshape(n * b, 1),
-            batch["done"].reshape(n * b, 1),
-            cfg.gamma,
-        )
-        return rows.reshape(n, b).mean(1)
+        return td_loss(q, q_next, rows, self.td_cols, cfg.gamma)
 
     def step(self, state: FleetState, rows: torch.Tensor):
         """One train step of every slot on its ``[B, F]`` rows ``[N, B, F]``."""
@@ -157,7 +147,7 @@ class FleetSteps:
         names = [(k, n) for k in state.params for n in state.params[k]]
         live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
         with torch.enable_grad():
-            losses = self.loss(live, state.target, batch)
+            losses = self.loss(live, state.target, batch, rows)
             # agents share no parameters: the gradient of the sum is each
             # agent's own gradient of its own mean loss
             flat = torch.autograd.grad(losses.sum(), [live[k][n] for k, n in names])
@@ -342,7 +332,8 @@ class FleetEngine:
     are not padded: eager PyTorch compiles nothing per shape.
 
     ``n_chunk_steps`` counts stacked train steps: each launches the
-    ``replay_gather`` and ``fused_td`` kernels once.
+    ``replay_gather`` kernel once (the minibatch rows of every agent) and
+    the ``fused_td`` kernel once (the TD tail of every agent).
     """
 
     def __init__(self, cfg: DQNConfig, *, device: str | torch.device | None = None):

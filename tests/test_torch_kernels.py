@@ -1,4 +1,4 @@
-"""The port's two kernel modules against the reference's kernels.
+"""The port's fleet kernel modules against the reference's kernels.
 
 On the CPU each wrapper runs its plain PyTorch version, which is held
 against the reference Pallas kernel run as ``tests/test_kernels.py``
@@ -23,6 +23,16 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
+from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
+from repro_torch.core.erb import (  # noqa: E402
+    TaskTag,
+    erb_add,
+    erb_flatten,
+    erb_init,
+    flat_columns,
+)
+from repro_torch.kernels import flash_attention as attention_module  # noqa: E402
+from repro_torch.kernels import fused_td as td_module  # noqa: E402
 from repro_torch.kernels import launch_cost, lib, rmsnorm  # noqa: E402
 from repro_torch.kernels import replay_gather as gather_module  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
@@ -77,6 +87,66 @@ def _td_inputs(rng, b, a):
     return q_sel, q_next, r, d
 
 
+# a small flat-row layout (box 2^3: F = 25) with the real column order
+TD_COLUMNS = flat_columns((2, 2, 2))
+TD_COLS = tuple(TD_COLUMNS[k].start for k in ("action", "reward", "done"))
+TD_WIDTH = TD_COLUMNS["done"].stop
+
+
+def _pack_rows(rng, action, r, d):
+    """[N, B, F] rows of noise with ``action``, ``r``, ``d`` ([N, B]) in
+    their columns."""
+    rows = rng.standard_normal((*action.shape, TD_WIDTH)).astype(np.float32)
+    for col, v in zip(TD_COLS, (action, r, d), strict=True):
+        rows[..., col] = v
+    return rows
+
+
+def _per_row_as_tail(rng, q_sel, q_next, r, d):
+    """The per-row kernel's inputs as the fused tail's, for one agent:
+    q_sel placed at a drawn action of a [1, B, A] q, r and d packed into
+    rows.  Returns (q, q_next, rows, action [B])."""
+    b, a = q_next.shape
+    action = rng.integers(0, a, b)
+    q = rng.standard_normal((1, b, a)).astype(np.float32)
+    q[0, np.arange(b), action] = q_sel[:, 0]
+    rows = _pack_rows(
+        rng, action[None].astype(np.float32), r[:, 0][None], d[:, 0][None]
+    )
+    return q, q_next[None], rows, action
+
+
+def _tail_inputs(rng, n, b, a):
+    """q, q_next [N, B, A] and rows [N, B, F] with in-range actions."""
+    q = rng.standard_normal((n, b, a)).astype(np.float32)
+    q_next = rng.standard_normal((n, b, a)).astype(np.float32)
+    action = rng.integers(0, a, (n, b)).astype(np.float32)
+    r = rng.standard_normal((n, b)).astype(np.float32)
+    d = (rng.random((n, b)) < 0.3).astype(np.float32)
+    return q, q_next, _pack_rows(rng, action, r, d)
+
+
+def _jax_tail(ref, q, q_next, rows, cols, gamma):
+    """The reference's TD tail per agent (``make_dqn_loss_fn``'s
+    ``take_along_axis`` then ``td_loss`` with the Pallas kernel in
+    interpret mode), vmapped over agents: (loss [N], d loss.sum() / d q)."""
+    jnp = ref.jnp
+    col_a, col_r, col_d = cols
+    action = jnp.asarray(rows[..., col_a]).astype(jnp.int32)
+    r, d = jnp.asarray(rows[..., col_r]), jnp.asarray(rows[..., col_d])
+
+    def agent(q, q_next, a, r, d):
+        q_sel = jnp.take_along_axis(q, a[:, None], 1)
+        return ref.td_loss(q_sel, q_next, r[:, None], d[:, None], gamma, True)
+
+    def total(q):
+        return ref.jax.vmap(agent)(q, jnp.asarray(q_next), action, r, d)
+
+    loss = total(jnp.asarray(q))
+    grad = ref.jax.grad(lambda q: total(q).sum())(jnp.asarray(q))
+    return np.asarray(loss), np.asarray(grad)
+
+
 def _t(*arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
@@ -122,14 +192,17 @@ def test_replay_gather_never_falls_back_off_the_cpu(rng):
 # the shapes of tests/test_kernels.py, block_b = 32 as there
 @pytest.mark.parametrize("b,a,gamma", [(64, 6, 0.9), (128, 4, 0.99), (32, 6, 0.5)])
 def test_fused_td_matches_reference_kernel(ref, rng, b, a, gamma):
+    """The fused tail's per-row outputs against the reference's per-row
+    kernel, its q_sel placed at a drawn action of q."""
     ins = _td_inputs(rng, b, a)
     l_ref, dq_ref = ref.fused_td(*map(ref.jnp.asarray, ins), gamma=gamma, block_b=32)
+    q, q_next, rows, _ = _per_row_as_tail(rng, *ins)
     before = fused_td.launches
-    loss, dq = fused_td(*_t(*ins), gamma)
+    out = fused_td(*_t(q, q_next, rows), TD_COLS, gamma)
     assert fused_td.launches == before
     # atol 1e-6: XLA may contract the target's multiply-add into an FMA
-    np.testing.assert_allclose(loss.numpy(), np.asarray(l_ref), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_ref), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.loss_rows[0].numpy(), l_ref[:, 0], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.dq[0].numpy(), dq_ref[:, 0], atol=1e-6, rtol=0)
 
 
 def test_fused_td_ragged_batch(ref, rng):
@@ -137,32 +210,183 @@ def test_fused_td_ragged_batch(ref, rng):
     the port's masks its tail.  Held against the reference oracle."""
     ins = _td_inputs(rng, 200, 6)
     l_ref, dq_ref = ref.fused_td_ref(*map(ref.jnp.asarray, ins), gamma=0.9)
-    loss, dq = fused_td(*_t(*ins), 0.9)
-    np.testing.assert_allclose(loss.numpy(), np.asarray(l_ref), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_ref), atol=1e-6, rtol=0)
+    q, q_next, rows, _ = _per_row_as_tail(rng, *ins)
+    out = fused_td(*_t(q, q_next, rows), TD_COLS, 0.9)
+    np.testing.assert_allclose(out.loss_rows[0].numpy(), l_ref[:, 0], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.dq[0].numpy(), dq_ref[:, 0], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        out.loss.numpy(), [float(np.mean(l_ref))], atol=1e-6, rtol=0
+    )
 
 
 def test_td_loss_gradient_matches_reference(ref, rng):
-    """The autograd.Function's ``grad * dq`` under a mean over B equals
-    ``jax.grad`` through the reference's custom_vjp (``g * dq / B``)."""
+    """The autograd.Function's ``grad * grad_q`` equals ``jax.grad``
+    through the reference's custom_vjp (``g * dq / B``) at the selected
+    action, and 0 at every other."""
     q_sel, q_next, r, d = _td_inputs(rng, 64, 6)
     g_ref = ref.jax.grad(lambda q: ref.td_loss(q, q_next, r, d, 0.9, True))(
         ref.jnp.asarray(q_sel)
     )
-    q = torch.from_numpy(q_sel).requires_grad_(True)
-    loss = td_loss(q, *_t(q_next, r, d), 0.9).mean()
-    loss.backward()
-    np.testing.assert_allclose(q.grad.numpy(), np.asarray(g_ref), atol=1e-6, rtol=0)
+    q_np, qn, rows, action = _per_row_as_tail(rng, q_sel, q_next, r, d)
+    q = torch.from_numpy(q_np).requires_grad_(True)
+    loss = td_loss(q, *_t(qn, rows), TD_COLS, 0.9)
+    assert loss.shape == (1,)
+    loss.sum().backward()
+    want = np.zeros_like(q_np)
+    want[0, np.arange(64), action] = np.asarray(g_ref)[:, 0]
+    np.testing.assert_allclose(q.grad.numpy(), want, atol=1e-6, rtol=0)
     ref_loss = ref.td_loss(*map(ref.jnp.asarray, (q_sel, q_next, r, d)), 0.9, True)
     np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-6, rtol=0)
 
 
+def test_launch_cost_times_fused_td_on_the_fleet_layout():
+    """The launch-cost script times fused_td on the operands the fleet's
+    step passes: its row width, its action/reward/done columns, its gamma,
+    in-range actions; the wrapper takes them (here: its plain version)."""
+    from repro_torch.rl.fleet import FleetSteps
+
+    cfg = DQNConfig()
+    steps = FleetSteps(cfg, "cpu")
+    q, q_next, rows, cols, gamma = launch_cost.fused_td_operands("cpu")
+    assert q.shape == q_next.shape == (4, cfg.batch_size, cfg.n_actions)
+    assert rows.shape == (4, cfg.batch_size, steps.feat)
+    assert cols == steps.td_cols and gamma == cfg.gamma
+    action = rows[..., cols[0]]
+    assert bool(((action >= 0) & (action < cfg.n_actions)).all())
+    out = fused_td(q, q_next, rows, cols, gamma)
+    assert bool(torch.isfinite(out.loss).all()) and out.grad_q.shape == q.shape
+
+
 def test_fused_td_rejects_bad_operands(rng):
-    q_sel, q_next, r, d = _t(*_td_inputs(rng, 8, 6))
+    q, q_next, rows = _t(*_tail_inputs(rng, 2, 8, 6))
     with pytest.raises(ValueError):
-        fused_td(q_sel[:4], q_next, r, d, 0.9)
+        fused_td(q[:, :4], q_next, rows, TD_COLS, 0.9)
     with pytest.raises(TypeError):
-        fused_td(q_sel.double(), q_next, r, d, 0.9)
+        fused_td(q.double(), q_next, rows, TD_COLS, 0.9)
+    with pytest.raises(ValueError):
+        fused_td(q, q_next, rows, (0, 1, TD_WIDTH), 0.9)  # past the row
+    with pytest.raises(ValueError):
+        strided = q.transpose(0, 1).contiguous().transpose(0, 1)
+        fused_td(strided, q_next, rows, TD_COLS, 0.9)
+    with pytest.raises(ValueError, match="different devices"):
+        fused_td(q, q_next, rows.to("meta"), TD_COLS, 0.9)
+    before = fused_td.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_td(q.to("meta"), q_next.to("meta"), rows.to("meta"), TD_COLS, 0.9)
+    assert fused_td.launches == before
+
+
+# (N, B, A): the fleet's step, a ragged batch, one agent with one action
+TAIL_SHAPES = [(4, 32, 6), (3, 50, 6), (1, 7, 1)]
+
+
+@pytest.mark.parametrize("n,b,a", TAIL_SHAPES)
+def test_td_tail_matches_reference(ref, rng, n, b, a):
+    """The whole tail (select, TD target, Huber, per-agent mean, gradient)
+    against the reference's ``take_along_axis`` + ``td_loss`` vmapped over
+    agents: per-agent loss and d loss / d q within 1e-6; per-row loss and
+    dq within 1e-6 of the reference's Pallas kernel.  At B = 32 each
+    side's gradient is exactly its own dq / 32 at the selected action:
+    the mean's backward adds no rounding (XLA may contract the target's
+    multiply-add into an FMA, which moves dq itself by an ulp, inside the
+    1e-6)."""
+    q_np, qn_np, rows_np = _tail_inputs(rng, n, b, a)
+    want_loss, want_grad = _jax_tail(ref, q_np, qn_np, rows_np, TD_COLS, 0.9)
+    q = torch.from_numpy(q_np).requires_grad_(True)
+    qn, rows = _t(qn_np, rows_np)
+    loss = td_loss(q, qn, rows, TD_COLS, 0.9)
+    loss.sum().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), want_loss, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(q.grad.numpy(), want_grad, atol=1e-6, rtol=0)
+    out = fused_td(q.detach(), qn, rows, TD_COLS, 0.9)
+    assert torch.equal(out.grad_q, q.grad)  # backward: grad (ones) * grad_q
+    # the per-row kernel on all N * B rows at once (block_b = B divides them)
+    action = rows_np[..., TD_COLS[0]].astype(np.int32)
+    sel = np.take_along_axis(q_np, action[..., None], 2)
+    per_row = [
+        sel.reshape(-1, 1),
+        qn_np.reshape(-1, a),
+        rows_np[..., TD_COLS[1]].reshape(-1, 1),
+        rows_np[..., TD_COLS[2]].reshape(-1, 1),
+    ]
+    l_ref, dq_ref = ref.fused_td(*map(ref.jnp.asarray, per_row), gamma=0.9, block_b=b)
+    l_ref, dq_ref = np.asarray(l_ref).reshape(n, b), np.asarray(dq_ref).reshape(n, b)
+    np.testing.assert_allclose(out.loss_rows.numpy(), l_ref, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.dq.numpy(), dq_ref, atol=1e-6, rtol=0)
+    if b == 32:
+        picked = np.arange(a) == action[..., None]
+        for grad, dq in ((q.grad.numpy(), out.dq.numpy()), (want_grad, dq_ref)):
+            assert np.array_equal(grad, np.where(picked, dq[..., None] / 32, 0))
+
+
+def _out_of_range_inputs(rng):
+    """Two agents of B = 8, A = 6, whose stored actions run through the
+    edges of the float -> int -> index decode: truncation (2.7, -0.5), a
+    NaN action (0, as astype), [-A, -1] (wraps), A and beyond, below -A."""
+    q, q_next, rows = _tail_inputs(rng, 2, 8, 6)
+    rows[0, :, TD_COLS[0]] = [2.7, -0.5, np.nan, -1, -6, 5, 5.9, 0]
+    rows[1, :, TD_COLS[0]] = [6, 7, -7, -100, 1e10, 3, 1, 2]
+    return q, q_next, rows
+
+
+def test_td_tail_out_of_range_actions_follow_jax(ref, rng):
+    """An index of A or more, or below -A, selects NaN as JAX's
+    ``take_along_axis`` does (``torch.gather`` would raise), and its row
+    gets no gradient; -1 .. -A wrap; a NaN action reads as 0."""
+    q_np, qn_np, rows_np = _out_of_range_inputs(rng)
+    want_loss, want_grad = _jax_tail(ref, q_np, qn_np, rows_np, TD_COLS, 0.9)
+    q = torch.from_numpy(q_np).requires_grad_(True)
+    qn, rows = _t(qn_np, rows_np)
+    loss = td_loss(q, qn, rows, TD_COLS, 0.9)
+    loss.sum().backward()
+    assert np.isfinite(want_loss[0]) and np.isnan(want_loss[1])
+    np.testing.assert_allclose(loss.detach().numpy(), want_loss, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(q.grad.numpy(), want_grad, atol=1e-6, rtol=0)
+    out = fused_td(q.detach(), qn, rows, TD_COLS, 0.9)
+    assert torch.isnan(out.loss_rows[1, :5]).all()
+    assert torch.isfinite(out.loss_rows[1, 5:]).all()
+    assert torch.isfinite(out.loss_rows[0]).all()
+    assert not out.grad_q[1, :5].any()
+    # -1 selects the last action, -6 the first, NaN the first
+    assert out.grad_q[0, 3, 5] != 0 and out.grad_q[0, 4, 0] != 0
+    assert out.grad_q[0, 2, 0] != 0
+
+
+def test_td_tail_on_erb_flatten_rows(ref, rng):
+    """Rows in the port's ``erb_flatten`` layout at ``DQNConfig()``'s box,
+    read at the fleet's own column offsets (515, 516, 1032), against the
+    reference tail fed the ERB's fields directly."""
+    cfg = DQNConfig()
+    steps_cols = flat_columns(cfg.box_size)
+    cols = tuple(steps_cols[k].start for k in ("action", "reward", "done"))
+    assert cols == (515, 516, 1032)
+    n, b, a = 2, 32, cfg.n_actions
+    erb = erb_init(n * b, cfg.box_size, task=TaskTag("t1", "axial", "HGG"))
+    fields = {
+        "obs": rng.standard_normal((n * b, *cfg.box_size)).astype(np.float32),
+        "loc": rng.random((n * b, 3)).astype(np.float32),
+        "action": rng.integers(0, a, n * b).astype(np.int32),
+        "reward": rng.standard_normal(n * b).astype(np.float32),
+        "next_obs": rng.standard_normal((n * b, *cfg.box_size)).astype(np.float32),
+        "next_loc": rng.random((n * b, 3)).astype(np.float32),
+        "done": (rng.random(n * b) < 0.3).astype(np.float32),
+    }
+    erb_add(erb, fields)
+    rows_np = erb_flatten(erb).reshape(n, b, -1)
+    q_np = rng.standard_normal((n, b, a)).astype(np.float32)
+    qn_np = rng.standard_normal((n, b, a)).astype(np.float32)
+    direct = _pack_rows(
+        rng,
+        fields["action"].reshape(n, b).astype(np.float32),
+        fields["reward"].reshape(n, b),
+        fields["done"].reshape(n, b),
+    )
+    want_loss, want_grad = _jax_tail(ref, q_np, qn_np, direct, TD_COLS, 0.99)
+    q = torch.from_numpy(q_np).requires_grad_(True)
+    loss = td_loss(q, *_t(qn_np, rows_np), cols, 0.99)
+    loss.sum().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), want_loss, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(q.grad.numpy(), want_grad, atol=1e-6, rtol=0)
 
 
 def test_build_dir_follows_how_the_package_runs(monkeypatch, tmp_path):
@@ -205,6 +429,19 @@ def test_packed_argument_layouts():
     assert struct.unpack_from("<5Q3i", raw) == (1, 2, 3, 4, 5, 6, 7, 8)
     raw = rmsnorm.launch_args(1, 2, 3, 4, 5, 6, 7, ("masked", 32, 8, True), 0.5)
     assert struct.unpack("<4Q7if", raw) == (1, 2, 3, 4, 5, 6, 7, 1, 32, 8, 1, 0.5)
+    assert lib.FUSED_TD_ARGS.size == 8 * 8 + 8 * 4 + 4 + 4
+    raw = td_module.launch_args(*range(1, 14), 515, 516, 1032, 0.5)
+    assert struct.unpack("<8Q8if4x", raw) == (*range(1, 14), 515, 516, 1032, 0.5)
+    assert lib.FLASH_ATTENTION_ARGS.size == 5 * 8 + 8 * 4 + 2 * 4
+    raw = attention_module.launch_args(*range(1, 12), 1, 0, 0.25, 2.0)
+    assert struct.unpack("<5Q8i2f", raw) == (*range(1, 12), 1, 0, 0.25, 2.0)
+    # one calling convention: every entry point takes one packed struct
+    assert {fmt for _, fmt in lib.ENTRY_POINTS.values()} == {
+        lib.REPLAY_GATHER_ARGS,
+        lib.FUSED_TD_ARGS,
+        lib.RMSNORM_ARGS,
+        lib.FLASH_ATTENTION_ARGS,
+    }
 
 
 @pytest.mark.parametrize("name", sorted(launch_cost.FORCED_PLANS))
@@ -234,17 +471,98 @@ def test_replay_gather_kernel_matches_plain_on_card(cuda, rng, cap, feat, batch)
     assert torch.equal(got, replay_gather_plain(buf, idx, w))
 
 
+def _assert_tail_equal(got, want):
+    """All four outputs within 1e-6 (NaN where the plain version has NaN)."""
+    for name, x, y in zip(got._fields, got, want, strict=True):
+        torch.testing.assert_close(x, y, atol=1e-6, rtol=1e-6, equal_nan=True, msg=name)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,a", [(128, 6), (200, 6), (33, 1)])
-def test_fused_td_kernel_matches_plain_on_card(cuda, rng, b, a):
-    ins = _t(*_td_inputs(rng, b, a), device=cuda)
+@pytest.mark.parametrize("n,b,a", TAIL_SHAPES)
+def test_fused_td_kernel_matches_plain_on_card(cuda, rng, n, b, a):
+    ins = _t(*_tail_inputs(rng, n, b, a), device=cuda)
     before = fused_td.launches
-    loss, dq = fused_td(*ins, 0.9)
+    out = fused_td(*ins, TD_COLS, 0.9)
     torch.cuda.synchronize()
     assert fused_td.launches == before + 1
-    l_ref, dq_ref = fused_td_plain(*ins, 0.9)
-    torch.testing.assert_close(loss, l_ref, atol=1e-6, rtol=1e-6)
-    torch.testing.assert_close(dq, dq_ref, atol=1e-6, rtol=1e-6)
+    _assert_tail_equal(out, fused_td_plain(*ins, TD_COLS, 0.9))
+
+
+@pytest.mark.cuda
+def test_fused_td_out_of_range_actions_on_card(cuda, rng):
+    ins = _t(*_out_of_range_inputs(rng), device=cuda)
+    out = fused_td(*ins, TD_COLS, 0.9)
+    torch.cuda.synchronize()
+    _assert_tail_equal(out, fused_td_plain(*ins, TD_COLS, 0.9))
+    assert torch.isnan(out.loss[1]) and torch.isfinite(out.loss[0])
+
+
+@pytest.mark.cuda
+def test_td_loss_backward_through_the_dqn_on_card(cuda, rng):
+    """The gradient reaches the DQN's params through the real stacked
+    forward (q out of a bmm), equal to autograd through the plain tail,
+    at the fleet's row layout (F = 1033, columns 515, 516, 1032)."""
+    from repro_torch.rl.dqn import dqn_apply_stacked, dqn_init
+    from repro_torch.rl.fleet import FleetSteps
+
+    cfg = DQNConfig()
+    steps = FleetSteps(cfg, cuda)
+    n, b = 4, cfg.batch_size
+    gen = torch.Generator().manual_seed(0)
+    params = [dqn_init(cfg, gen, cuda) for _ in range(n)]
+    params = {
+        k: {
+            m: torch.stack([p[k][m] for p in params]).requires_grad_(True)
+            for m in params[0][k]
+        }
+        for k in params[0]
+    }
+    rows_np = rng.standard_normal((n, b, steps.feat))
+    rows_np[..., steps.td_cols[0]] = rng.integers(0, cfg.n_actions, (n, b))
+    obs, loc, q_next, rows = _t(
+        rng.random((n, b, *cfg.box_size)).astype(np.float32),
+        rng.random((n, b, 3)).astype(np.float32),
+        rng.standard_normal((n, b, cfg.n_actions)).astype(np.float32),
+        rows_np.astype(np.float32),
+        device=cuda,
+    )
+    leaves = [t for d in params.values() for t in d.values()]
+    grads = []
+    for tail in (
+        lambda q: td_loss(q, q_next, rows, steps.td_cols, cfg.gamma),
+        lambda q: fused_td_plain(q, q_next, rows, steps.td_cols, cfg.gamma).loss,
+    ):
+        q = dqn_apply_stacked(cfg, params, obs, loc)
+        grads.append(torch.autograd.grad(tail(q).sum(), leaves))
+    torch.cuda.synchronize()
+    for g, p in zip(*grads, strict=True):
+        torch.testing.assert_close(g, p, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_td_side_stream_and_graph_replay_on_card(cuda, rng):
+    """Launched on a side stream, and captured in a CUDA graph (the
+    wrapper allocates its outputs and nothing else) whose replay, after
+    the inputs change in place, equals an eager call."""
+    ins = _t(*_tail_inputs(rng, 4, 32, 6), device=cuda)
+    want = fused_td_plain(*ins, TD_COLS, 0.9)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = fused_td(*ins, TD_COLS, 0.9)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    _assert_tail_equal(got, want)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_td(*ins, TD_COLS, 0.9)
+    for t, new in zip(ins, _t(*_tail_inputs(rng, 4, 32, 6), device=cuda), strict=True):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_tail_equal(captured, fused_td(*ins, TD_COLS, 0.9))
+    _assert_tail_equal(captured, fused_td_plain(*ins, TD_COLS, 0.9))
 
 
 def _phase_cases(feat: int) -> tuple[int, np.ndarray]:
