@@ -33,7 +33,23 @@ non-zero exit code and no result line:
    variant, with ``DQNConfig()`` swapped in) through the port's runner
    on the card, with each kernel's launch count read around that run
    alone: every stacked train step launches each kernel once.
-6. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
+6. baselines — the paper's Table 1 comparison rows and FedAvg through
+   the port's runner on the card, each at ``DQNConfig()``, ``--fast``,
+   with launches read around each run alone: Agent X
+   (``baseline_all_knowing``: one job of 20 x 8 steps), Agent Y
+   (``baseline_partial``: 20 steps), Agent M (``baseline_sequential``:
+   8 rounds of 20, one flush each) and ``fedavg_sync`` (3 agents, 2
+   rounds of 8 on one shared engine); every stacked step launches each
+   of ``replay_gather`` and ``fused_td`` once, and after FedAvg every
+   agent holds agent 0's params bit for bit.  Agent M runs on the CPU
+   too, from the same init (drawn on the host): round 0's loss must
+   agree within 1e-4 (its collection is all exploration, so both sides
+   replay the same rows); later rounds are printed beside each other.
+7. sweep — ``paper_table1_sweep`` (ADFLL against Agents X, Y and M) at
+   the registry's widths, seeds 0 and 1, ``--fast``, inline
+   (``workers=1``): every cell ``ok`` with a finite error; each
+   variant's mean and its paired p-values against ADFLL are printed.
+8. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
@@ -43,11 +59,11 @@ non-zero exit code and no result line:
    by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
    rmsnorm's cases cover both of its routes (``cta``, ``masked``), and
    each must move its route's launch count.
-7. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
+9. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
    agree within 1e-4.
-8. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
+10. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
    h2o-danube-3-4b in bfloat16, random weights drawn on the card from
    seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
    the prefill and decode alone (24 ``flash_attention``, all on the
@@ -55,8 +71,11 @@ non-zero exit code and no result line:
    49 at prefill, 49 x 32 at decode), then decode logits
    at 4 positions against the teacher-forced ``forward`` on the card.
 
-Then one line with the card as ``nvidia-smi`` reports it, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+Then the script's wall time, one line with the card as ``nvidia-smi``
+reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
+paths (main, baselines, sweep): their entries carry ``launches_by_path``
+and ``launches`` is its sum.
 """
 
 from __future__ import annotations
@@ -65,6 +84,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -78,6 +98,8 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
+from repro_torch.rl.agent import DQNAgent  # noqa: E402
+from repro_torch.sweeps import failed_cells, get_sweep, run_sweep  # noqa: E402
 from repro_torch.kernels import lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
@@ -106,6 +128,14 @@ ZOO_ARCH = "h2o-danube-3-4b"
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
 RMS_EPS = get_config(ZOO_ARCH).norm_eps
 KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention)
+FLEET_KERNELS = ("replay_gather", "fused_td")
+# Table 1 / FedAvg scenarios: (n_rounds, stacked train steps) at --fast
+BASELINES = {
+    "baseline_all_knowing": (1, 160),
+    "baseline_partial": (1, 20),
+    "baseline_sequential": (8, 160),
+    "fedavg_sync": (6, 16),
+}
 # sub-entries and extra times a kernel's entry of the kernels line carries
 EXTRA_FIELDS = (
     "tail_ms",
@@ -436,6 +466,156 @@ def phase_main(dev) -> dict[str, int]:
     return launches
 
 
+@contextmanager
+def round_losses():
+    """Collect the loss every ``DQNAgent.train_round`` returns (Agent M's
+    per-round losses, which its trainer does not return)."""
+    losses: list[float] = []
+    train_round = DQNAgent.train_round
+
+    def recording(self, *args, **kw):
+        shared, loss = train_round(self, *args, **kw)
+        losses.append(loss)
+        return shared, loss
+
+    DQNAgent.train_round = recording
+    try:
+        yield losses
+    finally:
+        DQNAgent.train_round = train_round
+
+
+def run_baseline(name: str, dev) -> tuple:
+    """One Table 1 / FedAvg scenario at ``DQNConfig()``, ``--fast``, on
+    ``dev``; launches read around the run alone."""
+    spec = replace(get_scenario(name), dqn=DQNConfig()).fast()
+    system = build(spec, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = system.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    t1 = time.perf_counter()
+    evaluate_into(report, system, spec)
+    return system, report, launches, run_s, time.perf_counter() - t1
+
+
+def phase_baselines(dev) -> dict[str, dict[str, int]]:
+    by_path = {}
+    for name, (want_rounds, want_steps) in BASELINES.items():
+        with round_losses() as losses:
+            system, report, launches, run_s, eval_s = run_baseline(name, dev)
+        engine = system.engine if name == "fedavg_sync" else system.agent.engine
+        emit(
+            {
+                "phase": "baselines",
+                "scenario": f"{name} --fast, dqn=DQNConfig()",
+                "cuts": "none",
+                "mean_dist_err": report.mean_dist_err,
+                "n_rounds": report.n_rounds,
+                "run_s": run_s,
+                "eval_s": eval_s,
+                "agent_steps": engine.n_steps_trained,
+                "stacked_steps": engine.n_chunk_steps,
+                "flushes": engine.n_flushes,
+                "agent_steps_per_s": engine.n_steps_trained / run_s,
+                "launches": launches,
+            }
+        )
+        require(bool(np.isfinite(report.mean_dist_err)), f"{name}: error not finite")
+        require(
+            report.n_rounds == want_rounds,
+            f"{name}: {report.n_rounds} rounds, not {want_rounds}",
+        )
+        require(
+            engine.n_chunk_steps == want_steps,
+            f"{name}: {engine.n_chunk_steps} stacked steps, not {want_steps}",
+        )
+        for k in FLEET_KERNELS:
+            require(
+                launches[k] == want_steps,
+                f"{name}: {k} launched {launches[k]} times for {want_steps} steps",
+            )
+        if name == "fedavg_sync":
+            first = leaves(system.agents[0].params)
+            for agent in system.agents[1:]:
+                require(
+                    all(map(torch.equal, leaves(agent.params), first)),
+                    f"fedavg: agent {agent.agent_id}'s params are not agent 0's",
+                )
+        if name == "baseline_sequential":
+            card_losses, card_err = list(losses), report.mean_dist_err
+        by_path[name] = {k: launches[k] for k in FLEET_KERNELS}
+
+    # Agent M on the CPU from the same init: the port's init is drawn on
+    # the host, so both sides start from the same weights
+    with round_losses() as cpu_losses:
+        _, cpu_report, *_ = run_baseline("baseline_sequential", torch.device("cpu"))
+    diffs = [abs(a - b) for a, b in zip(card_losses, cpu_losses, strict=True)]
+    first_off = next((i for i, d in enumerate(diffs) if d > 1e-4), None)
+    emit(
+        {
+            "phase": "baselines_card_vs_cpu",
+            "scenario": "baseline_sequential --fast, dqn=DQNConfig()",
+            "round_losses": [[a, b] for a, b in zip(card_losses, cpu_losses)],
+            "first_round_over_1e-4": first_off,
+            "mean_dist_err": [card_err, cpu_report.mean_dist_err],
+        }
+    )
+    require(diffs[0] <= 1e-4, f"agent M round 0 loss: card vs CPU differ by {diffs[0]}")
+    return by_path
+
+
+def phase_sweep(dev) -> dict[str, int]:
+    sweep = get_sweep("paper_table1_sweep").with_seeds((0, 1))
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = run_sweep(sweep, fast=True, workers=1, device=str(dev))
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    p_values = {
+        c["variant"]: {"p_ttest": c["p_ttest"], "p_permutation": c["p_permutation"]}
+        for c in summary["comparisons"]
+        if c["metric"] == "mean_dist_err"
+    }
+    emit(
+        {
+            "phase": "sweep",
+            "sweep": "paper_table1_sweep --fast, seeds (0, 1), workers=1",
+            "cuts": "seeds 0 and 1 of 5",
+            "wall_s": wall_s,
+            "mean_dist_err": {
+                label: v["metrics"]["mean_dist_err"]["mean"]
+                for label, v in summary["variants"].items()
+            },
+            "paired_vs_adfll": p_values,
+            "cells": [
+                [c["label"], c["seed"], c["status"], c["elapsed_s"]]
+                for c in summary["cells"]
+            ],
+            "launches": launches,
+        }
+    )
+    bad = failed_cells(summary)
+    require(not bad, f"sweep cells failed: {bad}")
+    require(len(summary["cells"]) == 8, f"{len(summary['cells'])} sweep cells, not 8")
+    devices = {summary["device"], *(c["device"] for c in summary["cells"])}
+    require(devices == {"cuda"}, f"sweep cells recorded devices {devices}")
+    for label, v in summary["variants"].items():
+        values = v["metrics"]["mean_dist_err"]["values"]
+        require(
+            len(values) == 2 and all(np.isfinite(x) for x in values.values()),
+            f"sweep {label}: errors {values}",
+        )
+    require(
+        launches["replay_gather"] == launches["fused_td"] > 0,
+        f"sweep launches {launches}",
+    )
+    return {k: launches[k] for k in FLEET_KERNELS}
+
+
 def check_rmsnorm(dev) -> dict:
     """The prefill [B*S, d] and decode [B, d] calls of the zoo main path
     (the ``cta`` route), float32 rows, many and few 16 KB rows (the
@@ -759,6 +939,7 @@ def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     kind, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -767,7 +948,11 @@ def main() -> int:
         "fused_td": check_fused_td(dev),
     }
     phase_chunk(dev)
-    launches = phase_main(dev)
+    main_launches = phase_main(dev)
+    by_path = {"main": {k: main_launches[k] for k in FLEET_KERNELS}}
+    by_path.update(phase_baselines(dev))
+    by_path["sweep"] = phase_sweep(dev)
+    launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)
     phase_zoo_chunk(dev)
@@ -818,6 +1003,10 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in by_route:
             entry["launches_by_route"] = by_route[entry["name"]]
+        if entry["name"] in FLEET_KERNELS:
+            name = entry["name"]
+            entry["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(smi)
     emit({"kernels": kernels})
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -90,6 +90,34 @@ class Report:
             if errs
         }
 
+    def summary(self) -> dict[str, Any]:
+        """Flat JSON-able metrics (what a sweep stores per cell)."""
+        out = {
+            "system": self.system,
+            "seed": self.seed,
+            "mean_dist_err": self.mean_dist_err,
+            "best_agent_err": self.best_agent_err,
+            # None (not 0.0) for systems with no simulated clock
+            "sim_makespan": self.makespan or None,
+            "comm_time": self.comm_time,
+            "n_rounds": self.n_rounds,
+            "n_mixed": self.n_mixed,
+            "n_foreign_erbs": self.n_foreign_erbs,
+            "pushed": dict(self.plane_pushed),
+            "bytes_by_plane": dict(self.bytes_by_plane),
+            "msgs_by_plane": dict(self.msgs_by_plane),
+            "total_bytes": self.total_bytes,
+            "eval_patients": self.eval_patients,
+            "eval_episodes": self.eval_episodes,
+            "eval_curve": [
+                {"t": p.t, "n_agents": p.n_agents, "mean_err": p.mean_err}
+                for p in self.eval_curve
+            ],
+        }
+        if self.extra:
+            out["extra"] = dict(self.extra)
+        return out
+
 
 class ExperimentHooks:
     """Lifecycle callbacks a system emits; every method is a no-op.

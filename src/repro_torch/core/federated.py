@@ -9,11 +9,16 @@ simulated time.  Rounds are submitted to one shared
 flushes on the device (``engine="fleet"``) or after every round
 (``engine="fleet-eager"``).
 
+The paper's Table 1 comparison rows are here too: Agent X
+(:func:`train_all_knowing`), Agent Y (:func:`train_partial`), Agent M
+(:func:`train_sequential_ll`), and the synchronous FedAvg contrast
+system (:class:`CentralAggregationSystem`), all on the fleet engine.
+
 What this slice of the port leaves out raises ``NotImplementedError``
 naming the slice that brings it: gossip/hybrid topologies and the
 weight plane, multi-device fleet sharding, telemetry and the
 observatory, population dynamics and churn, and the legacy stepwise
-engine.  The Table 1 baselines and synchronous FedAvg come with them.
+engine.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.adfll_dqn import ADFLLConfig, DQNConfig
-from repro_torch.core.erb import TaskTag
+from repro_torch.core.erb import TaskTag, erb_init
 from repro_torch.core.experiment import (
     ExperimentHooks,
     HistoryRecorder,
@@ -37,7 +42,7 @@ from repro_torch.core.network import Network
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.rl.agent import DQNAgent
 from repro_torch.rl.env import LandmarkEnv
-from repro_torch.rl.fleet import FleetEngine
+from repro_torch.rl.fleet import FleetEngine, collect_fleet, tree_map
 from repro_torch.rl.synth import make_volume
 
 
@@ -337,4 +342,209 @@ class ADFLLSystem:
         }
 
 
-__all__ = ["ADFLLSystem", "RoundRecord", "env_for", "evaluate_on_tasks"]
+# ---------------------------------------------------------------------------
+# Baselines
+# ---------------------------------------------------------------------------
+def train_all_knowing(
+    dqn_cfg: DQNConfig,
+    tasks: Sequence[TaskTag],
+    patients: Sequence[int],
+    *,
+    steps_per_task: int = 150,
+    erb_capacity: int = 2048,
+    seed: int = 100,
+    device: str | torch.device | None = None,
+) -> DQNAgent:
+    """Agent X: all datasets available at once, ONE round over the union."""
+    agent = DQNAgent(-1, dqn_cfg, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    erbs = []
+    for t in tasks:
+        env = env_for(t, int(rng.choice(patients)), dqn_cfg)
+        erb = erb_init(erb_capacity, dqn_cfg.box_size, task=t)
+        agent.collect(env, erb, n_episodes=24)
+        erbs.append(erb)
+    # one round of training over the union (current pool = all ERBs)
+    agent.personal_erbs = erbs
+    agent.train_steps(steps_per_task * len(tasks), None, ())
+    return agent
+
+
+def train_partial(
+    dqn_cfg: DQNConfig,
+    task: TaskTag,
+    patients: Sequence[int],
+    *,
+    steps: int = 150,
+    erb_capacity: int = 2048,
+    seed: int = 200,
+    device: str | torch.device | None = None,
+) -> DQNAgent:
+    """Agent Y: a single dataset, a single round."""
+    agent = DQNAgent(-2, dqn_cfg, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    env = env_for(task, int(rng.choice(patients)), dqn_cfg)
+    erb = erb_init(erb_capacity, dqn_cfg.box_size, task=task)
+    agent.collect(env, erb, n_episodes=24)
+    agent.train_steps(steps, erb, ())
+    return agent
+
+
+def train_sequential_ll(
+    dqn_cfg: DQNConfig,
+    tasks: Sequence[TaskTag],
+    patients: Sequence[int],
+    *,
+    steps_per_round: int = 150,
+    erb_capacity: int = 2048,
+    seed: int = 300,
+    device: str | torch.device | None = None,
+) -> DQNAgent:
+    """Agent M: traditional lifelong learner — tasks arrive sequentially,
+    replay over personal past ERBs only (no federation)."""
+    agent = DQNAgent(-3, dqn_cfg, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    for t in tasks:
+        env = env_for(t, int(rng.choice(patients)), dqn_cfg)
+        agent.train_round(
+            env,
+            t,
+            incoming=(),
+            erb_capacity=erb_capacity,
+            share_size=1,  # nothing is shared
+            train_steps=steps_per_round,
+        )
+    return agent
+
+
+class CentralAggregationSystem:
+    """Conventional synchronous FedAvg over DQN weights: all agents train
+    locally for a round, a central server averages, repeat.  The contrast
+    system ADFLL is measured against (it requires homogeneous
+    architectures and a central node — both restrictions ADFLL removes).
+
+    Implements the ``System`` protocol: ``run()`` executes ``rounds``
+    synchronous rounds and returns a :class:`Report`; ``evaluate()``
+    reports the shared post-aggregation model under the ``"FedAvg"``
+    label (after a sync round every agent holds identical parameters).
+    The cohort shares one fleet engine on ``device`` (``None`` = CUDA).
+    """
+
+    def __init__(
+        self,
+        n_agents: int,
+        dqn_cfg: DQNConfig,
+        tasks: Sequence[TaskTag],
+        patients: Sequence[int],
+        *,
+        rounds: int = 3,
+        steps: int = 150,
+        erb_capacity: int = 2048,
+        seed: int = 400,
+        devices: int = 0,
+        device: str | torch.device | None = None,
+    ):
+        if devices != 0:
+            raise NotImplementedError(
+                "repro_torch does not run devices != 0 (the multi-GPU "
+                "fleet-sharding slice) yet"
+            )
+        self.dqn_cfg = dqn_cfg
+        self.tasks = list(tasks)
+        self.patients = list(patients)
+        self.rounds = rounds
+        self.steps = steps
+        self.erb_capacity = erb_capacity
+        self.seed = seed
+        self.engine = FleetEngine(dqn_cfg, device=device)  # one stacked cohort
+        self.agents = [
+            DQNAgent(i, dqn_cfg, seed=seed + i, engine=self.engine)
+            for i in range(n_agents)
+        ]
+        self.rng = np.random.default_rng(seed)
+
+    def round(
+        self,
+        round_idx: int,
+        *,
+        steps: int | None = None,
+        erb_capacity: int | None = None,
+    ):
+        steps = self.steps if steps is None else steps
+        erb_capacity = self.erb_capacity if erb_capacity is None else erb_capacity
+        agents = self.agents
+        tasks = [
+            self.tasks[(round_idx * len(agents) + i) % len(self.tasks)]
+            for i in range(len(agents))
+        ]
+        # the cohort's patient draws come off self.rng before collection,
+        # which draws from per-agent streams
+        envs = [
+            env_for(t, int(self.rng.choice(self.patients)), self.dqn_cfg)
+            for t in tasks
+        ]
+        erbs = [
+            erb_init(
+                erb_capacity,
+                self.dqn_cfg.box_size,
+                task=t,
+                source_agent=i,
+                round_idx=round_idx,
+            )
+            for i, t in enumerate(tasks)
+        ]
+        # one stacked greedy-act forward per env step collects for the
+        # whole cohort, and submit-only training makes the round one
+        # batched flush, forced by the params read during aggregation
+        collect_fleet(agents, envs, erbs, n_episodes=24)
+        for agent, erb in zip(agents, erbs, strict=True):
+            agent._submit_steps(steps, erb, ())
+            agent.personal_erbs.append(erb)
+        # synchronous central aggregation (the bottleneck ADFLL removes):
+        # every agent's params are read before any are written
+        mean_params = tree_map(
+            lambda *xs: sum(xs) / len(xs), *[a.params for a in agents]
+        )
+        for a in agents:
+            a.params = mean_params
+            a.target_params = mean_params
+
+    def run(self) -> Report:
+        for r in range(self.rounds):
+            self.round(r)
+        return Report(
+            system="fedavg",
+            seed=self.seed,
+            n_rounds=self.rounds * len(self.agents),
+        )
+
+    def evaluate(
+        self,
+        tasks: Sequence[TaskTag],
+        patients: Sequence[int],
+        *,
+        max_patients: int | None = 4,
+        n_episodes: int = 4,
+    ) -> dict[str, dict[str, float]]:
+        return {
+            "FedAvg": evaluate_on_tasks(
+                self.agents[0],
+                tasks,
+                patients,
+                self.dqn_cfg,
+                max_patients=max_patients,
+                n_episodes=n_episodes,
+            )
+        }
+
+
+__all__ = [
+    "ADFLLSystem",
+    "CentralAggregationSystem",
+    "RoundRecord",
+    "env_for",
+    "evaluate_on_tasks",
+    "train_all_knowing",
+    "train_partial",
+    "train_sequential_ll",
+]

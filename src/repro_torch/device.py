@@ -38,4 +38,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def device_type(device: str | torch.device | None = None) -> str:
+    """The type (``"cuda"`` or ``"cpu"``) that ``device`` names, ``None``
+    meaning the CUDA card, without touching the card: what a result
+    records so that it is never read back as another device's."""
+    return torch.device("cuda" if device is None else device).type
+
+
+__all__ = ["device_type", "resolve_device"]

@@ -1,5 +1,6 @@
 """CLI of the port's scenario runner.
 
+    PYTHONPATH=src python -m repro_torch.experiments --list
     PYTHONPATH=src python -m repro_torch.experiments --scenario paper_fig2 \
         [--fast] [--seed N] [--device cpu]
 
@@ -12,13 +13,17 @@ from __future__ import annotations
 import argparse
 import sys
 
-from repro_torch.experiments.registry import get_scenario
+from repro_torch.experiments.registry import get_scenario, list_scenarios
 from repro_torch.experiments.runner import run
+from repro_torch.experiments.suggest import unknown_name_message
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.experiments")
-    ap.add_argument("--scenario", required=True, metavar="NAME")
+    ap.add_argument(
+        "--list", action="store_true", help="list registered scenarios and exit"
+    )
+    ap.add_argument("--scenario", metavar="NAME", help="scenario to run")
     ap.add_argument(
         "--fast", action="store_true", help="reduced step counts (CI sanity)"
     )
@@ -29,10 +34,16 @@ def main(argv=None) -> int:
         help="torch device to run on (default: cuda; 'cpu' runs on the CPU)",
     )
     args = ap.parse_args(argv)
+    if args.list or not args.scenario:
+        print(f"{'scenario':<24} {'system':<12} description")
+        for spec in list_scenarios():
+            print(f"{spec.name:<24} {spec.system:<12} {spec.description}")
+        return 0
     try:
         get_scenario(args.scenario)
-    except KeyError as e:
-        print(e.args[0], file=sys.stderr)
+    except KeyError:
+        known = [s.name for s in list_scenarios()]
+        print(unknown_name_message("scenario", args.scenario, known), file=sys.stderr)
         return 2
     report = run(args.scenario, fast=args.fast, seed=args.seed, device=args.device)
     curve = " -> ".join(

@@ -1,10 +1,11 @@
 """Build and execute scenarios: ``run(spec) -> Report``.
 
-The runner resolves the named spec, mirrors ``spec.seed`` into the
-system config (one seed, every stream derived), builds the
-:class:`~repro_torch.core.federated.ADFLLSystem` on ``device`` (``None``
-= the CUDA card) over the paper's eight task-environments, runs it, and
-folds the final evaluation into the
+The runner is the only place a system is ever constructed from a
+scenario: it resolves the named spec, mirrors ``spec.seed`` into the
+system config (one seed, every stream derived), builds the system the
+spec names on ``device`` (``None`` = the CUDA card) — the ADFLL
+deployment, synchronous FedAvg, or one of the Table 1 baseline agents —
+runs it, and folds the final evaluation into the
 :class:`~repro_torch.core.experiment.Report`.
 """
 
@@ -17,12 +18,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.experiment import EvalPoint, ExperimentHooks, Report
-from repro_torch.core.federated import ADFLLSystem
+from repro_torch.core.federated import ADFLLSystem, CentralAggregationSystem
+from repro_torch.experiments.protocol import System
 from repro_torch.experiments.registry import get_scenario
 from repro_torch.experiments.spec import ScenarioSpec
-from repro_torch.rl.synth import paper_eight_tasks, patient_split
+from repro_torch.experiments.systems import BaselineSystem
+from repro_torch.rl.synth import all_tasks, paper_eight_tasks, patient_split
 
 SpecLike = str | ScenarioSpec
+
+# the reference's scenario dynamics; the port's spec gains these fields
+# with the churn and site-link slices, and a spec that carries them is
+# refused rather than run without them
+_DYNAMICS = ("churn", "agent_sites", "hub_failures")
 
 
 def resolve(
@@ -38,6 +46,13 @@ def resolve(
     return spec
 
 
+def _tasks_for(spec: ScenarioSpec) -> list:
+    tasks = list(paper_eight_tasks() if spec.task_set == "paper8" else all_tasks())
+    if spec.n_tasks is not None:
+        tasks = tasks[: spec.n_tasks]
+    return tasks
+
+
 def build(
     spec: SpecLike,
     *,
@@ -45,19 +60,58 @@ def build(
     seed: int | None = None,
     hooks: Sequence[ExperimentHooks] = (),
     device: str | torch.device | None = None,
-) -> ADFLLSystem:
+) -> System:
     """Construct (but do not run) the system a scenario describes."""
     spec = resolve(spec, fast=fast, seed=seed)
+    tasks = _tasks_for(spec)
     train_p, _ = patient_split(spec.n_patients)
     sys_cfg = replace(spec.sys, seed=spec.seed)  # one seed, every stream
-    return ADFLLSystem(
-        sys_cfg, spec.dqn, paper_eight_tasks(), train_p, hooks=hooks, device=device
+    dynamics = [f for f in _DYNAMICS if getattr(spec, f, ())]
+    if dynamics and spec.system == "adfll":
+        raise NotImplementedError(
+            f"{spec.name}: repro_torch does not run {'/'.join(dynamics)} yet "
+            "(the churn and site-link slices)"
+        )
+    if dynamics:
+        raise ValueError(
+            f"{spec.name}: {spec.system} supports no churn/sites/hub failures"
+        )
+    if spec.system == "adfll":
+        return ADFLLSystem(
+            sys_cfg, spec.dqn, tasks, train_p, hooks=hooks, device=device
+        )
+    if spec.system == "fedavg":
+        return CentralAggregationSystem(
+            sys_cfg.n_agents,
+            spec.dqn,
+            tasks,
+            train_p,
+            rounds=sys_cfg.rounds,
+            steps=sys_cfg.train_steps_per_round,
+            erb_capacity=sys_cfg.erb_capacity,
+            seed=spec.seed,
+            device=device,
+        )
+    if spec.system == "serve":
+        raise NotImplementedError(
+            f"{spec.name}: repro_torch does not run system='serve' yet "
+            "(the serving-plane slice)"
+        )
+    return BaselineSystem(  # the single-agent Table 1 baselines
+        spec.system,
+        spec.dqn,
+        tasks,
+        train_p,
+        steps=sys_cfg.train_steps_per_round,
+        erb_capacity=sys_cfg.erb_capacity,
+        seed=spec.seed,
+        device=device,
     )
 
 
-def evaluate_into(report: Report, system: ADFLLSystem, spec: ScenarioSpec) -> Report:
+def evaluate_into(report: Report, system: System, spec: ScenarioSpec) -> Report:
     """Fill the report's evaluation fields from ``system.evaluate``."""
-    tasks = list(paper_eight_tasks())
+    tasks = _tasks_for(spec)
     eval_tasks = tasks if spec.eval_tasks is None else tasks[: spec.eval_tasks]
     _, test_p = patient_split(spec.n_patients)
     report.scenario = spec.name

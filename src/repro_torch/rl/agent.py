@@ -124,6 +124,15 @@ class DQNAgent:
         self.step_count += n_steps
         return self.engine.submit(self.slot, plans)
 
+    def train_steps(
+        self, n_steps: int, current: ERB | None, incoming: Sequence[ERB] = ()
+    ) -> float:
+        """Train ``n_steps`` now (submit and flush); returns the last-step
+        loss, 0.0 for no steps."""
+        future = self._submit_steps(n_steps, current, incoming)
+        self.engine.flush()
+        return future.loss if future.loss is not None else 0.0
+
     # -- weight plane (a later slice) ------------------------------------------
     def snapshot_params(self, sim_time: float = 0.0):
         raise NotImplementedError(_LATER)

@@ -145,4 +145,6 @@ def test_runner_and_cli(tiny_fig2, capsys):
     )
     assert m and float(m.group(1)) == pytest.approx(report.mean_dist_err, abs=1e-3)
     assert cli.main(["--scenario", "nope"]) == 2
-    assert "paper_fig2" in capsys.readouterr().err  # the known names
+    assert "see --list" in capsys.readouterr().err  # no near name
+    assert cli.main(["--scenario", "paper_fig3"]) == 2
+    assert "did you mean: paper_fig2" in capsys.readouterr().err
