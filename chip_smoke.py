@@ -49,7 +49,21 @@ non-zero exit code and no result line:
    the registry's widths, seeds 0 and 1, ``--fast``, inline
    (``workers=1``): every cell ``ok`` with a finite error; each
    variant's mean and its paired p-values against ADFLL are printed.
-8. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
+8. topology — the topology ablation's ``topo_gossip_topk`` (hub-less
+   gossip, weights as int8 top-k deltas) and ``topo_hybrid`` (hubs and
+   gossip at once, dense weights) at ``DQNConfig()``, ``--fast``:
+   every round recorded, weight snapshots mixed, one launch of each
+   fleet kernel per stacked step, and top-k's weight messages at least
+   4x below the dense ``4 * numel`` bytes.
+9. stepwise — ``paper_fig2`` at ``DQNConfig()``, ``--fast``, on
+   ``engine="stepwise"`` (each agent its own state, one dispatch a
+   step): one ``fused_td`` launch per agent step, one ``replay_gather``
+   launch per replay pick, printed beside the fleet's ``main`` numbers.
+10. main_card_vs_cpu — ``paper_fig2 --fast`` at ``DQNConfig()`` on the
+   card and on the CPU from one init (drawn on the host): each round's
+   loss side by side, the first round past 1e-4, the largest parameter
+   difference after the first flush, both errors; round 0 within 1e-4.
+11. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
@@ -59,11 +73,11 @@ non-zero exit code and no result line:
    by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
    rmsnorm's cases cover both of its routes (``cta``, ``masked``), and
    each must move its route's launch count.
-9. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
+12. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
    agree within 1e-4.
-10. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
+13. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
    h2o-danube-3-4b in bfloat16, random weights drawn on the card from
    seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
    the prefill and decode alone (24 ``flash_attention``, all on the
@@ -74,8 +88,8 @@ non-zero exit code and no result line:
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
-paths (main, baselines, sweep): their entries carry ``launches_by_path``
-and ``launches`` is its sum.
+paths (main, baselines, sweep, topology) and the stepwise path: their
+entries carry ``launches_by_path`` and ``launches`` is its sum.
 """
 
 from __future__ import annotations
@@ -117,7 +131,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import Model, forward, logits_fn  # noqa: E402
 from repro_torch.models.rope import positions_for  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
-from repro_torch.rl.fleet import FleetSteps  # noqa: E402
+from repro_torch.rl.fleet import FleetSteps, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): bf16 on the
@@ -422,18 +436,25 @@ def read_launches() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def phase_main(dev) -> dict[str, int]:
-    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig())
-    system = build(spec, fast=True, device=dev)
+def timed_run(spec, dev) -> tuple:
+    """Build ``spec`` on ``dev``, run it with the launches read around
+    the run alone, then evaluate it."""
+    system = build(spec, device=dev)
     reset_launches()
     t0 = time.perf_counter()
     report = system.run()
-    torch.cuda.synchronize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = read_launches()
     t1 = time.perf_counter()
-    evaluate_into(report, system, spec.fast())
-    eval_s = time.perf_counter() - t1
+    evaluate_into(report, system, spec)
+    return system, report, launches, run_s, time.perf_counter() - t1
+
+
+def phase_main(dev) -> dict:
+    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
+    system, report, launches, run_s, eval_s = timed_run(spec, dev)
     engine = system.engine
     emit(
         {
@@ -463,7 +484,15 @@ def phase_main(dev) -> dict[str, int]:
             f"{name} launched {launches[name]} times for "
             f"{engine.n_chunk_steps} stacked steps",
         )
-    return launches
+    return {
+        "launches": launches,
+        "run_s": run_s,
+        "eval_s": eval_s,
+        "mean_dist_err": report.mean_dist_err,
+        "n_rounds": report.n_rounds,
+        "agent_steps": engine.n_steps_trained,
+        "stacked_steps": engine.n_chunk_steps,
+    }
 
 
 @contextmanager
@@ -488,18 +517,7 @@ def round_losses():
 def run_baseline(name: str, dev) -> tuple:
     """One Table 1 / FedAvg scenario at ``DQNConfig()``, ``--fast``, on
     ``dev``; launches read around the run alone."""
-    spec = replace(get_scenario(name), dqn=DQNConfig()).fast()
-    system = build(spec, device=dev)
-    reset_launches()
-    t0 = time.perf_counter()
-    report = system.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = read_launches()
-    t1 = time.perf_counter()
-    evaluate_into(report, system, spec)
-    return system, report, launches, run_s, time.perf_counter() - t1
+    return timed_run(replace(get_scenario(name), dqn=DQNConfig()).fast(), dev)
 
 
 def phase_baselines(dev) -> dict[str, dict[str, int]]:
@@ -614,6 +632,149 @@ def phase_sweep(dev) -> dict[str, int]:
         f"sweep launches {launches}",
     )
     return {k: launches[k] for k in FLEET_KERNELS}
+
+
+def phase_topology(dev) -> dict[str, int]:
+    """Hub-less top-k gossip and the hybrid topology at full width."""
+    total = dict.fromkeys(FLEET_KERNELS, 0)
+    for name in ("topo_gossip_topk", "topo_hybrid"):
+        spec = replace(get_scenario(name), dqn=DQNConfig()).fast()
+        system, report, launches, run_s, eval_s = timed_run(spec, dev)
+        engine = system.engine
+        dense = 4 * sum(x.numel() for x in leaves(system.agents[0].params))
+        wbytes = report.bytes_by_plane["weights"]
+        wmsgs = report.msgs_by_plane["weights"]
+        emit(
+            {
+                "phase": "topology",
+                "scenario": f"{name} --fast, dqn=DQNConfig()",
+                "cuts": "none",
+                "mean_dist_err": report.mean_dist_err,
+                "n_rounds": report.n_rounds,
+                "run_s": run_s,
+                "eval_s": eval_s,
+                "agent_steps": engine.n_steps_trained,
+                "stacked_steps": engine.n_chunk_steps,
+                "flushes": engine.n_flushes,
+                "launches": launches,
+                "bytes_by_plane": report.bytes_by_plane,
+                "msgs_by_plane": report.msgs_by_plane,
+                "snapshots_mixed": report.n_mixed,
+                "weight_bytes_per_msg": wbytes / max(wmsgs, 1),
+                "dense_weight_bytes": dense,
+                "gossip": report.extra.get("gossip"),
+            }
+        )
+        want_rounds = spec.sys.n_agents * spec.sys.rounds
+        require(report.n_rounds == want_rounds, f"{name}: {report.n_rounds} rounds")
+        require(bool(np.isfinite(report.mean_dist_err)), f"{name}: error not finite")
+        require(engine.n_chunk_steps > 0, f"{name}: trained nothing")
+        for k in FLEET_KERNELS:
+            require(
+                launches[k] == engine.n_chunk_steps,
+                f"{name}: {k} launched {launches[k]} times for "
+                f"{engine.n_chunk_steps} stacked steps",
+            )
+            total[k] += launches[k]
+        require(wbytes > 0, f"{name}: no weight bytes on the wire")
+        require(report.n_mixed >= 1, f"{name}: no snapshot mixed")
+        if name == "topo_gossip_topk":
+            require(
+                wbytes / wmsgs <= dense / 4,
+                f"{name}: {wbytes / wmsgs} weight bytes a message against "
+                f"dense {dense}: not 4x below",
+            )
+    return total
+
+
+def phase_stepwise(dev, fleet: dict) -> dict[str, int]:
+    """``paper_fig2`` on the stepwise engine, beside the fleet's run."""
+    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
+    spec = replace(spec, sys=replace(spec.sys, engine="stepwise"))
+    system, report, launches, run_s, eval_s = timed_run(spec, dev)
+    agents = list(system.agents.values())
+    steps = sum(a.step_count for a in agents)
+    picks = sum(a.n_picks_gathered for a in agents)
+    emit(
+        {
+            "phase": "stepwise",
+            "scenario": "paper_fig2 --fast, dqn=DQNConfig(), engine=stepwise",
+            "cuts": "none",
+            "mean_dist_err": report.mean_dist_err,
+            "n_rounds": report.n_rounds,
+            "run_s": run_s,
+            "eval_s": eval_s,
+            "agent_steps": steps,
+            "picks_gathered": picks,
+            "agent_steps_per_s": steps / run_s,
+            "launches": launches,
+            "fleet": fleet,
+            "slowdown_vs_fleet": run_s / fleet["run_s"],
+        }
+    )
+    require(
+        report.n_rounds == fleet["n_rounds"], f"stepwise: {report.n_rounds} rounds"
+    )
+    require(bool(np.isfinite(report.mean_dist_err)), "stepwise: error not finite")
+    require(steps == fleet["agent_steps"] > 0, f"stepwise: {steps} agent steps")
+    require(
+        launches["fused_td"] == steps,
+        f"stepwise: fused_td launched {launches['fused_td']} times for {steps} steps",
+    )
+    require(
+        launches["replay_gather"] == picks,
+        f"stepwise: replay_gather launched {launches['replay_gather']} times "
+        f"for {picks} picks",
+    )
+    return {k: launches[k] for k in FLEET_KERNELS}
+
+
+def phase_main_card_vs_cpu(dev) -> None:
+    """The main path on the card and on the CPU from one init: where do
+    the two sides part?"""
+    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
+    side = []
+    for d in (dev, torch.device("cpu")):
+        system = build(spec, device=d)
+        engine, first = system.engine, {}
+        flush = engine.flush
+
+        def recording(engine=engine, first=first, flush=flush):
+            flush()
+            if not first and engine.n_flushes:
+                first.update(tree_map(lambda t: t.cpu(), engine.state.params))
+
+        engine.flush = recording
+        report = system.run()
+        evaluate_into(report, system, spec)
+        side.append((report, first))
+    (card, card_first), (cpu, cpu_first) = side
+    diffs = [
+        abs(a.loss - b.loss) for a, b in zip(card.history, cpu.history, strict=True)
+    ]
+    first_off = next((i for i, x in enumerate(diffs) if x > 1e-4), None)
+    p_err = max(
+        float((a - b).abs().max())
+        for a, b in zip(leaves(card_first), leaves(cpu_first), strict=True)
+    )
+    emit(
+        {
+            "phase": "main_card_vs_cpu",
+            "scenario": "paper_fig2 --fast, dqn=DQNConfig()",
+            "round_losses": [
+                [a.loss, b.loss] for a, b in zip(card.history, cpu.history)
+            ],
+            "round_agents": [a.agent_id for a in card.history],
+            "first_round_over_1e-4": first_off,
+            "params_max_abs_err_after_first_flush": p_err,
+            "mean_dist_err": [card.mean_dist_err, cpu.mean_dist_err],
+        }
+    )
+    require(
+        [a.agent_id for a in card.history] == [b.agent_id for b in cpu.history],
+        "main card vs CPU: the round order differs",
+    )
+    require(diffs[0] <= 1e-4, f"main round 0 loss: card vs CPU differ by {diffs[0]}")
 
 
 def check_rmsnorm(dev) -> dict:
@@ -948,10 +1109,14 @@ def main() -> int:
         "fused_td": check_fused_td(dev),
     }
     phase_chunk(dev)
-    main_launches = phase_main(dev)
-    by_path = {"main": {k: main_launches[k] for k in FLEET_KERNELS}}
+    main = phase_main(dev)
+    by_path = {"main": {k: main["launches"][k] for k in FLEET_KERNELS}}
     by_path.update(phase_baselines(dev))
     by_path["sweep"] = phase_sweep(dev)
+    by_path["topology"] = phase_topology(dev)
+    fleet = {k: v for k, v in main.items() if k != "launches"}
+    by_path["stepwise"] = phase_stepwise(dev, fleet)
+    phase_main_card_vs_cpu(dev)
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)

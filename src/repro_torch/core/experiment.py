@@ -130,6 +130,12 @@ class ExperimentHooks:
     def on_round_start(self, system, agent_id: int, task, t: float) -> None:
         """An agent begins a round on ``task`` at simulated time ``t``."""
 
+    def on_mix(
+        self, system, agent_id: int, n_mixed: int, comm_time: float, t: float
+    ) -> None:
+        """An agent folded ``n_mixed`` peer weight snapshots into its
+        params at round start (weight plane only)."""
+
     def on_push(self, system, agent_id: int, plane: str, result, t: float) -> None:
         """A record left the agent on ``plane`` (``result`` is a
         :class:`~repro_torch.core.network.PushResult`)."""

@@ -1,24 +1,28 @@
 """ADFLL system orchestration (the paper's deployment experiment).
 
 :class:`ADFLLSystem` runs asynchronous decentralized federated lifelong
-learning over the paper's hub topology, driven by the event-driven
-scheduler with heterogeneous agent speeds and communication dropout.
-Link time (latency + bytes/rate) of every pull/push is charged to
-simulated time.  Rounds are submitted to one shared
+learning over a pluggable topology (the paper's hub layout, hub-less
+gossip, or both), driven by the event-driven scheduler with
+heterogeneous agent speeds and communication dropout.  Agents share ERBs,
+weight snapshots (FedAsync-style staleness-discounted mixing, optionally
+int8 or top-k compressed on the wire), or both.  Link time (latency +
+bytes/rate) of every pull/push is charged to simulated time, so message
+size shows up in the makespan.  Rounds are submitted to one shared
 :class:`~repro_torch.rl.fleet.FleetEngine`, which trains them in batched
 flushes on the device (``engine="fleet"``) or after every round
-(``engine="fleet-eager"``).
+(``engine="fleet-eager"``); ``engine="stepwise"`` gives every agent its
+own state and trains each step as its own dispatch (the baseline the
+fleet is measured against).
 
 The paper's Table 1 comparison rows are here too: Agent X
 (:func:`train_all_knowing`), Agent Y (:func:`train_partial`), Agent M
 (:func:`train_sequential_ll`), and the synchronous FedAvg contrast
 system (:class:`CentralAggregationSystem`), all on the fleet engine.
 
-What this slice of the port leaves out raises ``NotImplementedError``
-naming the slice that brings it: gossip/hybrid topologies and the
-weight plane, multi-device fleet sharding, telemetry and the
-observatory, population dynamics and churn, and the legacy stepwise
-engine.
+What the port does not run yet raises ``NotImplementedError`` naming
+the slice that brings it: churn, hub failures and populations (the
+churn and hub-failure slice), multi-device fleet sharding (the
+multi-GPU slice), and enabled telemetry with the observatory.
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from repro_torch.core.experiment import (
     Report,
     RoundRecord,
 )
-from repro_torch.core.gossip import LinkModel
+from repro_torch.core.gossip import LinkModel, make_sampler
 from repro_torch.core.hub import Hub
 from repro_torch.core.network import Network
+from repro_torch.core.plane import CompressedWeightPlane, WeightPlane, staleness_alphas
 from repro_torch.core.scheduler import Scheduler
+from repro_torch.device import resolve_device
 from repro_torch.rl.agent import DQNAgent
 from repro_torch.rl.env import LandmarkEnv
 from repro_torch.rl.fleet import FleetEngine, collect_fleet, tree_map
@@ -71,29 +77,37 @@ def evaluate_on_tasks(
     return out
 
 
-_POPULATION = "churn, hub failures and populations come with a later slice of the port"
+_POPULATION = (
+    "churn, hub failures and populations come with the churn and "
+    "hub-failure slice of the port"
+)
 
 
 def _unsupported(sys_cfg: ADFLLConfig) -> str | None:
-    """What of ``sys_cfg`` this slice cannot run, or None."""
-    if sys_cfg.topology != "hub":
-        return f"topology={sys_cfg.topology!r} (the gossip transport slice)"
-    if "weights" in sys_cfg.share_planes:
-        return "the weight plane (the weight-plane slice)"
+    """What of ``sys_cfg`` the port cannot run yet, or None."""
     if sys_cfg.fleet_devices != 0:
         return "fleet_devices != 0 (the multi-GPU fleet-sharding slice)"
-    if sys_cfg.engine == "stepwise":
-        return "engine='stepwise' (the stepwise-backend slice)"
     return None
+
+
+def _make_weight_plane(cfg: ADFLLConfig) -> WeightPlane:
+    if cfg.weight_compression == "none":
+        return WeightPlane(max_versions=cfg.weight_max_versions)
+    return CompressedWeightPlane(
+        max_versions=cfg.weight_max_versions,
+        compression=cfg.weight_compression,
+        k_frac=cfg.weight_topk_frac,
+    )
 
 
 class ADFLLSystem:
     """The paper's deployment system (Fig. 2 topology by default).
 
     ``seed`` is the single source of truth for every random stream
-    (defaulting to ``sys_cfg.seed``): the round rng, the network rng and
-    each agent's init seed (``seed + agent_id``) all derive from it.
-    ``device=None`` runs the fleet on the CUDA card.
+    (defaulting to ``sys_cfg.seed``): the round rng, the network rng,
+    the gossip sampler/rng, the task-curriculum rng, and each agent's
+    init seed (``seed + agent_id``) all derive from it.  ``device=None``
+    trains on the CUDA card.
     """
 
     def __init__(
@@ -113,7 +127,7 @@ class ADFLLSystem:
             missing = "enabled telemetry (the observatory/telemetry slice)"
         if missing is not None:
             raise NotImplementedError(f"repro_torch does not run {missing} yet")
-        if sys_cfg.engine not in ("fleet", "fleet-eager"):
+        if sys_cfg.engine not in ("fleet", "fleet-eager", "stepwise"):
             raise ValueError(f"unknown engine: {sys_cfg.engine!r}")
         if sys_cfg.task_curriculum not in ("roundrobin", "blocked", "shuffled"):
             raise ValueError(f"unknown curriculum: {sys_cfg.task_curriculum!r}")
@@ -126,19 +140,37 @@ class ADFLLSystem:
         self.hooks: tuple[ExperimentHooks, ...] = (self._recorder, *hooks)
         self.history: list[RoundRecord] = self._recorder.records
         self.rng = np.random.default_rng(self.seed)
+        n_hubs = 0 if sys_cfg.topology == "gossip" else sys_cfg.n_hubs
         self.network = Network(
-            hubs=[Hub(h) for h in range(sys_cfg.n_hubs)],
+            hubs=[Hub(h) for h in range(n_hubs)],
             dropout=sys_cfg.dropout,
             rng=np.random.default_rng(self.seed + 1),
+            topology=sys_cfg.topology,
             link=LinkModel(
                 latency=sys_cfg.link_latency,
                 rate=sys_cfg.link_rate,
                 drop=sys_cfg.link_drop,
             ),
         )
-        self.engine = FleetEngine(dqn_cfg, device=device)
-        self.device = self.engine.device
+        if sys_cfg.topology in ("gossip", "hybrid"):
+            self.network.enable_gossip(
+                make_sampler(
+                    sys_cfg.gossip_sampler,
+                    fanout=sys_cfg.gossip_fanout,
+                    seed=self.seed + 2,
+                ),
+                rng=np.random.default_rng(self.seed + 3),
+            )
+        self.device = resolve_device(device)
+        self.engine: FleetEngine | None = (
+            FleetEngine(dqn_cfg, device=self.device)
+            if sys_cfg.engine.startswith("fleet")
+            else None
+        )
         self.use_erb = "erb" in sys_cfg.share_planes
+        self.use_weights = "weights" in sys_cfg.share_planes
+        if self.use_weights:
+            self.network.register_plane(_make_weight_plane(sys_cfg))
         self._task_rng = np.random.default_rng(self.seed + 4)
         self._task_queue: list[int] = []
         self.agents: dict[int, DQNAgent] = {}
@@ -150,9 +182,18 @@ class ADFLLSystem:
             hub = sys_cfg.agent_hub[i] if i < len(sys_cfg.agent_hub) else None
             speed = sys_cfg.agent_speed[i] if i < len(sys_cfg.agent_speed) else 1.0
             self.add_agent(speed=speed, hub_id=hub)
-        self.sched.every(
-            sys_cfg.hub_sync_period, lambda s, t: self.network.sync(), tag="hub_sync"
-        )
+        if sys_cfg.topology != "gossip":
+            self.sched.every(
+                sys_cfg.hub_sync_period,
+                lambda s, t: self.network.sync(),
+                tag="hub_sync",
+            )
+        if self.network.gossip is not None:
+            self.sched.every(
+                sys_cfg.gossip_period,
+                lambda s, t: self.network.gossip.anti_entropy(s),
+                tag="gossip",
+            )
 
     # -- hooks ----------------------------------------------------------------
     def _emit(self, name: str, *args) -> None:
@@ -170,7 +211,13 @@ class ADFLLSystem:
         aid = self._next_agent_id
         self._next_agent_id += 1
         agent = DQNAgent(
-            aid, self.dqn_cfg, seed=self.seed + aid, speed=speed, engine=self.engine
+            aid,
+            self.dqn_cfg,
+            seed=self.seed + aid,
+            speed=speed,
+            backend="fleet" if self.engine is not None else "stepwise",
+            engine=self.engine,
+            device=self.device,
         )
         self.agents[aid] = agent
         self.network.attach_agent(aid, hub_id)
@@ -230,6 +277,13 @@ class ADFLLSystem:
             comm += pulled.comm_time
         else:
             incoming = []
+        if self.use_weights:
+            n_mixed, mix_comm = self._mix_peer_weights(agent_id)
+            comm += mix_comm
+            if n_mixed:
+                self._emit("on_mix", agent_id, n_mixed, mix_comm, self.sched.now)
+        else:
+            n_mixed = 0
         start = self.sched.now
         shared, future = agent.begin_round(
             env,
@@ -251,7 +305,15 @@ class ADFLLSystem:
 
         def emit_record(loss):
             record = RoundRecord(
-                agent_id, round_idx, task.name, start, end, n_incoming, loss, 0, comm
+                agent_id,
+                round_idx,
+                task.name,
+                start,
+                end,
+                n_incoming,
+                loss,
+                n_mixed,
+                comm,
             )
             self._emit("on_round_end", record)
 
@@ -264,6 +326,11 @@ class ADFLLSystem:
                 res = self.network.agent_push(aid, erb)
                 comm_out += res.comm_time
                 self._emit("on_push", aid, "erb", res, t)
+            if self.use_weights:
+                snap = self.agents[aid].snapshot_params(t)
+                res = self.network.agent_push(aid, snap, plane="weights")
+                comm_out += res.comm_time
+                self._emit("on_push", aid, "weights", res, t)
             if comm_out > 0.0:
                 # the upload occupies the agent's link before its next round
                 s.at(
@@ -276,6 +343,30 @@ class ADFLLSystem:
 
         self._outstanding += 1
         self.sched.at(end, finish, tag=f"A{agent_id}_round_done")
+
+    def _mix_peer_weights(self, agent_id: int) -> tuple[int, float]:
+        """Pull unseen peer snapshots and fold them into the agent's
+        params, staleness-discounted (FedAsync alpha*s(dtau)); compressed
+        snapshots are dequantized inside the mix.  Returns the number of
+        snapshots consumed and the pull's link time."""
+        agent = self.agents[agent_id]
+        res = self.network.agent_pull(agent_id, agent.seen_snap_ids, plane="weights")
+        snaps = list(res.records)
+        if not snaps:
+            return 0, res.comm_time
+        cfg = self.sys_cfg
+        now = self.sched.now if cfg.staleness_clock == "time" else agent.rounds_done
+        alphas = staleness_alphas(
+            snaps,
+            now,
+            alpha=cfg.mix_alpha,
+            flag=cfg.staleness_flag,
+            hinge_a=cfg.staleness_hinge_a,
+            hinge_b=cfg.staleness_hinge_b,
+            poly_a=cfg.staleness_poly_a,
+            clock=cfg.staleness_clock,
+        )
+        return agent.mix_params(snaps, alphas), res.comm_time
 
     def _maybe_continue(self, agent_id: int):
         """Paper policy: start a new round whenever rounds remain."""
@@ -292,7 +383,8 @@ class ADFLLSystem:
             )
 
         t = self.sched.run(until=until, stop=done)
-        self.engine.flush()  # retire in-flight rounds before reporting
+        if self.engine is not None:
+            self.engine.flush()  # retire in-flight rounds before reporting
         self.network.sync()
         return self.report(makespan=t)
 
@@ -301,6 +393,16 @@ class ADFLLSystem:
         filled by the runner via :meth:`evaluate`)."""
         hist = list(self.history)
         meter = self.network.meter
+        extra = {}
+        if self.network.gossip is not None:
+            st = self.network.gossip.stats
+            extra["gossip"] = {
+                "rounds": st.n_rounds,
+                "exchanges": st.n_exchanges,
+                "sent": st.n_sent,
+                "delivered": st.n_delivered,
+                "dropped": st.n_dropped,
+            }
         return Report(
             system="adfll",
             seed=self.seed,
@@ -308,7 +410,7 @@ class ADFLLSystem:
             n_rounds=len(hist),
             comm_time=float(sum(r.comm_time for r in hist)),
             history=hist,
-            n_mixed=0,
+            n_mixed=sum(r.n_mixed for r in hist),
             n_foreign_erbs=sum(r.n_incoming for r in hist),
             bytes_by_plane=dict(meter.bytes_by_plane),
             msgs_by_plane=dict(meter.msgs_by_plane),
@@ -316,6 +418,7 @@ class ADFLLSystem:
             records_known={
                 p: len(self.network.all_known(p)) for p in sorted(self.network.planes)
             },
+            extra=extra,
         )
 
     # -- evaluation -----------------------------------------------------------

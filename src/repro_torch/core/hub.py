@@ -3,10 +3,12 @@
 Every agent talks only to its hub (bidirectional push/pull); hubs sync
 their databases with each other periodically.  A hub carries one store
 per :class:`~repro_torch.core.plane.SharePlane`, mapping record_id ->
-record.  Hub-hub sync accounts bytes-on-wire on the shared
+record: the paper's ERB plane, and the weight plane when the system
+shares weights.  Hub-hub sync accounts bytes-on-wire on the shared
 :class:`~repro_torch.core.gossip.BandwidthMeter`; backbone transfer
 *time* is not modeled (hubs are assumed to sit on fast interconnect).
-Hub failure (the paper's Table 2) comes with a later slice of the port.
+Hub failure (the paper's Table 2) comes with the churn and hub-failure
+slice of the port.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.experiments --list
     PYTHONPATH=src python -m repro_torch.experiments --scenario paper_fig2 \
-        [--fast] [--seed N] [--device cpu]
+        [--fast] [--seed N] [--engine {fleet,fleet-eager,stepwise}] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given, and prints the
 same ``name,mean_dist_err=...`` line as ``python -m repro.experiments``.
@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import argparse
 import sys
+from dataclasses import replace
 
 from repro_torch.experiments.registry import get_scenario, list_scenarios
-from repro_torch.experiments.runner import run
+from repro_torch.experiments.runner import resolve, run
 from repro_torch.experiments.suggest import unknown_name_message
 
 
@@ -28,6 +29,12 @@ def main(argv=None) -> int:
         "--fast", action="store_true", help="reduced step counts (CI sanity)"
     )
     ap.add_argument("--seed", type=int, default=None, help="override the scenario seed")
+    ap.add_argument(
+        "--engine",
+        choices=("fleet", "fleet-eager", "stepwise"),
+        default=None,
+        help="override the ADFLL execution engine (default: the scenario's)",
+    )
     ap.add_argument(
         "--device",
         default=None,
@@ -45,7 +52,10 @@ def main(argv=None) -> int:
         known = [s.name for s in list_scenarios()]
         print(unknown_name_message("scenario", args.scenario, known), file=sys.stderr)
         return 2
-    report = run(args.scenario, fast=args.fast, seed=args.seed, device=args.device)
+    spec = resolve(args.scenario, fast=args.fast, seed=args.seed)
+    if args.engine is not None:
+        spec = replace(spec, sys=replace(spec.sys, engine=args.engine))
+    report = run(spec, device=args.device)
     curve = " -> ".join(
         f"{p.mean_err:.2f}@{p.t:.1f}(n={p.n_agents})" for p in report.eval_curve
     )

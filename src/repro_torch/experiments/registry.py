@@ -1,15 +1,17 @@
 """Named scenario registry.
 
-This slice of the port registers the paper's deployment experiment
-(``paper_fig2``), its Table 1 comparison rows (Agents X, Y and M) and
-synchronous FedAvg, with the reference's settings
-(``src/repro/experiments/registry.py``); the other scenarios come with
-later slices.
+The port registers the paper's deployment experiment (``paper_fig2``),
+its Table 1 comparison rows (Agents X, Y and M), synchronous FedAvg, the
+sharing-plane ablation (``plane_*``), the topology ablation (``topo_*``)
+and the heterogeneous-link gossip scenario (``gossip_hetero``), with the
+reference's settings (``src/repro/experiments/registry.py``).  The churn,
+hub-failure, population and serving scenarios come with their slices.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs.adfll_dqn import ADFLLConfig, DQNConfig
+from repro_torch.core.gossip import LinkModel
 from repro_torch.experiments.spec import ScenarioSpec
 
 _REGISTRY: dict[str, ScenarioSpec] = {}
@@ -82,6 +84,10 @@ def _ablation_sys(**overrides) -> ADFLLConfig:
     return ADFLLConfig(**base)
 
 
+# a priced link (4 MiB per sim-unit) for the topology rows
+_PRICED = dict(link_latency=0.002, link_rate=float(2**22))
+
+
 register(
     ScenarioSpec(
         name="paper_fig2",
@@ -149,5 +155,90 @@ register(
         fast_train_steps=8,
     )
 )
+
+register(
+    ScenarioSpec(
+        name="gossip_hetero",
+        system="adfll",
+        description="Hub-less gossip over two sites with per-link "
+        "heterogeneous rates: fast intra-site, slow cross-site",
+        task_set="paper8",
+        n_tasks=4,
+        n_patients=16,
+        dqn=_TINY_DQN,
+        sys=_ablation_sys(
+            n_agents=6,
+            agent_hub=(),
+            agent_speed=(1.0, 1.0, 2.5, 1.0, 1.0, 2.5),
+            topology="gossip",
+            gossip_sampler="random",
+            gossip_fanout=2,
+            share_planes=("erb", "weights"),
+            **_PRICED,
+        ),
+        agent_sites=(0, 0, 0, 1, 1, 1),
+        intra_link=LinkModel(latency=0.0005, rate=float(2**24)),
+        inter_link=LinkModel(latency=0.01, rate=float(2**20)),
+        fast_train_steps=10,
+    )
+)
+
+# -- sharing-plane ablation (ERB vs weights vs hybrid) ----------------------
+for _plane_name, _planes in (
+    ("plane_erb_only", ("erb",)),
+    ("plane_weight_only", ("weights",)),
+    ("plane_hybrid", ("erb", "weights")),
+):
+    register(
+        ScenarioSpec(
+            name=_plane_name,
+            system="adfll",
+            description=f"Sharing-plane ablation row: share_planes={_planes}",
+            task_set="paper8",
+            n_tasks=4,
+            n_patients=16,
+            dqn=_TINY_DQN,
+            sys=_ablation_sys(share_planes=_planes),
+            fast_train_steps=10,
+        )
+    )
+
+# -- topology ablation (hub vs gossip vs hybrid, + compressed weights) ------
+for _topo_name, _topo_overrides in (
+    ("topo_hub", dict(topology="hub")),
+    (
+        "topo_gossip",
+        dict(topology="gossip", gossip_sampler="random", gossip_fanout=2),
+    ),
+    (
+        "topo_hybrid",
+        dict(topology="hybrid", gossip_sampler="random", gossip_fanout=2),
+    ),
+    (
+        "topo_gossip_topk",
+        dict(
+            topology="gossip",
+            gossip_sampler="random",
+            gossip_fanout=2,
+            weight_compression="topk",
+            weight_topk_frac=0.05,
+        ),
+    ),
+):
+    register(
+        ScenarioSpec(
+            name=_topo_name,
+            system="adfll",
+            description=f"Topology ablation row over a priced link: {_topo_name}",
+            task_set="paper8",
+            n_tasks=4,
+            n_patients=16,
+            dqn=_TINY_DQN,
+            sys=_ablation_sys(
+                share_planes=("erb", "weights"), **_PRICED, **_topo_overrides
+            ),
+            fast_train_steps=10,
+        )
+    )
 
 __all__ = ["get_scenario", "list_scenarios", "register"]

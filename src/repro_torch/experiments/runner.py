@@ -28,9 +28,9 @@ from repro_torch.rl.synth import all_tasks, paper_eight_tasks, patient_split
 SpecLike = str | ScenarioSpec
 
 # the reference's scenario dynamics; the port's spec gains these fields
-# with the churn and site-link slices, and a spec that carries them is
+# with the churn and hub-failure slice, and a spec that carries them is
 # refused rather than run without them
-_DYNAMICS = ("churn", "agent_sites", "hub_failures")
+_DYNAMICS = ("churn", "hub_failures")
 
 
 def resolve(
@@ -66,20 +66,28 @@ def build(
     tasks = _tasks_for(spec)
     train_p, _ = patient_split(spec.n_patients)
     sys_cfg = replace(spec.sys, seed=spec.seed)  # one seed, every stream
-    dynamics = [f for f in _DYNAMICS if getattr(spec, f, ())]
+    dynamics = [f for f in _DYNAMICS if getattr(spec, f, None)]
     if dynamics and spec.system == "adfll":
         raise NotImplementedError(
             f"{spec.name}: repro_torch does not run {'/'.join(dynamics)} yet "
-            "(the churn and site-link slices)"
+            "(the churn and hub-failure slice)"
         )
-    if dynamics:
+    if spec.system != "adfll" and (dynamics or spec.agent_sites):
         raise ValueError(
             f"{spec.name}: {spec.system} supports no churn/sites/hub failures"
         )
     if spec.system == "adfll":
-        return ADFLLSystem(
+        system = ADFLLSystem(
             sys_cfg, spec.dqn, tasks, train_p, hooks=hooks, device=device
         )
+        if spec.agent_sites:
+            system.network.configure_sites(
+                dict(enumerate(spec.agent_sites)),
+                hub_site=dict(enumerate(spec.hub_sites)),
+                intra=spec.intra_link,
+                inter=spec.inter_link,
+            )
+        return system
     if spec.system == "fedavg":
         return CentralAggregationSystem(
             sys_cfg.n_agents,

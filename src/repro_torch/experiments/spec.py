@@ -1,14 +1,16 @@
 """Frozen, declarative scenario descriptions.
 
 A :class:`ScenarioSpec` captures what an experiment needs: the system
-kind, the task set, the patient pool, the DQN and system configs, and
-the evaluation protocol.  ``spec.seed`` is the single source of truth
-for randomness: the runner mirrors it into ``sys.seed`` before
+kind, the task set, the patient pool, the DQN and system configs
+(topology, share planes, compression, speeds, hub layout), per-link
+heterogeneous rates (site assignments + intra/inter links), and the
+evaluation protocol.  ``spec.seed`` is the single source of truth for
+randomness: the runner mirrors it into ``sys.seed`` before
 construction.
 
-The reference's spec also carries churn schedules, populations,
-per-site links and serving traffic; those come with later slices of the
-port.
+The reference's spec also carries churn schedules, hub failures,
+populations and serving traffic; those come with the churn and
+hub-failure slice and the serving-plane slice of the port.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 
 from repro_torch.configs.adfll_dqn import ADFLLConfig, DQNConfig
+from repro_torch.core.gossip import LinkModel
 
 SYSTEMS = ("adfll", "fedavg", "all_knowing", "partial", "sequential", "serve")
 TASK_SETS = ("paper8", "all")
@@ -35,6 +38,11 @@ class ScenarioSpec:
     dqn: DQNConfig = field(default_factory=DQNConfig)
     sys: ADFLLConfig = field(default_factory=ADFLLConfig)
     seed: int = 0
+    # -- per-link heterogeneous rates ----------------------------------------
+    agent_sites: tuple[int, ...] = ()  # per-agent site ids
+    hub_sites: tuple[int, ...] = ()  # per-hub site ids
+    intra_link: LinkModel | None = None  # fast same-site link
+    inter_link: LinkModel | None = None  # slow cross-site link
     # -- evaluation --------------------------------------------------------
     eval_tasks: int | None = None  # eval on first N tasks (None = all)
     eval_patients: int | None = 4  # held-out patients per task
@@ -47,6 +55,8 @@ class ScenarioSpec:
             raise ValueError(f"unknown system: {self.system!r}")
         if self.task_set not in TASK_SETS:
             raise ValueError(f"unknown task_set: {self.task_set!r}")
+        if self.agent_sites and (self.intra_link is None and self.inter_link is None):
+            raise ValueError("agent_sites given without intra/inter links")
 
     def with_seed(self, seed: int) -> ScenarioSpec:
         """Re-seed the whole scenario (spec and system config stay in

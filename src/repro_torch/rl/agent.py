@@ -3,14 +3,27 @@ and the ADFLL round API (collect -> train on mixed replay -> share ERB).
 
 The agent is a thin *view* over a :class:`~repro_torch.rl.fleet.FleetEngine`
 slot: its params / target params / optimizer state live in the engine's
-stacked :class:`~repro_torch.rl.fleet.FleetState`, and training rounds
-are jobs the engine runs in batched flushes.  Every host draw (start
-locations, exploration, replay plans, share slices) consumes the agent's
-own ``np.random.Generator`` in the reference's order.
+stacked :class:`~repro_torch.rl.fleet.FleetState`.  Two backends:
 
-Waiting for later slices of the port: the legacy per-step backend
-(``backend="stepwise"``) and the weight plane (``snapshot_params`` /
-``mix_params``); both raise ``NotImplementedError``.
+* ``backend="fleet"`` (default): training rounds are jobs the engine
+  runs in batched flushes, many agents per stacked step;
+* ``backend="stepwise"``: the reference's legacy one-dispatch-per-step
+  path, the baseline the fleet is measured against.  The agent owns a
+  private one-slot engine (its own params, target and AdamW state) and
+  trains each step as it is planned
+  (:meth:`~repro_torch.rl.fleet.FleetEngine.train_step`): ``replay_gather``
+  gathers each pick of the plan from its ERB's device copy, ``fused_td``
+  computes the TD tail at N = 1, and the stacked AdamW updates at N = 1.
+  This mirrors the reference's ``use_pallas=True`` stepwise path; there
+  is no host-built batch.  The reference's ``dqn_step_traces`` counts
+  JAX retraces of that path; eager PyTorch traces nothing, so it has no
+  counterpart here.
+
+Both backends collect through the stacked q-value program and draw every
+host sample (start locations, exploration, replay plans, share slices)
+from the agent's own ``np.random.Generator`` in the reference's order.
+The weight plane's ``snapshot_params`` / ``mix_params`` read and write
+the slot through the engine.
 """
 
 from __future__ import annotations
@@ -23,12 +36,11 @@ import torch
 
 from repro_torch.configs.adfll_dqn import DQNConfig
 from repro_torch.core.erb import ERB, TaskTag, erb_init, erb_share_slice
+from repro_torch.core.plane import WeightSnapshot, mix_params, new_snap_id
 from repro_torch.core.replay import SelectiveReplaySampler
 from repro_torch.rl.dqn import dqn_apply
 from repro_torch.rl.env import LandmarkEnv
-from repro_torch.rl.fleet import FleetEngine, TrainFuture, collect_fleet
-
-_LATER = "the stepwise backend and the weight plane come in a later slice of the port"
+from repro_torch.rl.fleet import FleetEngine, TrainFuture, collect_fleet, tree_map
 
 
 @dataclass
@@ -38,6 +50,8 @@ class DQNAgent:
     State lives in a fleet slot: of a shared ``engine`` (the ADFLL system
     passes one so the whole fleet trains in batched flushes) or of a
     private single-slot engine built on ``device`` (``None`` = CUDA).
+    The stepwise backend always builds its own; ``n_picks_gathered``
+    counts the ``replay_gather`` launches its steps made.
     """
 
     agent_id: int
@@ -49,10 +63,10 @@ class DQNAgent:
     device: str | torch.device | None = None
 
     def __post_init__(self):
-        if self.backend == "stepwise":
-            raise NotImplementedError(_LATER)
-        if self.backend != "fleet":
+        if self.backend not in ("fleet", "stepwise"):
             raise ValueError(f"unknown backend: {self.backend!r}")
+        if self.backend == "stepwise" and self.engine is not None:
+            raise ValueError("the stepwise backend keeps its own state: no engine")
         if self.engine is None:
             self.engine = FleetEngine(self.cfg, device=self.device)
         elif self.engine.cfg != self.cfg:
@@ -63,7 +77,9 @@ class DQNAgent:
         self.step_count = 0
         self.personal_erbs: list[ERB] = []
         self.seen_erb_ids: set = set()
+        self.seen_snap_ids: set = set()
         self.rounds_done = 0
+        self.n_picks_gathered = 0
         self.sampler = SelectiveReplaySampler()
 
     # -- state views (fleet slot) ----------------------------------------
@@ -127,18 +143,60 @@ class DQNAgent:
     def train_steps(
         self, n_steps: int, current: ERB | None, incoming: Sequence[ERB] = ()
     ) -> float:
-        """Train ``n_steps`` now (submit and flush); returns the last-step
-        loss, 0.0 for no steps."""
-        future = self._submit_steps(n_steps, current, incoming)
-        self.engine.flush()
-        return future.loss if future.loss is not None else 0.0
+        """Train ``n_steps`` now; returns the last-step loss, 0.0 for no
+        steps.  The fleet backend submits one job and flushes; the
+        stepwise backend plans and trains one step at a time (the same
+        rng draws in the same order)."""
+        if self.backend == "fleet":
+            future = self._submit_steps(n_steps, current, incoming)
+            self.engine.flush()
+            return future.loss if future.loss is not None else 0.0
+        last = 0.0
+        for _ in range(n_steps):
+            plan = self.sampler.plan(
+                self.rng,
+                self.cfg.batch_size,
+                current,
+                personal=self.personal_erbs,
+                incoming=incoming,
+            )
+            last = self.engine.train_step(self.slot, plan)
+            self.n_picks_gathered += len(plan.picks)
+            self.step_count += 1
+        return last
 
-    # -- weight plane (a later slice) ------------------------------------------
-    def snapshot_params(self, sim_time: float = 0.0):
-        raise NotImplementedError(_LATER)
+    # -- weight plane (FedAsync-style mixing) ----------------------------------
+    def snapshot_params(self, sim_time: float = 0.0) -> WeightSnapshot:
+        """Package current params for the weight plane (marked seen so the
+        agent never pulls its own snapshot back).  The snapshot holds a
+        copy: no later step or flush can change what was pushed."""
+        params = tree_map(torch.clone, self.params)
+        snap = WeightSnapshot(
+            new_snap_id(), self.agent_id, self.rounds_done, sim_time, params
+        )
+        self.seen_snap_ids.add(snap.snap_id)
+        return snap
 
-    def mix_params(self, incoming, alphas) -> int:
-        raise NotImplementedError(_LATER)
+    def mix_params(
+        self, incoming: Sequence[WeightSnapshot], alphas: Sequence[float]
+    ) -> int:
+        """Fold peer snapshots into our params with staleness-discounted
+        rates: ``p <- (1-a_k) p + a_k w_k`` (stalest first); compressed
+        snapshots are dequantized on apply.  The target network keeps its
+        own cadence (the next periodic sync picks up the mixed params).
+        Returns the number of snapshots consumed."""
+        snaps = [s for s in incoming if s.agent_id != self.agent_id]
+        for s in incoming:
+            self.seen_snap_ids.add(s.snap_id)
+        if not snaps:
+            return 0
+        alphas = [
+            a
+            for s, a in zip(incoming, alphas, strict=True)
+            if s.agent_id != self.agent_id
+        ]
+        self.params = mix_params(self.params, snaps, alphas)
+        return len(snaps)
 
     # -- ADFLL round (paper A.3) ----------------------------------------------
     def new_round_erb(self, task: TaskTag, erb_capacity: int) -> ERB:
@@ -170,13 +228,18 @@ class DQNAgent:
         without forcing execution.  Returns (shared ERB, loss future) —
         the shared slice never depends on the round's own updates, so
         the system keeps scheduling while jobs accumulate into one
-        batched flush."""
+        batched flush.  On the stepwise backend the round trains now and
+        the future is already resolved."""
         if current is None:
             current = self.new_round_erb(task, erb_capacity)
             self.collect(env, current, collect_episodes)
         for e in incoming:
             self.seen_erb_ids.add(e.meta.erb_id)
-        future = self._submit_steps(train_steps, current, incoming)
+        if self.backend == "fleet":
+            future = self._submit_steps(train_steps, current, incoming)
+        else:
+            future = TrainFuture()
+            future.resolve(self.train_steps(train_steps, current, incoming))
         self.personal_erbs.append(current)
         self.rounds_done += 1
         shared = erb_share_slice(current, share_size, self.rng, strategy=share_strategy)

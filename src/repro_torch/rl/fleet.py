@@ -25,7 +25,8 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   capacity with inert dead rows, a lazy job queue, flush-on-read, the
   ``(erb_id, version)``-keyed LRU device cache of flattened ERBs with a
   byte budget, the resident fast path, and futures that resolve in
-  submission order.
+  submission order.  :meth:`FleetEngine.train_step` is the stepwise
+  backend's one-step dispatch on the same state and cache.
 
 State updates are functional (new tensors, never writes into the
 resident ones), so a tensor handed out by ``get_params`` stays a valid
@@ -440,6 +441,42 @@ class FleetEngine:
             _, evicted = self._erb_cache.popitem(last=False)
             self._erb_cache_nbytes -= evicted.numel() * evicted.element_size()
         return flat
+
+    # -- one step now (the stepwise backend) -----------------------------------
+    def train_step(self, slot: int, plan) -> float:
+        """Train ``slot`` one step on ``plan`` now, in its own dispatch:
+        each of the plan's picks is gathered by ``replay_gather`` from its
+        ERB's device copy, the plan's shuffle is applied, and the slot
+        takes one stacked step at N = 1 (``fused_td`` for its TD tail).
+        Returns the step's loss (one host sync)."""
+        self.ensure_flushed(slot)
+        parts = []
+        for erb, ridx in plan.picks:
+            flat = self._flat_erb(erb)
+            ridx = np.asarray(ridx, np.int32)
+            # the kernel does not bound-check: check on the host first
+            if ridx.min() < 0 or ridx.max() >= flat.shape[0]:
+                raise IndexError(
+                    f"replay row index out of range [0, {flat.shape[0]})"
+                )
+            idx = torch.from_numpy(ridx).to(self.device)
+            ones = torch.ones(len(ridx), dtype=torch.float32, device=self.device)
+            parts.append(replay_gather(flat, idx, ones))
+        perm = torch.from_numpy(np.asarray(plan.perm, np.int64)).to(self.device)
+        rows = torch.cat(parts).index_select(0, perm)
+        at = torch.tensor([slot], device=self.device)
+        resident = self.capacity == 1
+        if resident:
+            sub = self.state
+        else:
+            sub = self.state.map(lambda x: x.index_select(0, at))
+        new, loss = self.steps.step(sub, rows[None])
+        if resident:
+            self.state = new
+        else:
+            self.state = self.state.map(lambda s, ns: s.index_copy(0, at, ns), new)
+        self.n_steps_trained += 1
+        return float(loss[0])
 
     # -- job queue ------------------------------------------------------------
     def submit(self, slot: int, plans: Sequence) -> TrainFuture:

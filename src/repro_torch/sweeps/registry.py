@@ -4,11 +4,13 @@
   Y partial, M sequential lifelong) across 5 seeds, paired significance
   against ADFLL: the reproduction of the paper's headline p = 0.01
   claim (7.81 vs. 15.17 mean distance error).
+* ``ci_smoke`` — a 2-seed, override-shrunk grid (hub ERB plane vs
+  gossip) under per-cell wall-time budgets; CI's sweep-smoke step runs
+  it ``--fast``.
 
-The reference's ``paper_table2_hub_failure`` (hub failures) and
-``ci_smoke`` (gossip) sweeps come with the slices that bring those
-features.  Like scenarios, adding a sweep means registering a frozen
-spec.
+The reference's ``paper_table2_hub_failure`` (hub failures) comes with
+the churn and hub-failure slice.  Like scenarios, adding a sweep means
+registering a frozen spec.
 """
 
 from __future__ import annotations
@@ -57,6 +59,29 @@ register_sweep(
         seeds=(0, 1, 2, 3, 4),
         baseline="adfll",
         cell_budget_s=1800.0,
+    )
+)
+
+# CI-sized smoke: override-shrunk scenarios, tight wall-time budgets.
+_SMOKE_OVERRIDES = (
+    ("n_tasks", 2),
+    ("eval_patients", 2),
+    ("eval_episodes", 2),
+    ("sys.rounds", 2),  # >= 2 so shared records actually flow
+)
+
+register_sweep(
+    SweepSpec(
+        name="ci_smoke",
+        description="2-seed smoke grid (hub ERB plane vs gossip) with "
+        "per-cell wall-time budgets — the CI sweep-smoke step",
+        variants=(
+            SweepVariant("erb_hub", "plane_erb_only", _SMOKE_OVERRIDES),
+            SweepVariant("gossip", "topo_gossip", _SMOKE_OVERRIDES),
+        ),
+        seeds=(0, 1),
+        baseline="erb_hub",
+        cell_budget_s=300.0,
     )
 )
 

@@ -343,7 +343,15 @@ def test_cli_lists_the_scenarios(capsys):
         "baseline_partial",
         "baseline_sequential",
         "fedavg_sync",
+        "gossip_hetero",
         "paper_fig2",
+        "plane_erb_only",
+        "plane_hybrid",
+        "plane_weight_only",
+        "topo_gossip",
+        "topo_gossip_topk",
+        "topo_hub",
+        "topo_hybrid",
     ]
     assert cli.main(["--scenario", "baseline_partal"]) == 2
     assert "did you mean: baseline_partial" in capsys.readouterr().err

@@ -1,0 +1,109 @@
+"""The port's training paths on the card, each against the same run on
+the CPU (``cuda`` tests: they skip without a card).  Nothing here
+imports JAX, so the tests run where the card is.
+
+* topology: ``topo_hybrid`` and ``topo_gossip_topk`` train through the
+  kernels, one ``replay_gather`` and one ``fused_td`` launch per stacked
+  step, mix weight snapshots, and keep the CPU run's round order and
+  wire counts; round 0's loss within 1e-4 (its rows come from
+  exploration alone, so both sides train on the same rows).
+* stepwise: one ``fused_td`` launch per agent step and one
+  ``replay_gather`` launch per replay pick; round 0 within 1e-4.
+* the fleet's main path (``paper_fig2``): card against CPU from one init
+  (the port's own, drawn on the host), round 0 within 1e-4 and the same
+  round metadata throughout.
+
+Run on a machine with a card:
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
+from repro_torch.experiments import registry  # noqa: E402
+from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
+from repro_torch.kernels.fused_td import fused_td  # noqa: E402
+from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
+
+# tiny widths: each run takes seconds on either device
+TINY = DQNConfig(
+    volume_shape=(12, 12, 12),
+    box_size=(4, 4, 4),
+    conv_features=(2,),
+    hidden=(8,),
+    batch_size=4,
+    max_episode_steps=4,
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _tiny(name, **sys_overrides):
+    spec = registry.get_scenario(name)
+    sys_cfg = dataclasses.replace(spec.sys, erb_capacity=256, **sys_overrides)
+    return dataclasses.replace(
+        spec, dqn=TINY, sys=sys_cfg, eval_tasks=2, eval_patients=1, fast_train_steps=2
+    ).fast()
+
+
+def _card_and_cpu(spec, cuda):
+    """Run ``spec`` on the CPU, then on the card with the launches read
+    around the card's run alone; returns the two systems and reports."""
+    out = []
+    for dev in ("cpu", cuda):
+        system = build(spec, device=dev)
+        replay_gather.launches = fused_td.launches = 0
+        report = system.run()
+        evaluate_into(report, system, spec)
+        out.append((system, report))
+    torch.cuda.synchronize()
+    return out
+
+
+def _same_rounds(cpu, card):
+    assert abs(card.history[0].loss - cpu.history[0].loss) <= 1e-4
+    meta = [[dataclasses.astuple(r)[:6] for r in rep.history] for rep in (cpu, card)]
+    assert meta[0] == meta[1] and len(meta[0]) > 0
+    assert card.bytes_by_plane == cpu.bytes_by_plane
+    assert card.msgs_by_plane == cpu.msgs_by_plane
+    assert np.isfinite(card.mean_dist_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["topo_hybrid", "topo_gossip_topk"])
+def test_topology_trains_through_the_kernels_on_card(name, cuda):
+    (_, cpu), (system, card) = _card_and_cpu(_tiny(name), cuda)
+    steps = system.engine.n_chunk_steps
+    assert steps > 0 and replay_gather.launches == fused_td.launches == steps
+    assert card.n_mixed > 0 and card.bytes_by_plane["weights"] > 0
+    _same_rounds(cpu, card)
+
+
+@pytest.mark.cuda
+def test_stepwise_trains_through_the_kernels_on_card(cuda):
+    (_, cpu), (system, card) = _card_and_cpu(
+        _tiny("paper_fig2", engine="stepwise"), cuda
+    )
+    agents = system.agents.values()
+    steps = sum(a.step_count for a in agents)
+    assert system.engine is None and steps > 0
+    assert fused_td.launches == steps
+    assert replay_gather.launches == sum(a.n_picks_gathered for a in agents)
+    _same_rounds(cpu, card)
+
+
+@pytest.mark.cuda
+def test_fleet_round_zero_card_matches_cpu(cuda):
+    (_, cpu), (system, card) = _card_and_cpu(_tiny("paper_fig2"), cuda)
+    assert replay_gather.launches == fused_td.launches == system.engine.n_chunk_steps
+    _same_rounds(cpu, card)

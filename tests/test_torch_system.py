@@ -96,21 +96,26 @@ def test_system_matches_reference():
 
 def test_unported_options_raise():
     cfg = DQNConfig(**DQN_KW)
-    for kw in (
-        dict(topology="gossip"),
-        dict(share_planes=("erb", "weights")),
-        dict(fleet_devices=2),
-        dict(engine="stepwise"),
-    ):
-        with pytest.raises(NotImplementedError):
-            ADFLLSystem(ADFLLConfig(**SYS_KW, **kw), cfg, paper_eight_tasks(), TRAIN_P)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        ADFLLSystem(
+            ADFLLConfig(**SYS_KW, fleet_devices=2), cfg, paper_eight_tasks(), TRAIN_P
+        )
     port = ADFLLSystem(
         ADFLLConfig(**SYS_KW), cfg, paper_eight_tasks(), TRAIN_P, device="cpu"
     )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="churn and hub-failure slice"):
         port.schedule_churn(())
-    with pytest.raises(NotImplementedError):
-        port.agents[0].mix_params((), ())
+    with pytest.raises(NotImplementedError, match="churn and hub-failure slice"):
+        port.schedule_hub_failures(())
+    # the weight plane and the stepwise engine are ported: nothing raises
+    assert port.agents[0].mix_params((), ()) == 0
+    ADFLLSystem(
+        ADFLLConfig(**SYS_KW, engine="stepwise", topology="gossip"),
+        cfg,
+        paper_eight_tasks(),
+        TRAIN_P,
+        device="cpu",
+    )
 
 
 @pytest.fixture
