@@ -63,7 +63,21 @@ non-zero exit code and no result line:
    card and on the CPU from one init (drawn on the host): each round's
    loss side by side, the first round past 1e-4, the largest parameter
    difference after the first flush, both errors; round 0 within 1e-4.
-11. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
+11. population — churn, hub failures and a wide fleet at ``DQNConfig()``
+   through the port's runner, launches read around each run alone:
+   ``paper_table2_hub_failure --fast`` (hub 2 dies at t = 1.5 and
+   strands agents 2 and 3; the probe at 1.5 sees 4 agents),
+   ``paper_table2_hybrid_failover --fast`` (every hub dies; gossip
+   keeps delivering), ``churn_addition_fig4 --fast`` (4 -> 16 agents,
+   the resident axis growing 4 -> 8 -> 16 mid-run; probes at 4, 8, 12)
+   and ``flash_crowd`` at its full population (4 + 200 agents on one
+   engine of capacity 256) with ``--fast``'s 8 train steps a round.
+   Cuts, to evaluation only: one patient throughout, and one task for
+   flash_crowd.  Each run: one launch of each fleet kernel per stacked
+   step, every joined agent's rounds (agents x rounds), finite errors
+   at every probe.  Then ``paper_table2_hub_failure`` through the sweep
+   runner as in phase 7 (``--fast``, seeds 0 and 1, 8 cells).
+12. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
@@ -73,11 +87,11 @@ non-zero exit code and no result line:
    by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
    rmsnorm's cases cover both of its routes (``cta``, ``masked``), and
    each must move its route's launch count.
-12. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
+13. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
    agree within 1e-4.
-13. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
+14. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
    h2o-danube-3-4b in bfloat16, random weights drawn on the card from
    seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
    the prefill and decode alone (24 ``flash_attention``, all on the
@@ -88,8 +102,9 @@ non-zero exit code and no result line:
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
-paths (main, baselines, sweep, topology) and the stepwise path: their
-entries carry ``launches_by_path`` and ``launches`` is its sum.
+paths (main, baselines, sweep, topology, population, table2_sweep) and
+the stepwise path: their entries carry ``launches_by_path`` and
+``launches`` is its sum.
 """
 
 from __future__ import annotations
@@ -110,6 +125,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
+from repro_torch.core.experiment import ExperimentHooks  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.rl.agent import DQNAgent  # noqa: E402
@@ -436,20 +452,34 @@ def read_launches() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def timed_run(spec, dev) -> tuple:
+def timed_run(spec, dev, hooks=()) -> tuple:
     """Build ``spec`` on ``dev``, run it with the launches read around
-    the run alone, then evaluate it."""
-    system = build(spec, device=dev)
+    the run alone, then evaluate it.  The evaluation probes a churn or
+    hub-failure scenario fires during the run count to ``eval_s``, not
+    to ``run_s``."""
+    system = build(spec, hooks=hooks, device=dev)
+    probe_s = 0.0
+    evaluate = system.evaluate
+
+    def timed_evaluate(*args, **kw):
+        nonlocal probe_s
+        t = time.perf_counter()
+        out = evaluate(*args, **kw)
+        probe_s += time.perf_counter() - t
+        return out
+
+    system.evaluate = timed_evaluate
     reset_launches()
     t0 = time.perf_counter()
     report = system.run()
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    run_s = time.perf_counter() - t0 - probe_s
     launches = read_launches()
     t1 = time.perf_counter()
     evaluate_into(report, system, spec)
-    return system, report, launches, run_s, time.perf_counter() - t1
+    eval_s = time.perf_counter() - t1 + probe_s
+    return system, report, launches, run_s, eval_s
 
 
 def phase_main(dev) -> dict:
@@ -586,8 +616,8 @@ def phase_baselines(dev) -> dict[str, dict[str, int]]:
     return by_path
 
 
-def phase_sweep(dev) -> dict[str, int]:
-    sweep = get_sweep("paper_table1_sweep").with_seeds((0, 1))
+def phase_sweep(dev, name: str = "paper_table1_sweep") -> dict[str, int]:
+    sweep = get_sweep(name).with_seeds((0, 1))
     reset_launches()
     t0 = time.perf_counter()
     summary = run_sweep(sweep, fast=True, workers=1, device=str(dev))
@@ -601,14 +631,14 @@ def phase_sweep(dev) -> dict[str, int]:
     emit(
         {
             "phase": "sweep",
-            "sweep": "paper_table1_sweep --fast, seeds (0, 1), workers=1",
+            "sweep": f"{name} --fast, seeds (0, 1), workers=1",
             "cuts": "seeds 0 and 1 of 5",
             "wall_s": wall_s,
             "mean_dist_err": {
                 label: v["metrics"]["mean_dist_err"]["mean"]
                 for label, v in summary["variants"].items()
             },
-            "paired_vs_adfll": p_values,
+            f"paired_vs_{sweep.baseline}": p_values,
             "cells": [
                 [c["label"], c["seed"], c["status"], c["elapsed_s"]]
                 for c in summary["cells"]
@@ -775,6 +805,144 @@ def phase_main_card_vs_cpu(dev) -> None:
         "main card vs CPU: the round order differs",
     )
     require(diffs[0] <= 1e-4, f"main round 0 loss: card vs CPU differ by {diffs[0]}")
+
+
+class MembershipLog(ExperimentHooks):
+    """What the population phase holds the run to: churn and hub-failure
+    events as they fire, and the gossip deliveries counted by then."""
+
+    def __init__(self):
+        self.churn: list = []
+        self.failures: list = []
+
+    def on_churn(self, system, event, agent_ids, t):
+        self.churn.append([event.action, list(agent_ids), t])
+
+    def on_hub_failure(self, system, event, orphaned, t):
+        gossip = system.network.gossip
+        delivered = gossip.stats.n_delivered if gossip is not None else None
+        self.failures.append([event.hub_id, list(orphaned), t, delivered])
+
+
+def population_specs() -> dict[str, tuple]:
+    """The population phase's scenarios at ``DQNConfig()``, each with its
+    evaluation cut: one patient throughout, and one task for flash_crowd,
+    whose population stays at its full 4 + 200 agents."""
+    full = DQNConfig()
+    out = {}
+    for name in (
+        "paper_table2_hub_failure",
+        "paper_table2_hybrid_failover",
+        "churn_addition_fig4",
+    ):
+        spec = replace(get_scenario(name), dqn=full, eval_patients=1).fast()
+        out[name] = (spec, "eval_patients=1", f"{name} --fast")
+    crowd = replace(
+        get_scenario("flash_crowd"),
+        dqn=full,
+        eval_patients=1,
+        eval_tasks=1,
+        fast_population_scale=1.0,
+    ).fast()
+    out["flash_crowd"] = (
+        crowd,
+        "eval_patients=1, eval_tasks=1",
+        "flash_crowd, full population 4 + 200, --fast train steps",
+    )
+    return out
+
+
+def joined_agents(spec) -> int:
+    """Every agent the scenario brings in: incumbents, churn joiners or
+    the whole population."""
+    if spec.population is not None:
+        return spec.population.n_agents
+    adds = sum(ev.count for ev in spec.churn if ev.action == "add")
+    return spec.sys.n_agents + adds
+
+
+def phase_population(dev) -> dict[str, int]:
+    """Churn, hub failures and a wide fleet at full width: Table 2's hub
+    death and hybrid failover, Fig 4's joins (the resident axis grows
+    mid-run) and flash_crowd's 204 agents on one engine."""
+    total = dict.fromkeys(FLEET_KERNELS, 0)
+    for name, (spec, cuts, label) in population_specs().items():
+        log = MembershipLog()
+        system, report, launches, run_s, eval_s = timed_run(spec, dev, hooks=(log,))
+        engine = system.engine
+        curve = [[p.t, p.n_agents, p.mean_err] for p in report.eval_curve]
+        gossip = report.extra.get("gossip")
+        emit(
+            {
+                "phase": "population",
+                "scenario": f"{label}, dqn=DQNConfig()",
+                "cuts": cuts,
+                "mean_dist_err": report.mean_dist_err,
+                "n_rounds": report.n_rounds,
+                "run_s": run_s,
+                "eval_s": eval_s,
+                "agent_steps": engine.n_steps_trained,
+                "stacked_steps": engine.n_chunk_steps,
+                "flushes": engine.n_flushes,
+                "flush_sizes": engine.flush_sizes,
+                "agent_steps_per_s": engine.n_steps_trained / run_s,
+                "launches": launches,
+                "capacity": engine.capacity,
+                "eval_curve": curve,
+                "bytes_by_plane": report.bytes_by_plane,
+                "population": report.extra.get("population"),
+                "gossip": gossip,
+                "churn_events": len(log.churn),
+                "churn": log.churn[:8],  # flash_crowd's 201 joins: the first
+                "hub_failures": log.failures,
+            }
+        )
+        joined = joined_agents(spec)
+        want_rounds = joined * spec.sys.rounds
+        require(len(system.agents) == joined, f"{name}: {len(system.agents)} agents")
+        require(
+            report.n_rounds == want_rounds,
+            f"{name}: {report.n_rounds} rounds, not {want_rounds}",
+        )
+        require(
+            all(np.isfinite(err) for _, _, err in curve),
+            f"{name}: errors {curve} not all finite",
+        )
+        require(engine.n_chunk_steps > 0, f"{name}: trained nothing")
+        for k in FLEET_KERNELS:
+            require(
+                launches[k] == engine.n_chunk_steps,
+                f"{name}: {k} launched {launches[k]} times for "
+                f"{engine.n_chunk_steps} stacked steps",
+            )
+            total[k] += launches[k]
+        if name == "paper_table2_hub_failure":
+            require(
+                [f[:3] for f in log.failures] == [[2, [2, 3], 1.5]],
+                f"{name}: hub failures {log.failures}",
+            )
+            require(curve[0][:2] == [1.5, 4], f"{name}: first probe {curve[0]}")
+        if name == "paper_table2_hybrid_failover":
+            dead_at = max(f[3] for f in log.failures)
+            require(
+                gossip["delivered"] > dead_at,
+                f"{name}: {gossip['delivered']} gossip deliveries, "
+                f"{dead_at} of them before every hub was dead",
+            )
+        if name == "churn_addition_fig4":
+            require(engine.capacity == 16, f"{name}: capacity {engine.capacity}")
+            require(
+                [n for _, n, _ in curve[:3]] == [4, 8, 12],
+                f"{name}: probes {curve}",
+            )
+        if name == "flash_crowd":
+            require(
+                report.extra["population"]["n_agents"] == 204
+                and engine.capacity == 256,
+                f"{name}: {report.extra['population']['n_agents']} agents, "
+                f"capacity {engine.capacity}",
+            )
+    return total
 
 
 def check_rmsnorm(dev) -> dict:
@@ -1117,6 +1285,8 @@ def main() -> int:
     fleet = {k: v for k, v in main.items() if k != "launches"}
     by_path["stepwise"] = phase_stepwise(dev, fleet)
     phase_main_card_vs_cpu(dev)
+    by_path["population"] = phase_population(dev)
+    by_path["table2_sweep"] = phase_sweep(dev, "paper_table2_hub_failure")
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)

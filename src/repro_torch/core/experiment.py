@@ -1,17 +1,19 @@
 """Experiment-facing primitives shared by the system and the runner.
 
 The artifacts a run produces (:class:`Report`, :class:`RoundRecord`,
-:class:`EvalPoint`) and the lifecycle hook protocol
-(:class:`ExperimentHooks`) that
+:class:`EvalPoint`), the declarative membership events
+(:class:`ChurnEvent`, :class:`HubFailure`) and the lifecycle hook
+protocol (:class:`ExperimentHooks`) that
 :class:`~repro_torch.core.federated.ADFLLSystem` emits into.  It imports
 nothing from the rest of ``repro_torch``, so the system and
 ``repro_torch.experiments`` can both import it without cycles.  The
 default :class:`HistoryRecorder` collects the ``system.history`` list of
-round records.
+round records; :class:`CommLog` is an optional bandwidth log.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -39,6 +41,48 @@ class EvalPoint:
     n_agents: int
     mean_err: float
     per_agent: dict[str, float] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class ChurnEvent:
+    """One timed membership change in a scenario's churn schedule.
+
+    ``action="add"`` joins ``count`` fresh agents (``speed``/``hub``
+    apply to each); ``action="remove"`` detaches ``agent_id`` — or, when
+    ``agent_id`` is None, the ``count`` newest live agents (matching the
+    paper's deletion ablation, which retires the most recent joiners).
+    """
+
+    at: float
+    action: str  # "add" | "remove"
+    count: int = 1
+    agent_id: int | None = None
+    speed: float = 1.0
+    hub: int | None = None
+
+    def __post_init__(self):
+        if self.action not in ("add", "remove"):
+            raise ValueError(f"unknown churn action: {self.action!r}")
+        if self.agent_id is not None and self.count != 1:
+            raise ValueError("explicit agent_id implies count=1")
+
+
+@dataclass(frozen=True)
+class HubFailure:
+    """One timed hub failure in a scenario's failure schedule.
+
+    At simulated time ``at`` hub ``hub_id`` dies, losing every record no
+    other hub holds; its agents re-home to surviving hubs (if any) or
+    fall back to the gossip overlay under ``topology="hybrid"`` (the
+    paper's Table 2 robustness experiment).
+    """
+
+    at: float
+    hub_id: int
+
+    def __post_init__(self):
+        if self.hub_id < 0:
+            raise ValueError(f"negative hub_id: {self.hub_id}")
 
 
 @dataclass
@@ -151,6 +195,22 @@ class ExperimentHooks:
     def on_eval(self, system, point: EvalPoint) -> None:
         """An evaluation probe fired."""
 
+    def on_churn(
+        self, system, event: ChurnEvent, agent_ids: Sequence[int], t: float
+    ) -> None:
+        """A churn event was applied to ``agent_ids``."""
+
+    def on_hub_failure(
+        self, system, event: HubFailure, orphaned: Sequence[int], t: float
+    ) -> None:
+        """A hub died; ``orphaned`` are the agents it stranded (they are
+        re-homed to surviving hubs when any exist)."""
+
+    def on_availability(self, system, agent_id: int, online: bool, t: float) -> None:
+        """An agent's availability changed (population dynamics): offline
+        agents finish in-flight rounds but start no new ones and are
+        never sampled by gossip."""
+
 
 class HistoryRecorder(ExperimentHooks):
     """The default metrics hook: collects :class:`RoundRecord` objects
@@ -163,10 +223,33 @@ class HistoryRecorder(ExperimentHooks):
         self.records.append(record)
 
 
+class CommLog(ExperimentHooks):
+    """Optional bandwidth-accounting hook: one row per push, with the
+    link time and bytes the transport charged for it."""
+
+    def __init__(self):
+        self.rows: list[dict[str, Any]] = []
+
+    def on_push(self, system, agent_id: int, plane: str, result, t: float) -> None:
+        self.rows.append(
+            {
+                "t": t,
+                "agent_id": agent_id,
+                "plane": plane,
+                "delivered": bool(result),
+                "comm_time": getattr(result, "comm_time", 0.0),
+                "nbytes": getattr(result, "nbytes", 0),
+            }
+        )
+
+
 __all__ = [
+    "ChurnEvent",
+    "CommLog",
     "EvalPoint",
     "ExperimentHooks",
     "HistoryRecorder",
+    "HubFailure",
     "Report",
     "RoundRecord",
 ]

@@ -3,7 +3,8 @@
 :class:`ADFLLSystem` runs asynchronous decentralized federated lifelong
 learning over a pluggable topology (the paper's hub layout, hub-less
 gossip, or both), driven by the event-driven scheduler with
-heterogeneous agent speeds and communication dropout.  Agents share ERBs,
+heterogeneous agent speeds, communication dropout, agent churn, hub
+failures and population dynamics.  Agents share ERBs,
 weight snapshots (FedAsync-style staleness-discounted mixing, optionally
 int8 or top-k compressed on the wire), or both.  Link time (latency +
 bytes/rate) of every pull/push is charged to simulated time, so message
@@ -12,7 +13,10 @@ size shows up in the makespan.  Rounds are submitted to one shared
 flushes on the device (``engine="fleet"``) or after every round
 (``engine="fleet-eager"``); ``engine="stepwise"`` gives every agent its
 own state and trains each step as its own dispatch (the baseline the
-fleet is measured against).
+fleet is measured against).  Membership changes through
+:meth:`ADFLLSystem.apply_population` (cohort arrivals, availability,
+departures, hub outages), with :meth:`ADFLLSystem.schedule_churn` and
+:meth:`ADFLLSystem.schedule_hub_failures` as shims over it.
 
 The paper's Table 1 comparison rows are here too: Agent X
 (:func:`train_all_knowing`), Agent Y (:func:`train_partial`), Agent M
@@ -20,9 +24,8 @@ The paper's Table 1 comparison rows are here too: Agent X
 system (:class:`CentralAggregationSystem`), all on the fleet engine.
 
 What the port does not run yet raises ``NotImplementedError`` naming
-the slice that brings it: churn, hub failures and populations (the
-churn and hub-failure slice), multi-device fleet sharding (the
-multi-GPU slice), and enabled telemetry with the observatory.
+the slice that brings it: multi-device fleet sharding (the multi-GPU
+slice), and enabled telemetry with the observatory.
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ import torch
 from repro_torch.configs.adfll_dqn import ADFLLConfig, DQNConfig
 from repro_torch.core.erb import TaskTag, erb_init
 from repro_torch.core.experiment import (
+    ChurnEvent,
+    EvalPoint,
     ExperimentHooks,
     HistoryRecorder,
+    HubFailure,
     Report,
     RoundRecord,
 )
@@ -46,6 +52,8 @@ from repro_torch.core.network import Network
 from repro_torch.core.plane import CompressedWeightPlane, WeightPlane, staleness_alphas
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
+from repro_torch.population.compile import compile_onto
+from repro_torch.population.spec import PopulationSpec
 from repro_torch.rl.agent import DQNAgent
 from repro_torch.rl.env import LandmarkEnv
 from repro_torch.rl.fleet import FleetEngine, collect_fleet, tree_map
@@ -75,12 +83,6 @@ def evaluate_on_tasks(
         errs = [agent.evaluate(env_for(t, p, cfg), n_episodes=n_episodes) for p in pats]
         out[t.name] = float(np.mean(errs))
     return out
-
-
-_POPULATION = (
-    "churn, hub failures and populations come with the churn and "
-    "hub-failure slice of the port"
-)
 
 
 def _unsupported(sys_cfg: ADFLLConfig) -> str | None:
@@ -178,10 +180,21 @@ class ADFLLSystem:
         self._task_cursor = 0
         self._next_agent_id = 0
         self._outstanding = 0  # finish events not yet processed
+        self._pending_churn = 0  # scheduled churn events not yet applied
+        self._pending_failures = 0  # scheduled hub failures not yet applied
+        # population dynamics: availability bookkeeping (set lazily by
+        # repro_torch.population.compile_onto) and rounds deferred offline
+        self.population = None
+        self._deferred: set[int] = set()
+        # evaluation probes the runner schedules, in the order they fired
+        self.probes: list[EvalPoint] = []
+        if self.network.gossip is not None:
+            # availability view: anti-entropy never samples an offline peer
+            self.network.gossip.online = self._agent_is_online
         for i in range(sys_cfg.n_agents):
             hub = sys_cfg.agent_hub[i] if i < len(sys_cfg.agent_hub) else None
             speed = sys_cfg.agent_speed[i] if i < len(sys_cfg.agent_speed) else 1.0
-            self.add_agent(speed=speed, hub_id=hub)
+            self.add_agent(speed=speed, hub_id=hub, at=0.0)
         if sys_cfg.topology != "gossip":
             self.sched.every(
                 sys_cfg.hub_sync_period,
@@ -206,8 +219,10 @@ class ADFLLSystem:
         *,
         speed: float = 1.0,
         hub_id: int | None = None,
+        at: float | None = None,
     ) -> int:
-        """Add an agent that starts its first round now."""
+        """Add an agent that starts its first round at ``at`` (default:
+        now)."""
         aid = self._next_agent_id
         self._next_agent_id += 1
         agent = DQNAgent(
@@ -221,22 +236,107 @@ class ADFLLSystem:
         )
         self.agents[aid] = agent
         self.network.attach_agent(aid, hub_id)
-        self.sched.at(
-            self.sched.now, lambda s, t, a=aid: self._start_round(a), tag=f"A{aid}_join"
-        )
+        t = self.sched.now if at is None else at
+        if self.population is not None:
+            self.population.note_join(aid, t, speed)
+        self.sched.at(t, lambda s, tt, a=aid: self._start_round(a), tag=f"A{aid}_join")
         return aid
 
     def remove_agent(self, agent_id: int):
-        raise NotImplementedError(_POPULATION)
+        """The agent leaves: its in-flight round trains (the record
+        stays) but shares nothing, and its slot stays resident, idle."""
+        agent = self.agents[agent_id]
+        if self.engine is not None:
+            # retire the departing agent's in-flight round now so its
+            # record lands in the same history position as sequential
+            self.engine.ensure_flushed(agent.slot)
+        agent.active = False
+        self._deferred.discard(agent_id)
+        if self.population is not None:
+            self.population.note_depart(agent_id, self.sched.now)
+        self.network.detach_agent(agent_id)
 
-    def apply_population(self, pop) -> None:
-        raise NotImplementedError(_POPULATION)
+    def live_agents(self) -> dict[int, DQNAgent]:
+        return {aid: a for aid, a in self.agents.items() if a.active}
 
-    def schedule_churn(self, events) -> None:
-        raise NotImplementedError(_POPULATION)
+    # -- availability ---------------------------------------------------------
+    def set_online(self, agent_id: int, online: bool) -> None:
+        """Flip one agent's availability.  Offline agents keep in-flight
+        rounds (disconnection granularity is one round) but start no new
+        ones; coming back online resumes a round deferred while away.
+        Emits ``on_availability`` on every state *change*."""
+        agent = self.agents.get(agent_id)
+        if agent is None or not agent.active:
+            return
+        was = agent.online
+        agent.online = online
+        if self.population is not None:
+            self.population.note_toggle(agent_id, online, self.sched.now)
+        if online == was:
+            return
+        self._emit("on_availability", agent_id, online, self.sched.now)
+        if online and agent_id in self._deferred:
+            self._deferred.discard(agent_id)
+            self._start_round(agent_id)
 
-    def schedule_hub_failures(self, events) -> None:
-        raise NotImplementedError(_POPULATION)
+    def _agent_is_online(self, agent_id: int) -> bool:
+        """The gossip layer's availability view: live *and* online."""
+        agent = self.agents.get(agent_id)
+        return agent is not None and agent.active and agent.online
+
+    # -- population -----------------------------------------------------------
+    def apply_population(self, pop: PopulationSpec) -> None:
+        """Compile a :class:`~repro_torch.population.PopulationSpec` onto
+        the scheduler: cohort arrivals, availability processes,
+        departures, and hub outages all become ordinary events feeding
+        the churn machinery."""
+        compile_onto(self, pop)
+
+    def schedule_churn(self, events: Sequence[ChurnEvent]) -> None:
+        """Classic churn shim: lifts the events into a
+        :class:`~repro_torch.population.PopulationSpec` (point-arrival
+        cohorts and departures) and compiles it.  Each event fires at its
+        time and emits ``on_churn``; the run does not stop while churn
+        events are pending, so late joiners get their rounds even if the
+        incumbents finished first."""
+        if events:
+            self.apply_population(PopulationSpec.from_churn(events))
+
+    def _apply_churn(self, ev: ChurnEvent, t: float) -> list[int]:
+        self._pending_churn -= 1
+        ids: list[int] = []
+        if ev.action == "add":
+            for _ in range(ev.count):
+                ids.append(self.add_agent(speed=ev.speed, hub_id=ev.hub))
+        else:
+            for _ in range(ev.count):
+                aid = ev.agent_id
+                live = self.live_agents()
+                if aid is None:
+                    if not live:
+                        break
+                    aid = max(live)  # newest joiner leaves first
+                elif aid not in live:
+                    break  # unknown/already-departed id: nothing to remove
+                self.remove_agent(aid)
+                ids.append(aid)
+        self._emit("on_churn", ev, ids, t)
+        return ids
+
+    # -- hub failures -----------------------------------------------------------
+    def schedule_hub_failures(self, events: Sequence[HubFailure]) -> None:
+        """Classic hub-failure shim (the paper's Table 2): lifts the
+        events into hub outages and compiles them.  Bad schedules raise
+        before anything touches the scheduler; each outage kills its hub
+        at its time and emits ``on_hub_failure``.  The run does not stop
+        while failures are pending."""
+        if events:
+            self.apply_population(PopulationSpec.from_churn(hub_failures=events))
+
+    def _apply_hub_failure(self, ev: HubFailure, t: float) -> None:
+        self._pending_failures -= 1
+        orphaned = self.network.fail_hub(ev.hub_id)
+        self._emit("on_hub_failure", ev, orphaned, t)
 
     # -- round machinery --------------------------------------------------------
     def _next_task(self) -> TaskTag:
@@ -263,8 +363,14 @@ class ADFLLSystem:
         return base * jitter / agent.speed
 
     def _start_round(self, agent_id: int):
-        agent = self.agents.get(agent_id)
-        if agent is None or agent.rounds_done >= self.sys_cfg.rounds:
+        """Paper policy: a live agent starts a new round whenever rounds
+        remain."""
+        agent = self.agents[agent_id]
+        if not agent.active or agent.rounds_done >= self.sys_cfg.rounds:
+            return
+        if not agent.online:
+            # offline: park the round; set_online(True) resumes it
+            self._deferred.add(agent_id)
             return
         task = self._next_task()
         self._emit("on_round_start", agent_id, task, self.sched.now)
@@ -321,13 +427,19 @@ class ADFLLSystem:
 
         def finish(s: Scheduler, t: float, aid=agent_id, erb=shared):
             self._outstanding -= 1
+            # an agent removed mid-round shares nothing: its untrained round
+            # is lost (the paper's failure semantics), and it is no longer
+            # attached to any hub or gossip store anyway
+            a = self.agents[aid]
+            if not a.active:
+                return
             comm_out = 0.0
             if self.use_erb:
                 res = self.network.agent_push(aid, erb)
                 comm_out += res.comm_time
                 self._emit("on_push", aid, "erb", res, t)
             if self.use_weights:
-                snap = self.agents[aid].snapshot_params(t)
+                snap = a.snapshot_params(t)
                 res = self.network.agent_push(aid, snap, plane="weights")
                 comm_out += res.comm_time
                 self._emit("on_push", aid, "weights", res, t)
@@ -335,11 +447,11 @@ class ADFLLSystem:
                 # the upload occupies the agent's link before its next round
                 s.at(
                     t + comm_out,
-                    lambda s2, t2, a2=aid: self._maybe_continue(a2),
+                    lambda s2, t2, a2=aid: self._start_round(a2),
                     tag=f"A{aid}_push_done",
                 )
             else:
-                self._maybe_continue(aid)
+                self._start_round(aid)
 
         self._outstanding += 1
         self.sched.at(end, finish, tag=f"A{agent_id}_round_done")
@@ -368,18 +480,17 @@ class ADFLLSystem:
         )
         return agent.mix_params(snaps, alphas), res.comm_time
 
-    def _maybe_continue(self, agent_id: int):
-        """Paper policy: start a new round whenever rounds remain."""
-        agent = self.agents.get(agent_id)
-        if agent is None or agent.rounds_done >= self.sys_cfg.rounds:
-            return
-        self._start_round(agent_id)
-
     # -- run ------------------------------------------------------------------
     def run(self, until: float = 1e6) -> Report:
         def done() -> bool:
-            return self._outstanding == 0 and all(
-                a.rounds_done >= self.sys_cfg.rounds for a in self.agents.values()
+            return (
+                self._outstanding == 0
+                and self._pending_churn == 0
+                and self._pending_failures == 0
+                and all(
+                    a.rounds_done >= self.sys_cfg.rounds
+                    for a in self.live_agents().values()
+                )
             )
 
         t = self.sched.run(until=until, stop=done)
@@ -403,6 +514,8 @@ class ADFLLSystem:
                 "delivered": st.n_delivered,
                 "dropped": st.n_dropped,
             }
+        if self.population is not None:
+            extra["population"] = self.population.summary(float(makespan))
         return Report(
             system="adfll",
             seed=self.seed,
@@ -430,8 +543,8 @@ class ADFLLSystem:
         max_patients: int | None = 4,
         n_episodes: int = 4,
     ) -> dict[str, dict[str, float]]:
-        """Per-agent mean terminal distance per task (labels follow the
-        paper's 1-based numbering: agent 0 is ``"Agent1"``)."""
+        """Per-live-agent mean terminal distance per task (labels follow
+        the paper's 1-based numbering: agent 0 is ``"Agent1"``)."""
         return {
             f"Agent{aid + 1}": evaluate_on_tasks(
                 agent,
@@ -441,7 +554,7 @@ class ADFLLSystem:
                 max_patients=max_patients,
                 n_episodes=n_episodes,
             )
-            for aid, agent in sorted(self.agents.items())
+            for aid, agent in sorted(self.live_agents().items())
         }
 
 

@@ -252,6 +252,9 @@ class GossipTopology:
     :class:`BandwidthMeter`; with a scheduler attached, a record lands at
     ``now + latency + nbytes / rate``, so large payloads propagate later
     in simulated time.
+
+    Unlike the hub topology, a departing agent takes its local store
+    with it: knowledge survives only if it has already gossiped out.
     """
 
     def __init__(
@@ -263,6 +266,7 @@ class GossipTopology:
         meter: BandwidthMeter | None = None,
         rng: np.random.Generator | None = None,
         site_links: SiteLinks | None = None,
+        online: Callable[[int], bool] | None = None,
     ):
         self.planes = planes  # shared registry (same dict as Network.planes)
         self.sampler = sampler
@@ -272,13 +276,22 @@ class GossipTopology:
         self.rng = rng if rng is not None else np.random.default_rng(0)
         self.stores: dict[int, dict[str, dict[str, Any]]] = {}
         self.stats = GossipStats()
+        # availability view (population dynamics): when set, anti-entropy
+        # rounds run over online agents only — an offline peer is neither
+        # sampled nor initiates an exchange.  Its local store stays put (a
+        # mailbox for in-flight deliveries); None = everyone reachable.
+        self.online = online
 
     # -- membership ---------------------------------------------------------
     def add_agent(self, agent_id: int) -> None:
         self.stores.setdefault(agent_id, {})
 
+    def remove_agent(self, agent_id: int) -> None:
+        self.stores.pop(agent_id, None)
+
     def local_store(self, agent_id: int, plane: str) -> dict[str, Any]:
-        """The agent's own store for one plane ({} for an unknown agent)."""
+        """The agent's own store for one plane ({} if the agent has left —
+        never re-created, so departed agents stay departed)."""
         agent = self.stores.get(agent_id)
         if agent is None:
             return {}
@@ -306,15 +319,22 @@ class GossipTopology:
         each record is delivered by a future event at its link transfer
         time; without one, delivery is immediate.  Returns the number of
         records put on the wire.
+
+        With an ``online`` view attached, the round runs over currently
+        online agents only: offline peers are invisible to the sampler.
         """
         t = sched.now if sched is not None else now
         self.sampler.new_round(t)
         self.stats.n_rounds += 1
         ids = sorted(self.stores)
+        if self.online is not None:
+            ids = [a for a in ids if self.online(a)]
         sent = 0
         done_pairs = set()  # an exchange is push-pull: reconcile a pair once
         for aid in ids:
             for peer in self.sampler.peers(aid, ids):
+                if peer not in self.stores:
+                    continue
                 pair = (min(aid, peer), max(aid, peer))
                 if pair in done_pairs:
                     continue
@@ -359,6 +379,8 @@ class GossipTopology:
         return sent
 
     def _deliver(self, dst: int, rec: Any, plane_name: str) -> bool:
+        if dst not in self.stores:  # agent left while the record was in flight
+            return False
         plane = self.planes[plane_name]
         if plane.admit(self.local_store(dst, plane_name), rec):
             self.stats.n_delivered += 1

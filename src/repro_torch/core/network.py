@@ -1,4 +1,4 @@
-"""Pluggable topology: hub/agent routing and hub-less gossip.
+"""Pluggable topology: hub/agent routing, hub-less gossip, failure injection.
 
 Three topologies share one transport API (``agent_push`` / ``agent_pull``
 / ``sync``):
@@ -21,8 +21,9 @@ edge (``plane.encode``), and every hub-link message is priced by the
 :meth:`Network.configure_sites`) and accounted on the shared
 :class:`~repro_torch.core.gossip.BandwidthMeter`.  Each push/pull returns
 a :class:`PushResult` / :class:`PullResult` carrying the records plus the
-link time and bytes it cost.  Hub failure and agent departure come with
-the churn and hub-failure slice of the port.
+link time and bytes it cost.  Dropout, hub liveness, and hub-hub sync
+apply to all planes uniformly; :meth:`Network.fail_hub` kills a hub and
+re-homes its agents while any hub lives.
 """
 
 from __future__ import annotations
@@ -137,8 +138,9 @@ class Network:
         return plane
 
     def attach_agent(self, agent_id: int, hub_id: int | None = None):
-        """New agents attach to the least-loaded hub by default; under
-        pure ``gossip`` they join the overlay only (which must exist)."""
+        """New agents attach to the least-loaded live hub by default;
+        under pure ``gossip`` they join the overlay only (which must
+        exist)."""
         if self.gossip is not None:
             self.gossip.add_agent(agent_id)
         if self.topology == "gossip":
@@ -148,11 +150,24 @@ class Network:
                 )
             return
         if hub_id is None:
-            loads = {h.hub_id: 0 for h in self.hubs}
+            loads = {h.hub_id: 0 for h in self.hubs if h.alive}
+            if not loads:
+                # every hub is dead: the joiner stays detached (hub
+                # uploads drop, pulls return nothing) — same orphan
+                # semantics as re-homing after a total failure
+                return
             for hid in self.agent_hub.values():
-                loads[hid] += 1
+                if hid in loads:
+                    loads[hid] += 1
             hub_id = min(loads, key=lambda k: (loads[k], k))
         self.agent_hub[agent_id] = hub_id
+
+    def detach_agent(self, agent_id: int):
+        self.agent_hub.pop(agent_id, None)
+        if self.gossip is not None:
+            self.gossip.remove_agent(agent_id)
+        for plane in self.planes.values():
+            plane.forget_agent(agent_id)
 
     def hub_of(self, agent_id: int) -> Hub:
         return self.hubs[self.agent_hub[agent_id]]
@@ -174,7 +189,13 @@ class Network:
         # consistent with what some store actually received)
         hub_up = False
         if self.topology != "gossip":
-            if self.dropout > 0.0 and self.rng.random() < self.dropout:
+            if agent_id not in self.agent_hub:
+                # orphaned by hub failure with no survivor to re-home to:
+                # the upload is lost (hybrid still lands it on gossip)
+                self.n_dropped += 1
+            elif self.dropout > 0.0 and self.rng.random() < self.dropout:
+                self.n_dropped += 1
+            elif not self.hub_of(agent_id).alive:
                 self.n_dropped += 1
             else:
                 hub_up = True
@@ -204,14 +225,15 @@ class Network:
         Local gossip copies are free (their wire cost was paid at
         anti-entropy delivery), so under ``hybrid`` the hub leg only
         downloads — and only prices — records the agent does not already
-        hold locally."""
+        hold locally; an orphan (no live hub to re-home to) has no hub
+        leg."""
         pl = self.planes[plane]
         local: list[Any] = []
         if self.gossip is not None:
             local = self.gossip.pull_local(agent_id, seen, plane)
         out: list[Any] = []
         comm, nbytes_total = 0.0, 0
-        if self.topology != "gossip":
+        if self.topology != "gossip" and agent_id in self.agent_hub:
             skip = set(seen) | {pl.key(e) for e in local}
             pulled = self.hub_of(agent_id).pull_unseen(skip, plane)
             if self.dropout > 0.0:
@@ -239,6 +261,22 @@ class Network:
         )
         self.n_synced += n
         return n
+
+    # -- failures ------------------------------------------------------------
+    def fail_hub(self, hub_id: int) -> list[int]:
+        """Kill a hub; returns the agents it stranded.
+
+        Orphans re-home to the least-loaded surviving hub when one
+        exists.  With every hub dead they stay detached: hub uploads are
+        lost and hub pulls return nothing — under ``hybrid`` the gossip
+        overlay keeps carrying their records (the Table 2 failover)."""
+        self.hubs[hub_id].fail()
+        orphaned = sorted(a for a, hid in self.agent_hub.items() if hid == hub_id)
+        for a in orphaned:
+            del self.agent_hub[a]
+            if any(h.alive for h in self.hubs):
+                self.attach_agent(a)
+        return orphaned
 
     def all_known(self, plane: str = "erb") -> set[str]:
         ids: set[str] = set()

@@ -1,9 +1,12 @@
 """Where the main path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.experiments.profile
+    PYTHONPATH=src python -m repro_torch.experiments.profile [--scenario flash_crowd]
 
-Profiles the run ``chip_smoke.py`` drives: ``paper_fig2 --fast`` with
-the full DQN width ``DQNConfig()``.  The scenario runs on the CUDA card
+Profiles a run ``chip_smoke.py`` drives at the full DQN width
+``DQNConfig()``: ``paper_fig2 --fast`` (the default), or ``flash_crowd``
+at its full population of 4 + 200 agents with ``--fast``'s train steps
+and the population phase's evaluation cut (one patient, one task).  The
+scenario runs on the CUDA card
 from one seed three times: a warm-up, a plain run for the wall times,
 and a run under ``torch.profiler`` (CPU + CUDA activities) for the
 device side.  Prints one JSON object with, for the training run
@@ -13,13 +16,15 @@ sum of CUDA kernel and memcpy time the profiler saw), the idle share
 ``1 - busy / profiled wall`` (both from the profiled window), the device
 operations launched, and the ten kernels with the most device time.  A
 third section profiles eight stacked train steps alone
-(``FleetSteps.train_chunk`` for the scenario's agents on a random pool):
+(``FleetSteps.train_chunk`` for as many agents as the run's widest flush
+on a random pool):
 the median unprofiled wall of a step over ten chunks, then, from one
 profiled chunk, wall and device time and device operations per step.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -37,6 +42,12 @@ from repro_torch.experiments.runner import build, evaluate_into
 from repro_torch.rl.fleet import FleetSteps
 
 ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+# the profiled scenarios and their cuts (chip_smoke.py's main and
+# population phases): flash_crowd keeps its full population
+SCENARIOS = {
+    "paper_fig2": {},
+    "flash_crowd": dict(fast_population_scale=1.0, eval_patients=1, eval_tasks=1),
+}
 
 
 def device_summary(prof, wall_s: float) -> dict:
@@ -102,9 +113,10 @@ def _profile_steps(cfg: DQNConfig, n_agents: int, k_steps: int = 8) -> dict:
     }
 
 
-def profile_main_path() -> dict:
-    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
-    out = {"scenario": "paper_fig2 --fast, dqn=DQNConfig()"}
+def profile_main_path(name: str = "paper_fig2") -> dict:
+    cuts = SCENARIOS[name]
+    spec = replace(get_scenario(name), dqn=DQNConfig(), **cuts).fast()
+    out = {"scenario": f"{name} --fast, dqn=DQNConfig()", "cuts": cuts}
     # a warm-up run (first-use costs: cuDNN setup, lazy loading), then a
     # plain one for the wall times without the profiler's host overhead
     for _ in range(2):
@@ -124,13 +136,16 @@ def profile_main_path() -> dict:
         **device_summary(prof_run, prun_s),
     }
     out["eval"] = {"wall_s": eval_s, **device_summary(prof_eval, peval_s)}
-    out["step"] = _profile_steps(spec.dqn, spec.sys.n_agents)
+    out["step"] = _profile_steps(spec.dqn, max(system.engine.flush_sizes))
     out["mean_dist_err"] = report.mean_dist_err
     return out
 
 
-def main() -> int:
-    result = profile_main_path()
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.experiments.profile")
+    ap.add_argument("--scenario", choices=sorted(SCENARIOS), default="paper_fig2")
+    args = ap.parse_args(argv)
+    result = profile_main_path(args.scenario)
     result["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(result))
     return 0

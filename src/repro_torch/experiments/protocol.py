@@ -48,6 +48,7 @@ class SupportsChurn(Protocol):
         *,
         speed: float = 1.0,
         hub_id: int | None = None,
+        at: float | None = None,
     ) -> int: ...
 
     def remove_agent(self, agent_id: int) -> None: ...

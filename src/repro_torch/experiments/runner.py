@@ -5,8 +5,9 @@ scenario: it resolves the named spec, mirrors ``spec.seed`` into the
 system config (one seed, every stream derived), builds the system the
 spec names on ``device`` (``None`` = the CUDA card) — the ADFLL
 deployment, synchronous FedAvg, or one of the Table 1 baseline agents —
-runs it, and folds the final evaluation into the
-:class:`~repro_torch.core.experiment.Report`.
+wires churn schedules, hub failures, populations and evaluation probes
+into the ADFLL system, runs it, and folds the probes and the final
+evaluation into the :class:`~repro_torch.core.experiment.Report`.
 """
 
 from __future__ import annotations
@@ -26,11 +27,6 @@ from repro_torch.experiments.systems import BaselineSystem
 from repro_torch.rl.synth import all_tasks, paper_eight_tasks, patient_split
 
 SpecLike = str | ScenarioSpec
-
-# the reference's scenario dynamics; the port's spec gains these fields
-# with the churn and hub-failure slice, and a spec that carries them is
-# refused rather than run without them
-_DYNAMICS = ("churn", "hub_failures")
 
 
 def resolve(
@@ -53,6 +49,47 @@ def _tasks_for(spec: ScenarioSpec) -> list:
     return tasks
 
 
+def _eval_tasks_for(spec: ScenarioSpec) -> list:
+    tasks = _tasks_for(spec)
+    return tasks if spec.eval_tasks is None else tasks[: spec.eval_tasks]
+
+
+def _eval_point(system: System, spec: ScenarioSpec, t: float) -> EvalPoint:
+    _, test_p = patient_split(spec.n_patients)
+    errors = system.evaluate(
+        _eval_tasks_for(spec),
+        test_p,
+        max_patients=spec.eval_patients,
+        n_episodes=spec.eval_episodes,
+    )
+    per_agent = {
+        label: float(np.mean(list(errs.values()))) for label, errs in errors.items()
+    }
+    mean = float(np.mean(list(per_agent.values()))) if per_agent else float("nan")
+    return EvalPoint(t=t, n_agents=len(per_agent), mean_err=mean, per_agent=per_agent)
+
+
+def _schedule_probes(system: ADFLLSystem, spec: ScenarioSpec) -> None:
+    """Evaluation probes at each churn/hub-failure/population event time
+    (before the event applies: scheduler ties break by insertion order,
+    and these are registered first), collected in ``system.probes``."""
+    if not spec.eval_at_churn:
+        return
+
+    def probe(sched, t: float) -> None:
+        point = _eval_point(system, spec, t)
+        system.probes.append(point)
+        system._emit("on_eval", point)
+
+    times = {ev.at for ev in spec.churn} | {ev.at for ev in spec.hub_failures}
+    if spec.population is not None:
+        # probe at each membership event; t=0 is just the incumbents
+        # arriving — there is nothing to evaluate before them
+        times |= {t for t in spec.population.event_times() if t > 0.0}
+    for at in sorted(times):
+        system.sched.at(at, probe, tag="eval_probe")
+
+
 def build(
     spec: SpecLike,
     *,
@@ -66,17 +103,17 @@ def build(
     tasks = _tasks_for(spec)
     train_p, _ = patient_split(spec.n_patients)
     sys_cfg = replace(spec.sys, seed=spec.seed)  # one seed, every stream
-    dynamics = [f for f in _DYNAMICS if getattr(spec, f, None)]
-    if dynamics and spec.system == "adfll":
-        raise NotImplementedError(
-            f"{spec.name}: repro_torch does not run {'/'.join(dynamics)} yet "
-            "(the churn and hub-failure slice)"
-        )
-    if spec.system != "adfll" and (dynamics or spec.agent_sites):
+    if spec.system != "adfll" and (
+        spec.churn or spec.agent_sites or spec.hub_failures
+    ):
         raise ValueError(
             f"{spec.name}: {spec.system} supports no churn/sites/hub failures"
         )
     if spec.system == "adfll":
+        if spec.population is not None:
+            # every agent arrives through a cohort (arrive_at=0 cohorts
+            # are the incumbents): the system starts empty
+            sys_cfg = replace(sys_cfg, n_agents=0, agent_hub=(), agent_speed=())
         system = ADFLLSystem(
             sys_cfg, spec.dqn, tasks, train_p, hooks=hooks, device=device
         )
@@ -87,6 +124,12 @@ def build(
                 intra=spec.intra_link,
                 inter=spec.inter_link,
             )
+        if spec.churn or spec.hub_failures or spec.population is not None:
+            _schedule_probes(system, spec)
+        system.schedule_churn(spec.churn)
+        system.schedule_hub_failures(spec.hub_failures)
+        if spec.population is not None:
+            system.apply_population(spec.population)
         return system
     if spec.system == "fedavg":
         return CentralAggregationSystem(
@@ -118,32 +161,31 @@ def build(
 
 
 def evaluate_into(report: Report, system: System, spec: ScenarioSpec) -> Report:
-    """Fill the report's evaluation fields from ``system.evaluate``."""
-    tasks = _tasks_for(spec)
-    eval_tasks = tasks if spec.eval_tasks is None else tasks[: spec.eval_tasks]
+    """Fill the report's evaluation fields from ``system.evaluate``: the
+    final point, after the probes that fired during the run."""
     _, test_p = patient_split(spec.n_patients)
     report.scenario = spec.name
     report.seed = spec.seed
     report.task_errors = system.evaluate(
-        eval_tasks,
+        _eval_tasks_for(spec),
         test_p,
         max_patients=spec.eval_patients,
         n_episodes=spec.eval_episodes,
     )
     means = report.agent_means()
-    vals = list(means.values())
+    vals = list(means.values())  # empty if churn removed every agent
     report.mean_dist_err = float(np.mean(vals)) if vals else float("nan")
     report.best_agent_err = float(np.min(vals)) if vals else float("nan")
     report.eval_patients = spec.eval_patients
     report.eval_episodes = spec.eval_episodes
-    report.eval_curve = [
-        EvalPoint(
-            t=report.makespan,
-            n_agents=len(means),
-            mean_err=report.mean_dist_err,
-            per_agent=means,
-        )
-    ]
+    final = EvalPoint(
+        t=report.makespan,
+        n_agents=len(means),
+        mean_err=report.mean_dist_err,
+        per_agent=means,
+    )
+    probes = system.probes if isinstance(system, ADFLLSystem) else []
+    report.eval_curve = [*probes, final]
     return report
 
 

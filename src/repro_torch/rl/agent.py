@@ -79,6 +79,8 @@ class DQNAgent:
         self.seen_erb_ids: set = set()
         self.seen_snap_ids: set = set()
         self.rounds_done = 0
+        self.active = True  # False once the agent has left the system
+        self.online = True  # availability (population dynamics)
         self.n_picks_gathered = 0
         self.sampler = SelectiveReplaySampler()
 

@@ -4,13 +4,14 @@
   Y partial, M sequential lifelong) across 5 seeds, paired significance
   against ADFLL: the reproduction of the paper's headline p = 0.01
   claim (7.81 vs. 15.17 mean distance error).
+* ``paper_table2_hub_failure`` — the Table 2 robustness comparison: a
+  no-failure control against hub death mid-training, total hub death
+  and hybrid gossip failover, across 5 seeds.
 * ``ci_smoke`` — a 2-seed, override-shrunk grid (hub ERB plane vs
   gossip) under per-cell wall-time budgets; CI's sweep-smoke step runs
   it ``--fast``.
 
-The reference's ``paper_table2_hub_failure`` (hub failures) comes with
-the churn and hub-failure slice.  Like scenarios, adding a sweep means
-registering a frozen spec.
+Like scenarios, adding a sweep means registering a frozen spec.
 """
 
 from __future__ import annotations
@@ -58,6 +59,24 @@ register_sweep(
         ),
         seeds=(0, 1, 2, 3, 4),
         baseline="adfll",
+        cell_budget_s=1800.0,
+    )
+)
+
+register_sweep(
+    SweepSpec(
+        name="paper_table2_hub_failure",
+        description="Table 2 robustness: no-failure control vs hub death "
+        "mid-training (re-homed), total hub death (pure hub, sharing "
+        "lost) and hybrid gossip failover",
+        variants=(
+            SweepVariant("control", "paper_fig2"),
+            SweepVariant("hub_failure", "paper_table2_hub_failure"),
+            SweepVariant("total_failure", "paper_table2_total_failure"),
+            SweepVariant("hybrid_failover", "paper_table2_hybrid_failover"),
+        ),
+        seeds=(0, 1, 2, 3, 4),
+        baseline="control",
         cell_budget_s=1800.0,
     )
 )

@@ -43,6 +43,7 @@ from repro_torch.convert import (  # noqa: E402
 )
 from repro_torch.core import erb as port_erb  # noqa: E402
 from repro_torch.core import federated as port_fed  # noqa: E402
+from repro_torch.core.experiment import ChurnEvent  # noqa: E402
 from repro_torch.core.lifelong import LifelongTrainer  # noqa: E402
 from repro_torch.experiments import SupportsChurn, System  # noqa: E402
 from repro_torch.experiments import __main__ as cli  # noqa: E402
@@ -279,15 +280,13 @@ def test_unported_options_and_spec_validation():
     with pytest.raises(ValueError, match="unknown task_set"):
         ScenarioSpec(name="x", task_set="some")
 
-    # a spec that carries a churn schedule (a field of a later slice)
-    @dataclasses.dataclass(frozen=True)
-    class ChurnSpec(ScenarioSpec):
-        churn: tuple = ("add at t=1",)
-
+    # a spec that carries a churn schedule: only the ADFLL system churns
+    churn = (ChurnEvent(at=1.0, action="add"),)
     with pytest.raises(ValueError, match="supports no churn"):
-        build(ChurnSpec(name="c", system="partial", dqn=CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="churn"):
-        build(ChurnSpec(name="c", dqn=CFG), device="cpu")
+        partial = ScenarioSpec(name="c", system="partial", dqn=CFG, churn=churn)
+        build(partial, device="cpu")
+    churned = build(ScenarioSpec(name="c", dqn=CFG, churn=churn), device="cpu")
+    assert isinstance(churned, SupportsChurn) and churned._pending_churn == 1
 
 
 @pytest.fixture
@@ -342,9 +341,17 @@ def test_cli_lists_the_scenarios(capsys):
         "baseline_all_knowing",
         "baseline_partial",
         "baseline_sequential",
+        "churn_addition_fig4",
+        "churn_deletion_fig5",
         "fedavg_sync",
+        "flash_crowd",
         "gossip_hetero",
+        "hospital_diurnal",
+        "long_tail_stragglers",
         "paper_fig2",
+        "paper_table2_hub_failure",
+        "paper_table2_hybrid_failover",
+        "paper_table2_total_failure",
         "plane_erb_only",
         "plane_hybrid",
         "plane_weight_only",

@@ -12,6 +12,11 @@ imports JAX, so the tests run where the card is.
 * the fleet's main path (``paper_fig2``): card against CPU from one init
   (the port's own, drawn on the host), round 0 within 1e-4 and the same
   round metadata throughout.
+* churn and a hub failure on ``paper_fig2``: two agents join mid-run
+  (the resident axis grows 4 -> 8), hub 2 dies and its agents re-home,
+  then the newest agent leaves; one ``replay_gather`` and one
+  ``fused_td`` launch per stacked step, the CPU run's round metadata,
+  round 0 within 1e-4.
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
@@ -25,6 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
+from repro_torch.core.experiment import ChurnEvent, HubFailure  # noqa: E402
 from repro_torch.experiments import registry  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td  # noqa: E402
@@ -106,4 +112,30 @@ def test_stepwise_trains_through_the_kernels_on_card(cuda):
 def test_fleet_round_zero_card_matches_cpu(cuda):
     (_, cpu), (system, card) = _card_and_cpu(_tiny("paper_fig2"), cuda)
     assert replay_gather.launches == fused_td.launches == system.engine.n_chunk_steps
+    _same_rounds(cpu, card)
+
+
+@pytest.mark.cuda
+def test_churn_and_hub_failure_train_through_the_kernels_on_card(cuda):
+    spec = dataclasses.replace(
+        _tiny("paper_fig2"),
+        churn=(
+            ChurnEvent(at=0.5, action="add", count=2),
+            ChurnEvent(at=1.2, action="remove"),
+        ),
+        hub_failures=(HubFailure(at=0.9, hub_id=2),),
+    )
+    (cpu_sys, cpu), (system, card) = _card_and_cpu(spec, cuda)
+    assert replay_gather.launches == fused_td.launches == system.engine.n_chunk_steps
+    assert system.engine.capacity == 8 and sorted(system.live_agents()) == [
+        0,
+        1,
+        2,
+        3,
+        4,
+    ]
+    assert not system.network.hubs[2].alive
+    assert [(p.t, p.n_agents) for p in card.eval_curve] == [
+        (p.t, p.n_agents) for p in cpu.eval_curve
+    ]
     _same_rounds(cpu, card)

@@ -127,7 +127,11 @@ def test_sweep_spec_validation():
 
 
 def test_table1_sweep_is_the_references():
-    assert [s.name for s in list_sweeps()] == ["ci_smoke", "paper_table1_sweep"]
+    assert [s.name for s in list_sweeps()] == [
+        "ci_smoke",
+        "paper_table1_sweep",
+        "paper_table2_hub_failure",
+    ]
     ours, ref = get_sweep("paper_table1_sweep"), jax_sweeps.get_sweep(
         "paper_table1_sweep"
     )

@@ -103,10 +103,10 @@ def test_unported_options_raise():
     port = ADFLLSystem(
         ADFLLConfig(**SYS_KW), cfg, paper_eight_tasks(), TRAIN_P, device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="churn and hub-failure slice"):
-        port.schedule_churn(())
-    with pytest.raises(NotImplementedError, match="churn and hub-failure slice"):
-        port.schedule_hub_failures(())
+    # churn and hub failures are ported: empty schedules schedule nothing
+    port.schedule_churn(())
+    port.schedule_hub_failures(())
+    assert port._pending_churn == port._pending_failures == 0
     # the weight plane and the stepwise engine are ported: nothing raises
     assert port.agents[0].mix_params((), ()) == 0
     ADFLLSystem(
