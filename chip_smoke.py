@@ -77,7 +77,20 @@ non-zero exit code and no result line:
    step, every joined agent's rounds (agents x rounds), finite errors
    at every probe.  Then ``paper_table2_hub_failure`` through the sweep
    runner as in phase 7 (``--fast``, seeds 0 and 1, 8 cells).
-12. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
+12. serve — the localization serving plane (train-while-serve) at
+   ``DQNConfig()``, launches read around each run alone: (a)
+   ``serve_localization --fast`` through the port's runner (2 agents, 32
+   requests, ``max_batch`` 8, two waves around one round of 8 steps):
+   every request answered, a finite error, no new act shape after
+   warmup, a hot swap, versions {0, 1}, one launch of each fleet kernel
+   per stacked step; (b) one ``build_session`` (4 agents, 128 requests,
+   2 waves around one round of 20 steps) served at ``max_batch`` 1 and
+   16 from identical seeds: every request's final voxel, ticks and
+   pinned version identical, 20 launches of each fleet kernel in each,
+   requests/s, p50/p99 latency and ticks per request side by side; (c)
+   ``ActSteps`` on 16 requests batched against each dispatched alone on
+   the card (max |dq| printed), and against the CPU (within 1e-4).
+13. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
@@ -87,11 +100,11 @@ non-zero exit code and no result line:
    by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
    rmsnorm's cases cover both of its routes (``cta``, ``masked``), and
    each must move its route's launch count.
-13. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
+14. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
    agree within 1e-4.
-14. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
+15. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
    h2o-danube-3-4b in bfloat16, random weights drawn on the card from
    seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
    the prefill and decode alone (24 ``flash_attention``, all on the
@@ -102,9 +115,9 @@ non-zero exit code and no result line:
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
-paths (main, baselines, sweep, topology, population, table2_sweep) and
-the stepwise path: their entries carry ``launches_by_path`` and
-``launches`` is its sum.
+paths (main, baselines, sweep, topology, population, serve,
+table2_sweep) and the stepwise path: their entries carry
+``launches_by_path`` and ``launches`` is its sum.
 """
 
 from __future__ import annotations
@@ -147,7 +160,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import Model, forward, logits_fn  # noqa: E402
 from repro_torch.models.rope import positions_for  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
-from repro_torch.rl.fleet import FleetSteps, tree_map  # noqa: E402
+from repro_torch.rl.dqn import dqn_init  # noqa: E402
+from repro_torch.rl.fleet import ActSteps, FleetSteps, tree_map  # noqa: E402
+from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): bf16 on the
@@ -945,6 +960,190 @@ def phase_population(dev) -> dict[str, int]:
     return total
 
 
+def serve_batching_run(dev, max_batch: int) -> dict:
+    """Phase 12 (b): one train-while-serve session at ``DQNConfig()``, 4
+    agents, 128 requests in 2 waves around one round of 20 steps."""
+    traffic = TrafficSpec(
+        n_requests=128,
+        max_batch=max_batch,
+        n_version_slots=2,
+        max_staleness=1,
+        seed=0,
+    )
+    session = build_session(
+        DQNConfig(), n_agents=4, traffic=traffic, seed=0, device=dev
+    )
+    reset_launches()
+    t0 = time.perf_counter()
+    report = run_session(session, traffic, n_waves=2, train_steps=20)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    s = report.summary()
+    results = session.service.results
+    return {
+        "summary": {
+            "max_batch": max_batch,
+            "wall_s": wall_s,
+            **{
+                k: s[k]
+                for k in (
+                    "n_requests",
+                    "requests_per_sec",
+                    "p50_latency_ms",
+                    "p99_latency_ms",
+                    "ticks_per_request",
+                    "n_ticks",
+                    "n_swaps",
+                    "versions_served",
+                    "recompiles",
+                    "mean_dist_err",
+                )
+            },
+            "service_ticks_per_request": s["n_ticks"] / s["n_requests"],
+            "buckets_dispatched": sorted(set(report.batch_sizes)),
+            "stacked_steps": session.engine.n_chunk_steps,
+            "launches": launches,
+        },
+        "per_request": [
+            (results[i].final_loc.tolist(), results[i].n_ticks, results[i].version)
+            for i in sorted(results)
+        ],
+    }
+
+
+def check_act_steps(dev) -> dict:
+    """Phase 12 (c): 16 requests on a 2-version ring of 4 agents at
+    ``DQNConfig()`` (params drawn on the host), batched against each
+    request dispatched alone on the card, and the batch on the CPU."""
+    cfg = DQNConfig()
+    rng = np.random.default_rng(6)
+    gen = torch.Generator().manual_seed(6)
+    inits = [dqn_init(cfg, gen) for _ in range(8)]
+    ring = tree_map(lambda *xs: torch.stack(xs), *inits)
+    b = 16
+    host = (
+        torch.tensor(rng.integers(0, 8, b)),
+        torch.tensor(rng.standard_normal((b, *cfg.box_size)), dtype=torch.float32),
+        torch.tensor(rng.random((b, 3)), dtype=torch.float32),
+    )
+    card = ActSteps(cfg, dev)
+    ring_d, (slot, obs, loc) = tree_to(ring, dev), (t.to(dev) for t in host)
+    actions, q = card.act(ring_d, slot, obs, loc)
+    alone = [
+        card.act(ring_d, slot[i : i + 1], obs[i : i + 1], loc[i : i + 1])
+        for i in range(b)
+    ]
+    cpu_actions, cpu_q = ActSteps(cfg, "cpu").act(ring, *host)
+    torch.cuda.synchronize()
+    q_alone = torch.cat([qi for _, qi in alone])
+    a_alone = torch.cat([ai for ai, _ in alone])
+    return {
+        "requests": b,
+        "batched_vs_alone_max_abs_dq": float((q_alone - q).abs().max()),
+        "batched_vs_alone_actions_equal": bool(torch.equal(a_alone, actions)),
+        "card_vs_cpu_max_abs_dq": float((q.cpu() - cpu_q).abs().max()),
+        "card_vs_cpu_actions_equal": bool(torch.equal(actions.cpu(), cpu_actions)),
+    }
+
+
+def phase_serve(dev) -> dict[str, int]:
+    """The serving plane at full width: the scenario, batched against
+    single serving of one session, and the act program alone."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(FLEET_KERNELS, 0)
+    # (a) the scenario through the port's runner
+    spec = replace(get_scenario("serve_localization"), dqn=DQNConfig()).fast()
+    system, report, launches, run_s, eval_s = timed_run(spec, dev)
+    engine = system.session.engine
+    s = report.extra["serve"]
+    emit(
+        {
+            "phase": "serve",
+            "scenario": "serve_localization --fast, dqn=DQNConfig()",
+            "cuts": "none",
+            "mean_dist_err": report.mean_dist_err,
+            "run_s": run_s,
+            "eval_s": eval_s,
+            "serve": s,
+            "agent_steps": engine.n_steps_trained,
+            "stacked_steps": engine.n_chunk_steps,
+            "launches": launches,
+        }
+    )
+    n_requests = spec.serve_traffic.n_requests
+    require(
+        s["n_requests"] == n_requests == 32,
+        f"serve: {s['n_requests']} of {n_requests} requests answered",
+    )
+    require(bool(np.isfinite(report.mean_dist_err)), "serve: error not finite")
+    require(s["recompiles"] == 0, f"serve: {s['recompiles']} new act shapes")
+    require(s["n_swaps"] >= 1, "serve: no hot swap")
+    require(
+        set(s["versions_served"]) == {"0", "1"},
+        f"serve: versions served {s['versions_served']}",
+    )
+    require(engine.n_chunk_steps == 8, f"serve: {engine.n_chunk_steps} stacked steps")
+    for k in FLEET_KERNELS:
+        require(
+            launches[k] == engine.n_chunk_steps,
+            f"serve: {k} launched {launches[k]} times for "
+            f"{engine.n_chunk_steps} stacked steps",
+        )
+        total[k] += launches[k]
+
+    # (b) one session served one request at a time, then batched
+    single, batched = serve_batching_run(dev, 1), serve_batching_run(dev, 16)
+    differ = [
+        i
+        for i, (x, y) in enumerate(
+            zip(single["per_request"], batched["per_request"], strict=True)
+        )
+        if x != y
+    ]
+    emit(
+        {
+            "phase": "serve_batching",
+            "session": "build_session(DQNConfig(), n_agents=4), 128 requests, "
+            "2 waves, 20 train steps",
+            "single": single["summary"],
+            "batched": batched["summary"],
+            "batched_over_single_requests_per_sec": batched["summary"][
+                "requests_per_sec"
+            ]
+            / single["summary"]["requests_per_sec"],
+            "requests_differing": differ,
+        }
+    )
+    require(not differ, f"serve: batched and single differ at requests {differ}")
+    for run in (single, batched):
+        summary = run["summary"]
+        require(summary["n_requests"] == 128, f"serve: {summary['n_requests']} served")
+        require(
+            summary["recompiles"] == 0 and summary["n_swaps"] == 1,
+            f"serve: {summary['recompiles']} new shapes, {summary['n_swaps']} swaps",
+        )
+        for k in FLEET_KERNELS:
+            require(
+                summary["launches"][k] == summary["stacked_steps"] == 20,
+                f"serve: {k} launched {summary['launches'][k]} times for "
+                f"{summary['stacked_steps']} stacked steps",
+            )
+            total[k] += summary["launches"][k]
+    require(
+        {v for *_, v in single["per_request"]} == {0, 1},
+        "serve: the session did not serve both versions",
+    )
+
+    # (c) the act program alone
+    act = check_act_steps(dev)
+    emit({"phase": "serve_act", **act})
+    require(act["card_vs_cpu_max_abs_dq"] <= 1e-4, f"serve act: card vs CPU {act}")
+    require(act["batched_vs_alone_actions_equal"], f"serve act: batched vs alone {act}")
+    emit({"phase": "serve_wall", "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def check_rmsnorm(dev) -> dict:
     """The prefill [B*S, d] and decode [B, d] calls of the zoo main path
     (the ``cta`` route), float32 rows, many and few 16 KB rows (the
@@ -1286,6 +1485,7 @@ def main() -> int:
     by_path["stepwise"] = phase_stepwise(dev, fleet)
     phase_main_card_vs_cpu(dev)
     by_path["population"] = phase_population(dev)
+    by_path["serve"] = phase_serve(dev)
     by_path["table2_sweep"] = phase_sweep(dev, "paper_table2_hub_failure")
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)

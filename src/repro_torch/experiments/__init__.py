@@ -21,7 +21,7 @@ from repro_torch.experiments.protocol import SupportsChurn, System
 from repro_torch.experiments.registry import get_scenario, list_scenarios, register
 from repro_torch.experiments.runner import build, resolve, run
 from repro_torch.experiments.spec import ScenarioSpec
-from repro_torch.experiments.systems import BaselineSystem
+from repro_torch.experiments.systems import BaselineSystem, ServeSystem
 from repro_torch.population import (
     Cohort,
     Departure,
@@ -46,6 +46,7 @@ __all__ = [
     "PopulationSpec",
     "Report",
     "ScenarioSpec",
+    "ServeSystem",
     "Sessions",
     "Trace",
     "SupportsChurn",

@@ -1,11 +1,13 @@
 """Where the main path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.experiments.profile [--scenario flash_crowd]
+    PYTHONPATH=src python -m repro_torch.experiments.profile \
+        [--scenario {paper_fig2,flash_crowd,serve_localization}]
 
 Profiles a run ``chip_smoke.py`` drives at the full DQN width
-``DQNConfig()``: ``paper_fig2 --fast`` (the default), or ``flash_crowd``
+``DQNConfig()``: ``paper_fig2 --fast`` (the default), ``flash_crowd``
 at its full population of 4 + 200 agents with ``--fast``'s train steps
-and the population phase's evaluation cut (one patient, one task).  The
+and the population phase's evaluation cut (one patient, one task), or
+``serve_localization --fast`` (train-while-serve).  The
 scenario runs on the CUDA card
 from one seed three times: a warm-up, a plain run for the wall times,
 and a run under ``torch.profiler`` (CPU + CUDA activities) for the
@@ -20,6 +22,12 @@ third section profiles eight stacked train steps alone
 on a random pool):
 the median unprofiled wall of a step over ten chunks, then, from one
 profiled chunk, wall and device time and device operations per step.
+For ``serve_localization`` a fourth section profiles the serving window
+alone: after the run, the scenario's traffic is served once more through
+the live service (a warm-up wave), once for the unprofiled wall and once
+under the profiler, each wave from the same requests on the same params;
+it reports wall and device busy time per tick, the idle share and device
+operations per tick.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from repro_torch.core.erb import flat_width
 from repro_torch.experiments.registry import get_scenario
 from repro_torch.experiments.runner import build, evaluate_into
 from repro_torch.rl.fleet import FleetSteps
+from repro_torch.serve.traffic import synthetic_requests
 
 ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 # the profiled scenarios and their cuts (chip_smoke.py's main and
@@ -47,6 +56,7 @@ ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 SCENARIOS = {
     "paper_fig2": {},
     "flash_crowd": dict(fast_population_scale=1.0, eval_patients=1, eval_tasks=1),
+    "serve_localization": {},
 }
 
 
@@ -113,6 +123,39 @@ def _profile_steps(cfg: DQNConfig, n_agents: int, k_steps: int = 8) -> dict:
     }
 
 
+def _profile_serving(system, spec) -> dict:
+    """The scenario's traffic served again through the live service: a
+    warm-up wave, a plain one and a profiled one, each of the same
+    requests on the same params (the same ticks)."""
+    session = system.session
+    service = session.service
+    requests = synthetic_requests(
+        spec.serve_traffic, spec.dqn, n_agents=len(session.agents), tasks=session.tasks
+    )
+
+    def wave():
+        ticks = service.report.n_ticks
+        _, wall_s = _timed(lambda: service.serve(requests))
+        return service.report.n_ticks - ticks, wall_s
+
+    wave()
+    ticks, plain_s = wave()
+    with profile(activities=ACTIVITIES) as prof:
+        pticks, wall_s = wave()
+    dev = device_summary(prof, wall_s)
+    return {
+        "requests": len(requests),
+        "ticks": ticks,
+        "plain_wall_ms_per_tick": plain_s / ticks * 1e3,
+        "wall_ms_per_tick": wall_s / pticks * 1e3,
+        "device_ms_per_tick": dev["device_busy_s"] / pticks * 1e3,
+        "device_ops_per_tick": dev["device_ops"] / pticks,
+        "idle_share": dev["idle_share"],
+        "requests_per_s": len(requests) / plain_s,
+        "top": dev["top"],
+    }
+
+
 def profile_main_path(name: str = "paper_fig2") -> dict:
     cuts = SCENARIOS[name]
     spec = replace(get_scenario(name), dqn=DQNConfig(), **cuts).fast()
@@ -129,14 +172,18 @@ def profile_main_path(name: str = "paper_fig2") -> dict:
         report, prun_s = _timed(system.run)
     with profile(activities=ACTIVITIES) as prof_eval:
         _, peval_s = _timed(lambda: evaluate_into(report, system, spec))
+    serving = spec.system == "serve"
+    engine = system.session.engine if serving else system.engine
     out["run"] = {
         "wall_s": run_s,
-        "agent_steps": system.engine.n_steps_trained,
-        "stacked_steps": system.engine.n_chunk_steps,
+        "agent_steps": engine.n_steps_trained,
+        "stacked_steps": engine.n_chunk_steps,
         **device_summary(prof_run, prun_s),
     }
     out["eval"] = {"wall_s": eval_s, **device_summary(prof_eval, peval_s)}
-    out["step"] = _profile_steps(spec.dqn, max(system.engine.flush_sizes))
+    out["step"] = _profile_steps(spec.dqn, max(engine.flush_sizes))
+    if serving:
+        out["serve"] = _profile_serving(system, spec)
     out["mean_dist_err"] = report.mean_dist_err
     return out
 

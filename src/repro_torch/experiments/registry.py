@@ -4,10 +4,10 @@ The port registers the paper's deployment experiment (``paper_fig2``),
 its Table 1 comparison rows (Agents X, Y and M), synchronous FedAvg, the
 Fig 4/5 churn ablations, the Table 2 hub-failure rows, the population
 scenarios, the sharing-plane ablation (``plane_*``), the topology
-ablation (``topo_*``) and the heterogeneous-link gossip scenario
-(``gossip_hetero``), with the reference's settings
-(``src/repro/experiments/registry.py``).  The serving scenario comes
-with its slice.
+ablation (``topo_*``), the heterogeneous-link gossip scenario
+(``gossip_hetero``) and the train-while-serve scenario
+(``serve_localization``), with the reference's settings
+(``src/repro/experiments/registry.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from repro_torch.core.experiment import ChurnEvent, HubFailure
 from repro_torch.core.gossip import LinkModel
 from repro_torch.experiments.spec import ScenarioSpec
 from repro_torch.population import Cohort, Diurnal, PopulationSpec, Sessions
+from repro_torch.serve.traffic import TrafficSpec
 
 _REGISTRY: dict[str, ScenarioSpec] = {}
 
@@ -325,6 +326,29 @@ register(
             HubFailure(at=1.5, hub_id=2),
         ),
         fast_train_steps=20,
+    )
+)
+
+# -- online inference plane: train-while-serve session ----------------------
+register(
+    ScenarioSpec(
+        name="serve_localization",
+        system="serve",
+        description="Online inference plane: continuous-batching "
+        "localization serving with a mid-session param hot swap "
+        "(train-while-serve)",
+        task_set="paper8",
+        n_tasks=4,
+        n_patients=16,
+        dqn=_TINY_DQN,
+        sys=_ablation_sys(n_agents=2, rounds=2, train_steps_per_round=20),
+        serve_traffic=TrafficSpec(
+            n_requests=32, max_batch=8, n_version_slots=2, max_staleness=1
+        ),
+        seed=600,
+        eval_patients=2,
+        eval_episodes=2,
+        fast_train_steps=8,
     )
 )
 

@@ -4,7 +4,8 @@ The runner is the only place a system is ever constructed from a
 scenario: it resolves the named spec, mirrors ``spec.seed`` into the
 system config (one seed, every stream derived), builds the system the
 spec names on ``device`` (``None`` = the CUDA card) — the ADFLL
-deployment, synchronous FedAvg, or one of the Table 1 baseline agents —
+deployment, synchronous FedAvg, one of the Table 1 baseline agents or
+the train-while-serve serving plane —
 wires churn schedules, hub failures, populations and evaluation probes
 into the ADFLL system, runs it, and folds the probes and the final
 evaluation into the :class:`~repro_torch.core.experiment.Report`.
@@ -23,7 +24,7 @@ from repro_torch.core.federated import ADFLLSystem, CentralAggregationSystem
 from repro_torch.experiments.protocol import System
 from repro_torch.experiments.registry import get_scenario
 from repro_torch.experiments.spec import ScenarioSpec
-from repro_torch.experiments.systems import BaselineSystem
+from repro_torch.experiments.systems import BaselineSystem, ServeSystem
 from repro_torch.rl.synth import all_tasks, paper_eight_tasks, patient_split
 
 SpecLike = str | ScenarioSpec
@@ -144,9 +145,16 @@ def build(
             device=device,
         )
     if spec.system == "serve":
-        raise NotImplementedError(
-            f"{spec.name}: repro_torch does not run system='serve' yet "
-            "(the serving-plane slice)"
+        return ServeSystem(
+            spec.dqn,
+            tasks,
+            train_p,
+            traffic=spec.serve_traffic,
+            n_agents=sys_cfg.n_agents,
+            n_waves=max(2, sys_cfg.rounds),  # >= one hot swap per session
+            train_steps=sys_cfg.train_steps_per_round,
+            seed=spec.seed,
+            device=device,
         )
     return BaselineSystem(  # the single-agent Table 1 baselines
         spec.system,

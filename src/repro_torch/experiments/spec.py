@@ -5,11 +5,9 @@ kind, the task set, the patient pool, the DQN and system configs
 (topology, share planes, compression, speeds, hub layout), a churn
 schedule, hub failures or a whole population, per-link heterogeneous
 rates (site assignments + intra/inter links), and the evaluation
-protocol.  ``spec.seed`` is the single source of truth for randomness:
-the runner mirrors it into ``sys.seed`` before construction.
-
-The reference's spec also carries serving traffic, which comes with the
-serving-plane slice of the port.
+protocol, and for ``system="serve"`` the synthetic serving traffic.
+``spec.seed`` is the single source of truth for randomness: the runner
+mirrors it into ``sys.seed`` before construction.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from repro_torch.configs.adfll_dqn import ADFLLConfig, DQNConfig
 from repro_torch.core.experiment import ChurnEvent, HubFailure
 from repro_torch.core.gossip import LinkModel
 from repro_torch.population.spec import PopulationSpec
+from repro_torch.serve.traffic import TrafficSpec
 
 SYSTEMS = ("adfll", "fedavg", "all_knowing", "partial", "sequential", "serve")
 TASK_SETS = ("paper8", "all")
@@ -48,6 +47,7 @@ class ScenarioSpec:
     hub_sites: tuple[int, ...] = ()  # per-hub site ids
     intra_link: LinkModel | None = None  # fast same-site link
     inter_link: LinkModel | None = None  # slow cross-site link
+    serve_traffic: TrafficSpec | None = None  # system="serve" workload
     # -- evaluation --------------------------------------------------------
     eval_tasks: int | None = None  # eval on first N tasks (None = all)
     eval_patients: int | None = 4  # held-out patients per task
@@ -67,6 +67,10 @@ class ScenarioSpec:
             raise ValueError("agent_sites given without intra/inter links")
         if self.hub_failures and self.sys.topology == "gossip":
             raise ValueError("hub_failures given but topology='gossip' has no hubs")
+        if self.serve_traffic is not None and self.system != "serve":
+            raise ValueError(
+                f"serve_traffic given but system={self.system!r} is not 'serve'"
+            )
         if self.population is not None:
             if self.system != "adfll":
                 raise ValueError(

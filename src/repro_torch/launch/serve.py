@@ -1,20 +1,28 @@
-"""Serving CLI of the port: one prefill, then batched greedy decode of a
-model-zoo config (the reference's ``repro/launch/serve.py``, transformer
-mode).
+"""Serving CLI of the port (the reference's ``repro/launch/serve.py``):
+the localization inference plane, or prefill + decode of a model-zoo
+config.  Both run on the CUDA card unless ``--device cpu`` is given.
+
+Fleet mode — continuous-batching localization serving with
+train-while-serve hot swaps (:mod:`repro_torch.serve`):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet \
+        [--agents 2] [--requests 64] [--max-batch 8] [--waves 2] \
+        [--rate REQ_PER_S] [--seed 0] [--json OUT] [--device cpu]
+
+Transformer mode — one prefill, then batched greedy decode:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
         --batch 4 --prompt-len 1000 --gen 32 [--seed 0] [--device cpu]
 
 The weights are random, drawn on the device from ``--seed``; the prompt
 is drawn with numpy from the same seed, as the reference draws it.
-``--arch NAME-smoke`` serves the config's reduced CPU variant.  The
-fleet's localization serving plane (``--fleet`` in the reference) is not
-ported yet.
+``--arch NAME-smoke`` serves the config's reduced CPU variant.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from dataclasses import dataclass
 
@@ -119,23 +127,48 @@ def setup(arch: str, batch: int, prompt_len: int, seed: int, device=None):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default=None, help="transformer config to decode")
-    ap.add_argument(
-        "--fleet", action="store_true", help="the fleet serving plane (not ported)"
+    mode = ap.add_argument_group("mode (exactly one)")
+    mode.add_argument(
+        "--fleet",
+        action="store_true",
+        help="serve the localization fleet under synthetic traffic",
     )
+    mode.add_argument("--arch", default=None, help="transformer config to decode")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=64)
-    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument(
         "--device", default=None, help="torch device (default: the CUDA card)"
     )
+    # -- transformer-mode flags --------------------------------------------
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    # -- fleet-mode flags --------------------------------------------------
+    ap.add_argument("--agents", type=int, default=2, help="fleet slots served")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument(
+        "--waves",
+        type=int,
+        default=2,
+        help="traffic waves; each later wave follows a train+publish "
+        "round, exercising a param hot-swap",
+    )
+    ap.add_argument(
+        "--rate",
+        type=float,
+        default=None,
+        help="open-loop arrival rate (req/s); default: all at once",
+    )
+    ap.add_argument("--train-steps", type=int, default=20)
+    ap.add_argument("--version-slots", type=int, default=2)
+    ap.add_argument("--max-staleness", type=int, default=1)
+    ap.add_argument("--json", default=None, metavar="OUT")
     args = ap.parse_args(argv)
-    if args.fleet:
-        ap.exit(2, "--fleet: not ported yet: ROADMAP queue 1 item 8\n")
-    if args.arch is None:
-        ap.error("--arch is required")
 
+    if args.fleet == (args.arch is not None):
+        ap.error("exactly one of --fleet or --arch is required")
+    if args.fleet:
+        return fleet_main(args)
     model, params, prompt = setup(
         args.arch, args.batch, args.prompt_len, args.seed, args.device
     )
@@ -149,6 +182,63 @@ def main(argv=None) -> int:
     )
     print("sample token ids:", out.tokens[0, :16].cpu().numpy())
     return 0
+
+
+def fleet_main(args) -> int:
+    """Thin driver over :mod:`repro_torch.serve`: build, serve, report.
+    Exits 1 if the act program met a new shape after warmup."""
+    from repro_torch.configs.adfll_dqn import DQNConfig
+    from repro_torch.serve import TrafficSpec, build_session, run_session
+
+    cfg = DQNConfig(
+        volume_shape=(16, 16, 16),
+        box_size=(6, 6, 6),
+        conv_features=(4,),
+        hidden=(32,),
+        max_episode_steps=16,
+        batch_size=16,
+        eps_decay_steps=100,
+    )
+    traffic = TrafficSpec(
+        n_requests=args.requests,
+        max_batch=args.max_batch,
+        n_version_slots=args.version_slots,
+        max_staleness=args.max_staleness,
+        rate=args.rate,
+        seed=args.seed,
+    )
+    session = build_session(
+        cfg, n_agents=args.agents, traffic=traffic, seed=args.seed, device=args.device
+    )
+    report = run_session(
+        session, traffic, n_waves=args.waves, train_steps=args.train_steps
+    )
+    s = report.summary()
+    print(
+        f"served {s['n_requests']} requests in {s['wall_time_s']:.2f}s "
+        f"({s['requests_per_sec']:.1f} req/s)"
+    )
+    print(
+        f"latency p50={s['p50_latency_ms']:.1f}ms p99={s['p99_latency_ms']:.1f}ms "
+        f"ticks/req={s['ticks_per_request']:.1f} "
+        f"queue depth mean={s['mean_queue_depth']:.1f}"
+    )
+    print(
+        f"hot swaps={s['n_swaps']} versions_served={s['versions_served']} "
+        f"stall_ticks={s['n_stall_ticks']}"
+    )
+    print(
+        f"compiled buckets={session.service.buckets} "
+        f"recompiles_after_warmup={s['recompiles']}"
+    )
+    if s["mean_dist_err"] is not None:
+        print(f"mean_dist_err={s['mean_dist_err']:.2f} voxels (synthetic landmarks)")
+    if args.json:
+        payload = {"benchmark": "serve", "fast": False, "configs": {"fleet": s}}
+        with open(args.json, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+        print(f"wrote {args.json}")
+    return 0 if s["recompiles"] == 0 else 1
 
 
 if __name__ == "__main__":

@@ -27,12 +27,15 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   byte budget, the resident fast path, and futures that resolve in
   submission order.  :meth:`FleetEngine.train_step` is the stepwise
   backend's one-step dispatch on the same state and cache.
+* :class:`ActSteps` / :func:`make_act_steps` — the serving plane's
+  batched greedy-act program: each request gathers its own parameter
+  row and the batch runs as one stacked forward.
 
 State updates are functional (new tensors, never writes into the
-resident ones), so a tensor handed out by ``get_params`` stays a valid
-snapshot.  Waiting for later slices of the port: mesh sharding of the
-agent axis, the observatory's stats chunk, and the serving plane's
-batched act program.
+resident ones), so a tensor handed out by ``get_params`` or
+``stacked_params`` stays a valid snapshot.  Waiting for later slices of
+the port: mesh sharding of the agent axis and the observatory's stats
+chunk.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from repro_torch.core.erb import ERB, erb_add, erb_flatten, flat_columns, flat_w
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_td import td_loss
 from repro_torch.kernels.replay_gather import replay_gather
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
 from repro_torch.rl.dqn import dqn_apply_stacked, dqn_init
 
 
@@ -264,6 +267,80 @@ def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
             alive[i] &= ~done
 
 
+class ActSteps:
+    """The batched greedy-act program of one config on one device.
+
+    ``act(stacked, slot, obs, loc) -> (actions, q)`` where ``stacked``
+    is a parameter tree with one leading stacked axis (fleet slots, or
+    the serving plane's flattened version x agent ring), ``slot`` the
+    per-request ``[B]`` int row into that axis, and ``obs`` / ``loc``
+    the ``[B, *box]`` / ``[B, 3]`` observation batch.  Each request
+    gathers its own parameter rows (``index_select`` on every leaf) and
+    runs as its own agent of one stacked forward (grouped conv3d with
+    ``groups=B``, batched matmuls), so what a request computes does not
+    depend on the batch it shares a dispatch with: batched serving gives
+    single-request serving's results.  A lone request runs as two lanes
+    (itself twice): at ``groups=1`` PyTorch takes its ungrouped
+    convolution path, which rounds differently from the grouped one (on
+    the CPU at ``DQNConfig()``, 3e-7 after the second conv).
+
+    ``n_traces`` counts the first dispatch of each new (batch, stacked
+    rows) shape, what a compiled program would be specialised to, so a
+    service that pads to pow2 buckets shows no new shapes once its
+    buckets are warm.  The program itself is eager: it compiles nothing.
+    """
+
+    def __init__(self, cfg: DQNConfig, device: str | torch.device | None = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_traces = 0
+        self._shapes: set[tuple[int, int]] = set()
+
+    @torch.no_grad()
+    def act(
+        self, stacked: dict, slot: torch.Tensor, obs: torch.Tensor, loc: torch.Tensor
+    ):
+        b = obs.shape[0]
+        shape = (b, leaves(stacked)[0].shape[0])
+        if shape not in self._shapes:
+            self._shapes.add(shape)
+            self.n_traces += 1
+        if b == 1:
+            slot, obs, loc = (torch.cat([t, t]) for t in (slot, obs, loc))
+        p = tree_map(lambda x: x.index_select(0, slot), stacked)
+        q = dqn_apply_stacked(self.cfg, p, obs[:, None], loc[:, None])[:b, 0]
+        return q.argmax(-1).to(torch.int32), q
+
+    def warmup(self, stacked: dict, batch_sizes: Sequence[int]) -> None:
+        """Dispatch every bucket once (zero-filled inputs; the results
+        are discarded)."""
+        for b in batch_sizes:
+            self.act(
+                stacked,
+                torch.zeros(b, dtype=torch.int64, device=self.device),
+                torch.zeros((b, *self.cfg.box_size), device=self.device),
+                torch.zeros((b, 3), device=self.device),
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+_ACT_STEPS_CACHE: dict[tuple[DQNConfig, torch.device], ActSteps] = {}
+
+
+def make_act_steps(
+    cfg: DQNConfig, device: str | torch.device | None = None
+) -> ActSteps:
+    """The ``(cfg, device)``-keyed act program, shared by every service of
+    that config on that device (its bucket shapes stay warm across them)."""
+    dev = resolve_device(device)
+    steps = _ACT_STEPS_CACHE.get((cfg, dev))
+    if steps is None:
+        steps = ActSteps(cfg, dev)
+        _ACT_STEPS_CACHE[(cfg, dev)] = steps
+    return steps
+
+
 class TrainFuture:
     """Resolution handle of a submitted training job: ``loss`` is the
     last-step TD loss once the job's chunk has flushed."""
@@ -393,6 +470,18 @@ class FleetEngine:
     def get_target(self, slot: int) -> dict:
         self.ensure_flushed(slot)
         return self._slot_tree(self.state.target, slot)
+
+    def stacked_params(self) -> dict:
+        """Flush-on-read snapshot of every live slot's params as one
+        stacked ``[n_slots, ...]`` tree: the serving plane's publish
+        path.  Every pending job trains first, so a snapshot never sees a
+        half-applied round; dead padding rows never leak (the slice stops
+        at ``n_slots``).  State updates are functional, so the snapshot
+        does not change when the engine trains on."""
+        self.flush()
+        if self.n_slots == self.capacity:
+            return self.state.params
+        return tree_map(lambda x: x[: self.n_slots], self.state.params)
 
     def slot_params(self, slots: Sequence[int]) -> dict:
         """Stacked params of ``slots``, flushing only the touched slots'
@@ -576,12 +665,14 @@ class FleetEngine:
 
 
 __all__ = [
+    "ActSteps",
     "CollectSteps",
     "FleetEngine",
     "FleetState",
     "FleetSteps",
     "TrainFuture",
     "collect_fleet",
+    "make_act_steps",
     "make_dqn_opt_cfg",
     "tree_map",
 ]

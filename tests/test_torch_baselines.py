@@ -50,7 +50,7 @@ from repro_torch.experiments import __main__ as cli  # noqa: E402
 from repro_torch.experiments.registry import list_scenarios  # noqa: E402
 from repro_torch.experiments.runner import build, run  # noqa: E402
 from repro_torch.experiments.spec import ScenarioSpec  # noqa: E402
-from repro_torch.experiments.systems import BaselineSystem  # noqa: E402
+from repro_torch.experiments.systems import BaselineSystem, ServeSystem  # noqa: E402
 from repro_torch.rl import agent as port_agent  # noqa: E402
 from repro_torch.rl.fleet import FleetSteps  # noqa: E402
 from repro_torch.rl.synth import paper_eight_tasks, patient_split  # noqa: E402
@@ -273,8 +273,9 @@ def test_unported_options_and_spec_validation():
             2, CFG, paper_eight_tasks(), TRAIN_P, devices=2, device="cpu"
         )
     serve = ScenarioSpec(name="s", system="serve", dqn=CFG)
-    with pytest.raises(NotImplementedError, match="serving"):
-        build(serve, device="cpu")
+    served = build(serve, device="cpu")
+    assert isinstance(served, ServeSystem) and isinstance(served, System)
+    assert not isinstance(served, SupportsChurn)
     with pytest.raises(ValueError, match="unknown system"):
         ScenarioSpec(name="x", system="oracle")
     with pytest.raises(ValueError, match="unknown task_set"):
@@ -355,6 +356,7 @@ def test_cli_lists_the_scenarios(capsys):
         "plane_erb_only",
         "plane_hybrid",
         "plane_weight_only",
+        "serve_localization",
         "topo_gossip",
         "topo_gossip_topk",
         "topo_hub",

@@ -17,6 +17,11 @@ imports JAX, so the tests run where the card is.
   then the newest agent leaves; one ``replay_gather`` and one
   ``fused_td`` launch per stacked step, the CPU run's round metadata,
   round 0 within 1e-4.
+* serving: one train-while-serve session at ``max_batch=1`` and at
+  ``max_batch=8`` on the card (identical seeds, so identical published
+  versions): every request's final voxel, ticks and pinned version
+  identical, one ``replay_gather`` and one ``fused_td`` launch per
+  stacked step of the round between the waves.
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
@@ -35,6 +40,7 @@ from repro_torch.experiments import registry  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
+from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
 
 # tiny widths: each run takes seconds on either device
 TINY = DQNConfig(
@@ -139,3 +145,31 @@ def test_churn_and_hub_failure_train_through_the_kernels_on_card(cuda):
         (p.t, p.n_agents) for p in cpu.eval_curve
     ]
     _same_rounds(cpu, card)
+
+
+@pytest.mark.cuda
+def test_batched_serving_matches_single_on_card(cuda):
+    out = []
+    for max_batch in (1, 8):
+        traffic = TrafficSpec(
+            n_requests=24, max_batch=max_batch, n_version_slots=2, max_staleness=1
+        )
+        session = build_session(TINY, n_agents=2, traffic=traffic, device=cuda)
+        replay_gather.launches = fused_td.launches = 0
+        report = run_session(session, traffic, n_waves=2, train_steps=5)
+        assert replay_gather.launches == fused_td.launches == 5
+        assert session.engine.n_chunk_steps == 5
+        assert report.n_swaps == 1 and report.recompiles == 0
+        assert session.service._vparams["fc0"]["w"].device.type == "cuda"
+        results = session.service.results
+        out.append(
+            [
+                (tuple(results[i].final_loc.tolist()), results[i].n_ticks,
+                 results[i].version)
+                for i in sorted(results)
+            ]
+        )
+        out.append(set(report.batch_sizes))
+    single, single_buckets, batched, batched_buckets = out
+    assert single_buckets == {1} and max(batched_buckets) > 1
+    assert single == batched and {v for *_, v in single} == {0, 1}

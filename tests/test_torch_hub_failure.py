@@ -89,16 +89,15 @@ def test_registry_specs_are_the_references():
         "hospital_diurnal",
         "flash_crowd",
         "long_tail_stragglers",
+        "serve_localization",
     ):
         ours = dataclasses.asdict(registry.get_scenario(name))
         ref = dataclasses.asdict(jax_registry.get_scenario(name))
-        assert ref.pop("serve_traffic") is None
+        assert (ref["serve_traffic"] is None) == (name != "serve_localization")
         assert ours == ref, name
-        assert dataclasses.asdict(registry.get_scenario(name).fast()) == {
-            k: v
-            for k, v in dataclasses.asdict(jax_registry.get_scenario(name).fast()).items()
-            if k != "serve_traffic"
-        }
+        assert dataclasses.asdict(
+            registry.get_scenario(name).fast()
+        ) == dataclasses.asdict(jax_registry.get_scenario(name).fast())
 
 
 def test_table2_sweep_is_the_references():
@@ -121,7 +120,7 @@ def test_table2_sweep_is_the_references():
 def test_cli_prints_every_probe_point(capsys):
     assert cli.main(["--list"]) == 0
     listing = capsys.readouterr().out.splitlines()[1:]
-    assert len(listing) == 21
+    assert len(listing) == 22
     spec = cut_spec(registry.get_scenario("paper_table2_hub_failure").fast())
     report = run(spec, device="cpu")
     assert [(p.t, p.n_agents) for p in report.eval_curve][0] == (1.5, 4)

@@ -46,7 +46,7 @@ def test_port_imports_no_jax_and_no_reference():
     n_modules, bad = int(out[0]), " ".join(out[1:])
     # every module of the port was imported: the zoo's, the experiments'
     # and the sweeps' too
-    assert n_modules >= 64
+    assert n_modules >= 71
     assert bad == "[]"
 
 
@@ -70,6 +70,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.rl.agent import DQNAgent
     from repro_torch.rl.fleet import FleetEngine
     from repro_torch.rl.synth import paper_eight_tasks
+    from repro_torch.serve import LocalizationService, TrafficSpec, build_session
     from repro_torch.sweeps import SweepSpec, SweepVariant, run_sweep
     from repro_torch.sweeps.__main__ import main as sweeps_main
 
@@ -89,6 +90,10 @@ def test_entry_points_default_to_cuda():
         lambda: main(["--scenario", "fedavg_sync", "--fast"]),
         lambda: Model(get_config("h2o-danube-3-4b-smoke")),
         lambda: serve.main(["--arch", "h2o-danube-3-4b-smoke", "--gen", "1"]),
+        lambda: serve.main(["--fleet", "--requests", "2"]),
+        lambda: run("serve_localization", fast=True),
+        lambda: build_session(cfg, n_agents=1, traffic=TrafficSpec(n_requests=2)),
+        lambda: LocalizationService(cfg, params={"fc0": {"b": torch.zeros(1, 6)}}),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

@@ -257,10 +257,17 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_serve_cli_fleet_is_not_ported(capsys):
+    """``--fleet`` (named when it was refused) now serves the localization
+    fleet on the CPU: a hot swap, no new act shapes after warmup."""
+    argv = ["--fleet", "--device", "cpu", "--requests", "8", "--max-batch", "4"]
+    assert serve.main([*argv, "--train-steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "served 8 requests" in out and "recompiles_after_warmup=0" in out
+    assert "hot swaps=1" in out and "compiled buckets=[1, 2, 4]" in out
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--fleet"])
-    assert exc.value.code != 0
-    assert "ROADMAP queue 1 item 8" in capsys.readouterr().err
+        serve.main(["--fleet", "--arch", ARCH + "-smoke"])
+    assert exc.value.code == 2
+    assert "exactly one of --fleet or --arch" in capsys.readouterr().err
 
 
 def test_load_prefill_raises_on_a_mismatched_leaf():
