@@ -14,7 +14,10 @@ non-zero exit code and no result line:
    ``replay_gather`` in every 16-byte phase of its rows; ``fused_td``, the
    whole TD tail, also with one action, with out-of-range actions and
    through its gradient, and timed as forward and backward of the tail
-   through autograd, ``tail_ms``), with times for
+   through autograd, ``tail_ms``; in all four cases also with the fleet
+   observatory's statistics ``td_abs`` and ``q_max`` against the plain
+   version's within 1e-6, NaN where it has NaN, its other outputs bit
+   for bit those without statistics, timed as ``stats_ms``), with times for
    the kernel, the plain version and (where one exists) a single PyTorch
    library call, and the least time the card could take (bytes over 3.35
    TB/s; both kernels are bound by bytes).  Three times per kernel (see
@@ -89,7 +92,10 @@ non-zero exit code and no result line:
    pinned version identical, 20 launches of each fleet kernel in each,
    requests/s, p50/p99 latency and ticks per request side by side; (c)
    ``ActSteps`` on 16 requests batched against each dispatched alone on
-   the card (max |dq| printed), and against the CPU (within 1e-4).
+   the card (max |dq| printed), and against the CPU (within 1e-4); (d)
+   the batched session of (b) again with enabled telemetry (the fleet
+   observatory on): every request identical to (b)'s, 20 launches of
+   each fleet kernel.
 13. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
@@ -112,16 +118,33 @@ non-zero exit code and no result line:
    49 at prefill, 49 x 32 at decode), then decode logits
    at 4 positions against the teacher-forced ``forward`` on the card.
 
+16. observatory (run after the Table 2 sweep, before phase 13) —
+   ``paper_fig2 --fast`` at ``DQNConfig()`` (4 agents, ``share_planes``
+   as registered; evaluation cut to one patient) twice with telemetry
+   off and once with ``Telemetry(enabled=True)``: the round records,
+   losses and ``mean_dist_err`` of the observed run equal the
+   unobserved one's (if the two unobserved runs differ, that is printed
+   and the observed one is held to what they allow); A = B = stacked
+   steps (80) in both; every agent's learning series finite,
+   ``params_finite`` true at every flush, no ``alert`` in the health
+   verdict; the trace written as JSONL and Perfetto and loaded back,
+   its ``fleet.flushes`` counter equal to the engine's flushes; the
+   training wall off and on (three more runs each way, in turns; the
+   ratio of the medians), and a stacked step's device operations and
+   device time with statistics on and off
+   (``repro_torch.experiments.profile._profile_steps``).
+
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
 paths (main, baselines, sweep, topology, population, serve,
-table2_sweep) and the stepwise path: their entries carry
+table2_sweep, observatory) and the stepwise path: their entries carry
 ``launches_by_path`` and ``launches`` is its sum.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -139,6 +162,7 @@ from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.core.experiment import ExperimentHooks  # noqa: E402
+from repro_torch.experiments.profile import _profile_steps  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.rl.agent import DQNAgent  # noqa: E402
@@ -163,6 +187,7 @@ from repro_torch.optim.adamw import leaves  # noqa: E402
 from repro_torch.rl.dqn import dqn_init  # noqa: E402
 from repro_torch.rl.fleet import ActSteps, FleetSteps, tree_map  # noqa: E402
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
+from repro_torch.telemetry import Telemetry, load_trace, write_trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # dense peaks of one H100 SXM at 700 W (NVIDIA data sheet): bf16 on the
@@ -183,6 +208,9 @@ BASELINES = {
 }
 # sub-entries and extra times a kernel's entry of the kernels line carries
 EXTRA_FIELDS = (
+    "stats_ms",
+    "stats_device_ms",
+    "stats_bound_ms",
     "tail_ms",
     "plain_tail_ms",
     "tail_floor_ms",
@@ -313,8 +341,14 @@ def check_fused_td(dev) -> dict:
     ragged one (N=3, B=50), one agent with one action, and out-of-range
     actions (A and beyond select NaN, -1 .. -A wrap, a NaN action reads
     as 0): all four outputs, and the gradient through ``td_loss`` against
-    autograd through the plain version, within 1e-6.  Timed: the main
-    path's call (``ms``, ``device_ms``), and ``tail_ms``, forward and
+    autograd through the plain version, within 1e-6.  Each case again
+    with the observatory's statistics: ``td_abs`` and ``q_max`` against
+    the plain version's within 1e-6 (NaN where it has NaN: the
+    out-of-range case's NaN-selected rows make agent 0's ``td_abs`` NaN,
+    and one NaN q, at an action no row selects, agent 1's ``q_max``),
+    the other four outputs bit for bit those without statistics.  Timed:
+    the main path's call (``ms``, ``device_ms``), with statistics
+    (``stats_ms``, ``stats_device_ms``), and ``tail_ms``, forward and
     backward of the whole tail through autograd, beside the plain tail's
     and one multiply's (``tail_floor_ms``)."""
     rng = np.random.default_rng(1)
@@ -342,8 +376,12 @@ def check_fused_td(dev) -> dict:
         rows_np[..., cols[2]] = rng.random((n, b)) < 0.3
         if name == "out_of_range":
             rows_np[0, :, cols[0]] = edge
+            # a NaN q at an action agent 1's first row does not select
+            q[1, 0, (int(rows_np[1, 0, cols[0]]) + 1) % a] = float("nan")
         rows = torch.tensor(rows_np, dtype=torch.float32, device=dev)
         got = fused_td(q, q_next, rows, cols, gamma)
+        stats = (torch.empty(n, device=dev), torch.empty(n, device=dev))
+        got_stats = fused_td(q, q_next, rows, cols, gamma, stats)
         want = fused_td_plain(q, q_next, rows, cols, gamma)
         grads = []
         for tail in (td_loss, lambda *xs: fused_td_plain(*xs).loss):
@@ -351,17 +389,37 @@ def check_fused_td(dev) -> dict:
             loss = tail(leaf, q_next, rows, cols, gamma).sum()
             grads.append(torch.autograd.grad(loss, leaf)[0])
         torch.cuda.synchronize()
-        for what, x, y in (*zip(got._fields, got, want), ("grad", *grads)):
+        for what, x, y in (
+            *zip(got._fields[:4], got[:4], want[:4]),
+            ("td_abs", got_stats.td_abs, want.td_abs),
+            ("q_max", got_stats.q_max, want.q_max),
+            ("grad", *grads),
+        ):
             err = float((x - y).abs().nan_to_num(0.0).max())
             worst = max(worst, err)
             require(
                 torch.allclose(x, y, rtol=1e-6, atol=1e-6, equal_nan=True),
                 f"fused_td {name} {[n, b, a]} {what}: max|d|={err}",
             )
+        for what, x, y in zip(got._fields[:4], got[:4], got_stats[:4]):
+            require(
+                torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)),
+                f"fused_td {name}: {what} moved with the statistics on",
+            )
         if name == "out_of_range":
             require(
                 bool(torch.isnan(got.loss[0]) and torch.isfinite(got.loss[1])),
                 f"fused_td: out-of-range actions gave loss {got.loss.tolist()}",
+            )
+            require(
+                bool(
+                    torch.isnan(got_stats.td_abs[0])
+                    and torch.isfinite(got_stats.td_abs[1])
+                    and torch.isnan(got_stats.q_max[1])
+                    and torch.isfinite(got_stats.q_max[0])
+                ),
+                f"fused_td: NaN statistics {got_stats.td_abs.tolist()}, "
+                f"{got_stats.q_max.tolist()}",
             )
         if timed is None:  # the main path's call
             leaf = q.clone().requires_grad_(True)
@@ -386,6 +444,19 @@ def check_fused_td(dev) -> dict:
                 ),
                 "plain_ms": cuda_ms(
                     lambda: fused_td_plain(q, q_next, rows, cols, gamma)
+                ),
+                "stats_ms": cuda_ms(
+                    lambda: fused_td(q, q_next, rows, cols, gamma, stats)
+                ),
+                "stats_device_ms": graph_ms(
+                    lambda: fused_td(q, q_next, rows, cols, gamma, stats)
+                ),
+                # with statistics q is read whole and td_abs, q_max written
+                "stats_bound_ms": bound_ms(
+                    nbytes
+                    - sector_bytes(q.data_ptr(), 4 * sel)
+                    + 4 * n * b * a
+                    + 8 * n
                 ),
                 "tail_ms": cuda_ms(
                     lambda: torch.autograd.grad(
@@ -467,12 +538,12 @@ def read_launches() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def timed_run(spec, dev, hooks=()) -> tuple:
+def timed_run(spec, dev, hooks=(), telemetry=None) -> tuple:
     """Build ``spec`` on ``dev``, run it with the launches read around
     the run alone, then evaluate it.  The evaluation probes a churn or
     hub-failure scenario fires during the run count to ``eval_s``, not
     to ``run_s``."""
-    system = build(spec, hooks=hooks, device=dev)
+    system = build(spec, hooks=hooks, device=dev, telemetry=telemetry)
     probe_s = 0.0
     evaluate = system.evaluate
 
@@ -960,9 +1031,10 @@ def phase_population(dev) -> dict[str, int]:
     return total
 
 
-def serve_batching_run(dev, max_batch: int) -> dict:
+def serve_batching_run(dev, max_batch: int, telemetry=None) -> dict:
     """Phase 12 (b): one train-while-serve session at ``DQNConfig()``, 4
-    agents, 128 requests in 2 waves around one round of 20 steps."""
+    agents, 128 requests in 2 waves around one round of 20 steps (with
+    ``telemetry``, observed: phase 12 (d))."""
     traffic = TrafficSpec(
         n_requests=128,
         max_batch=max_batch,
@@ -971,7 +1043,7 @@ def serve_batching_run(dev, max_batch: int) -> dict:
         seed=0,
     )
     session = build_session(
-        DQNConfig(), n_agents=4, traffic=traffic, seed=0, device=dev
+        DQNConfig(), n_agents=4, traffic=traffic, seed=0, telemetry=telemetry, device=dev
     )
     reset_launches()
     t0 = time.perf_counter()
@@ -1134,6 +1206,42 @@ def phase_serve(dev) -> dict[str, int]:
         {v for *_, v in single["per_request"]} == {0, 1},
         "serve: the session did not serve both versions",
     )
+
+    # (d) the batched session observed
+    tel = Telemetry(enabled=True)
+    observed = serve_batching_run(dev, 16, tel)
+    differ = [
+        i
+        for i, (x, y) in enumerate(
+            zip(batched["per_request"], observed["per_request"], strict=True)
+        )
+        if x != y
+    ]
+    counters = {
+        k: tel.registry.counter_value(k)
+        for k in ("serve.ticks", "serve.swaps", "serve.requests.completed")
+    }
+    emit(
+        {
+            "phase": "serve_observed",
+            "session": "as serve_batching's batched run, with Telemetry(enabled=True)",
+            "observed": observed["summary"],
+            "counters": counters,
+            "requests_differing_from_unobserved": differ,
+        }
+    )
+    require(not differ, f"serve: observed and unobserved differ at requests {differ}")
+    require(
+        counters["serve.ticks"] == observed["summary"]["n_ticks"]
+        and counters["serve.requests.completed"] == 128,
+        f"serve: observed counters {counters}",
+    )
+    for k in FLEET_KERNELS:
+        require(
+            observed["summary"]["launches"][k] == 20,
+            f"serve: observed {k} launched {observed['summary']['launches'][k]}",
+        )
+        total[k] += observed["summary"]["launches"][k]
 
     # (c) the act program alone
     act = check_act_steps(dev)
@@ -1381,6 +1489,131 @@ def phase_zoo_chunk(dev) -> None:
     )
 
 
+def _records(report) -> list:
+    return [dataclasses.astuple(r) for r in report.history]
+
+
+def phase_observatory(dev) -> dict[str, int]:
+    """``paper_fig2 --fast`` at ``DQNConfig()`` unobserved twice, then
+    observed (evaluation cut to one patient); the observed run held to
+    the unobserved one (as far as two unobserved runs agree on this
+    card); the trace written in both formats and read back; the training
+    wall of three more runs each way, in turns; a stacked step profiled
+    with statistics on and off."""
+    t_phase = time.perf_counter()
+    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig(), eval_patients=1)
+    spec = spec.fast()
+    off = [timed_run(spec, dev) for _ in range(2)]
+    tel = Telemetry(enabled=True)
+    system, on, launches, run_s, _ = timed_run(spec, dev, telemetry=tel)
+    engine = system.engine
+    (_, off1, off_launches, *_), (_, off2, *_) = off
+    # training walls in turns (off, on, ...), runs alone: no evaluation
+    walls = {"off": [r[3] for r in off], "on": [run_s]}
+    for _ in range(3):
+        for key in ("off", "on"):
+            walled = build(
+                spec, device=dev, telemetry=Telemetry() if key == "on" else None
+            )
+            t0 = time.perf_counter()
+            walled.run()
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+    wall_ratio = float(np.median(walls["on"]) / np.median(walls["off"]))
+    card_repeats = _records(off1) == _records(off2) and (
+        off1.mean_dist_err == off2.mean_dist_err
+    )
+    off_loss_diff = max(
+        abs(a.loss - b.loss) for a, b in zip(off1.history, off2.history, strict=True)
+    )
+    on_loss_diff = max(
+        abs(a.loss - b.loss) for a, b in zip(on.history, off1.history, strict=True)
+    )
+    learning = on.extra["learning"]
+    health = on.extra["health"]
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    paths = [write_trace(tel, out / f"observatory{x}") for x in (".jsonl", ".json")]
+    flushes_read = []
+    for path in paths:
+        metrics = load_trace(path)["metrics"]
+        flushes_read.append(
+            sum(
+                m["value"]
+                for m in metrics
+                if m["kind"] == "counter" and m["name"] == "fleet.flushes"
+            )
+        )
+    n_agents = spec.sys.n_agents
+    step_off = _profile_steps(spec.dqn, n_agents, 4, repeats=3)
+    step_on = _profile_steps(spec.dqn, n_agents, 4, stats=True, repeats=3)
+    emit(
+        {
+            "phase": "observatory",
+            "scenario": "paper_fig2 --fast, dqn=DQNConfig(), Telemetry(enabled=True)",
+            "cuts": "evaluation: one patient (eval_patients=1)",
+            "card_repeats_itself": card_repeats,
+            "off_vs_off_max_loss_diff": off_loss_diff,
+            "on_vs_off_max_loss_diff": on_loss_diff,
+            "records_equal": _records(on) == _records(off1),
+            "mean_dist_err": [off1.mean_dist_err, off2.mean_dist_err, on.mean_dist_err],
+            "launches_off": off_launches,
+            "launches_on": launches,
+            "stacked_steps": engine.n_chunk_steps,
+            "flushes": engine.n_flushes,
+            "trace_flushes": flushes_read,
+            "trace_events": len(tel.tracer),
+            "run_s_off": walls["off"],
+            "run_s_on": walls["on"],
+            "run_on_over_off_median": wall_ratio,
+            "step_off": {k: v for k, v in step_off.items() if k != "top"},
+            "step_on": {k: v for k, v in step_on.items() if k != "top"},
+            "health": health["status"],
+            "learning": {
+                a: {k: d[k] for k in ("n_steps", "last_loss", "max_grad_norm", "max_q")}
+                for a, d in learning.items()
+            },
+        }
+    )
+    if not card_repeats:
+        print(
+            f"observatory: the card differs from itself between two unobserved "
+            f"runs (max loss diff {off_loss_diff})",
+            flush=True,
+        )
+    require(
+        _records(on) == _records(off1) and on.mean_dist_err == off1.mean_dist_err
+        if card_repeats
+        else on_loss_diff <= off_loss_diff,
+        f"observatory: observed run differs from unobserved (loss {on_loss_diff}, "
+        f"off vs off {off_loss_diff})",
+    )
+    for k in FLEET_KERNELS:
+        require(
+            launches[k] == off_launches[k] == engine.n_chunk_steps == 80,
+            f"observatory: {k} launched {off_launches[k]} off, {launches[k]} on, "
+            f"for {engine.n_chunk_steps} stacked steps",
+        )
+    require(
+        sorted(learning) == [str(i) for i in range(n_agents)]
+        and all(
+            d["nonfinite_flushes"] == 0
+            and all(
+                np.isfinite(d[k]) for k in ("last_loss", "min_loss", "max_grad_norm")
+            )
+            and all(np.isfinite(v) for _, v in d["loss_curve"])
+            for d in learning.values()
+        ),
+        f"observatory: learning series {learning}",
+    )
+    require(health["status"] != "alert", f"observatory: health {health}")
+    require(
+        flushes_read == [engine.n_flushes, engine.n_flushes],
+        f"observatory: trace flushes {flushes_read}, engine {engine.n_flushes}",
+    )
+    emit({"phase": "observatory_wall", "seconds": time.perf_counter() - t_phase})
+    return {k: launches[k] for k in FLEET_KERNELS}
+
+
 def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     """The serving CLI's path at full width, then decode logits at 4
     positions against the teacher-forced forward on the card.
@@ -1487,6 +1720,7 @@ def main() -> int:
     by_path["population"] = phase_population(dev)
     by_path["serve"] = phase_serve(dev)
     by_path["table2_sweep"] = phase_sweep(dev, "paper_table2_hub_failure")
+    by_path["observatory"] = phase_observatory(dev)
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)

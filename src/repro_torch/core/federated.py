@@ -23,14 +23,19 @@ The paper's Table 1 comparison rows are here too: Agent X
 (:func:`train_sequential_ll`), and the synchronous FedAvg contrast
 system (:class:`CentralAggregationSystem`), all on the fleet engine.
 
-What the port does not run yet raises ``NotImplementedError`` naming
-the slice that brings it: multi-device fleet sharding (the multi-GPU
-slice), and enabled telemetry with the observatory.
+Enabled telemetry is observe-only: it brings the fleet observatory
+(per-agent learning dynamics from the fleet's stats chunk, version
+vectors and propagation latencies, health incidents in
+``Report.extra``) and the round, push, availability, churn and hub
+spans and counters, and changes no number of the run.  What the port
+does not run yet raises ``NotImplementedError`` naming the slice that
+brings it: multi-device fleet sharding (the multi-GPU slice).
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -52,12 +57,14 @@ from repro_torch.core.network import Network
 from repro_torch.core.plane import CompressedWeightPlane, WeightPlane, staleness_alphas
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
+from repro_torch.observatory import Observatory
 from repro_torch.population.compile import compile_onto
 from repro_torch.population.spec import PopulationSpec
 from repro_torch.rl.agent import DQNAgent
 from repro_torch.rl.env import LandmarkEnv
 from repro_torch.rl.fleet import FleetEngine, collect_fleet, tree_map
 from repro_torch.rl.synth import make_volume
+from repro_torch.telemetry import NULL, Telemetry
 
 
 def env_for(task: TaskTag, patient: int, cfg: DQNConfig) -> LandmarkEnv:
@@ -109,7 +116,10 @@ class ADFLLSystem:
     (defaulting to ``sys_cfg.seed``): the round rng, the network rng,
     the gossip sampler/rng, the task-curriculum rng, and each agent's
     init seed (``seed + agent_id``) all derive from it.  ``device=None``
-    trains on the CUDA card.
+    trains on the CUDA card.  Enabled ``telemetry`` attaches an
+    :class:`~repro_torch.observatory.Observatory` (to the fleet engine
+    too, unless the engine is ``stepwise``, whose private per-agent
+    engines run without one, as the reference's stepwise agents do).
     """
 
     def __init__(
@@ -121,12 +131,10 @@ class ADFLLSystem:
         *,
         seed: int | None = None,
         hooks: Sequence[ExperimentHooks] = (),
-        telemetry=None,
+        telemetry: Telemetry | None = None,
         device: str | torch.device | None = None,
     ):
         missing = _unsupported(sys_cfg)
-        if missing is None and telemetry is not None and telemetry.enabled:
-            missing = "enabled telemetry (the observatory/telemetry slice)"
         if missing is not None:
             raise NotImplementedError(f"repro_torch does not run {missing} yet")
         if sys_cfg.engine not in ("fleet", "fleet-eager", "stepwise"):
@@ -138,6 +146,9 @@ class ADFLLSystem:
         self.tasks = list(tasks)
         self.train_patients = list(train_patients)
         self.seed = int(sys_cfg.seed if seed is None else seed)
+        # observe-only: telemetry never touches a random stream or any
+        # run state, so enabled/disabled runs stay bit-identical
+        self.telemetry = telemetry if telemetry is not None else NULL
         self._recorder = HistoryRecorder()
         self.hooks: tuple[ExperimentHooks, ...] = (self._recorder, *hooks)
         self.history: list[RoundRecord] = self._recorder.records
@@ -154,6 +165,7 @@ class ADFLLSystem:
                 drop=sys_cfg.link_drop,
             ),
         )
+        self.network.meter.bind(self.telemetry.registry)
         if sys_cfg.topology in ("gossip", "hybrid"):
             self.network.enable_gossip(
                 make_sampler(
@@ -163,12 +175,26 @@ class ADFLLSystem:
                 ),
                 rng=np.random.default_rng(self.seed + 3),
             )
+            self.network.gossip.telemetry = self.telemetry
         self.device = resolve_device(device)
         self.engine: FleetEngine | None = (
             FleetEngine(dqn_cfg, device=self.device)
             if sys_cfg.engine.startswith("fleet")
             else None
         )
+        if self.engine is not None:
+            self.engine.telemetry = self.telemetry
+        # the observatory rides the telemetry bundle: enabled telemetry
+        # means per-agent learning dynamics, propagation tracking, and
+        # health detection — all observe-only, like telemetry itself
+        self.observatory: Observatory | None = (
+            Observatory(self.telemetry) if self.telemetry.enabled else None
+        )
+        if self.observatory is not None and self.engine is not None:
+            self.engine.observatory = self.observatory
+        if self.observatory is not None and self.network.gossip is not None:
+            prop = self.observatory.propagation
+            self.network.gossip.on_deliver = prop.on_gossip_deliver
         self.use_erb = "erb" in sys_cfg.share_planes
         self.use_weights = "weights" in sys_cfg.share_planes
         if self.use_weights:
@@ -176,7 +202,10 @@ class ADFLLSystem:
         self._task_rng = np.random.default_rng(self.seed + 4)
         self._task_queue: list[int] = []
         self.agents: dict[int, DQNAgent] = {}
-        self.sched = Scheduler()
+        self.sched = Scheduler(telemetry=self.telemetry)
+        if self.engine is not None:
+            self.engine.sim_clock = lambda: self.sched.now
+        self._tel_off_since: dict[int, float] = {}  # open offline windows
         self._task_cursor = 0
         self._next_agent_id = 0
         self._outstanding = 0  # finish events not yet processed
@@ -235,6 +264,10 @@ class ADFLLSystem:
             device=self.device,
         )
         self.agents[aid] = agent
+        if self.observatory is not None:
+            if self.engine is not None:
+                self.observatory.register_slot(agent.slot, aid)
+            self.observatory.propagation.note_round(aid, 0)
         self.network.attach_agent(aid, hub_id)
         t = self.sched.now if at is None else at
         if self.population is not None:
@@ -274,7 +307,20 @@ class ADFLLSystem:
             self.population.note_toggle(agent_id, online, self.sched.now)
         if online == was:
             return
-        self._emit("on_availability", agent_id, online, self.sched.now)
+        now = self.sched.now
+        if self.telemetry.enabled:
+            track = f"agent{agent_id}"
+            self.telemetry.instant(
+                "online" if online else "offline", track, now, agent=agent_id
+            )
+            self.telemetry.count("availability.toggles", 1, agent=agent_id)
+            if online:
+                t0 = self._tel_off_since.pop(agent_id, None)
+                if t0 is not None:
+                    self.telemetry.span("offline", track, t0, now, agent=agent_id)
+            else:
+                self._tel_off_since[agent_id] = now
+        self._emit("on_availability", agent_id, online, now)
         if online and agent_id in self._deferred:
             self._deferred.discard(agent_id)
             self._start_round(agent_id)
@@ -320,6 +366,9 @@ class ADFLLSystem:
                     break  # unknown/already-departed id: nothing to remove
                 self.remove_agent(aid)
                 ids.append(aid)
+        if self.telemetry.enabled and ids:
+            self.telemetry.instant(f"churn.{ev.action}", "population", t, agents=ids)
+            self.telemetry.count("churn.events", 1, action=ev.action)
         self._emit("on_churn", ev, ids, t)
         return ids
 
@@ -336,6 +385,11 @@ class ADFLLSystem:
     def _apply_hub_failure(self, ev: HubFailure, t: float) -> None:
         self._pending_failures -= 1
         orphaned = self.network.fail_hub(ev.hub_id)
+        if self.telemetry.enabled:
+            self.telemetry.instant(
+                "hub.failure", "population", t, hub=ev.hub_id, orphaned=orphaned
+            )
+            self.telemetry.count("hub.failures", 1)
         self._emit("on_hub_failure", ev, orphaned, t)
 
     # -- round machinery --------------------------------------------------------
@@ -371,6 +425,11 @@ class ADFLLSystem:
         if not agent.online:
             # offline: park the round; set_online(True) resumes it
             self._deferred.add(agent_id)
+            if self.telemetry.enabled:
+                self.telemetry.instant(
+                    "round.deferred", f"agent{agent_id}", self.sched.now
+                )
+                self.telemetry.count("rounds.deferred", 1)
             return
         task = self._next_task()
         self._emit("on_round_start", agent_id, task, self.sched.now)
@@ -381,6 +440,10 @@ class ADFLLSystem:
             pulled = self.network.agent_pull(agent_id, agent.seen_erb_ids)
             incoming = list(pulled.records)
             comm += pulled.comm_time
+            if self.observatory is not None and incoming:
+                self.observatory.propagation.note_erb_consumed(
+                    agent_id, incoming, self.sched.now
+                )
         else:
             incoming = []
         if self.use_weights:
@@ -408,6 +471,23 @@ class ADFLLSystem:
         # submission order, so history order matches sequential driving
         round_idx = agent.rounds_done - 1
         n_incoming = len(incoming)
+        if self.telemetry.enabled:
+            self.telemetry.span(
+                "round",
+                f"agent{agent_id}",
+                start,
+                end,
+                task=task.name,
+                round_idx=round_idx,
+                n_incoming=n_incoming,
+                n_mixed=n_mixed,
+                comm=comm,
+            )
+            self.telemetry.count("rounds.started", 1)
+            self.telemetry.observe("round.duration", dur)
+            self.telemetry.observe("round.incoming", n_incoming)
+            if n_mixed:
+                self.telemetry.count("mix.snapshots", n_mixed)
 
         def emit_record(loss):
             record = RoundRecord(
@@ -433,16 +513,33 @@ class ADFLLSystem:
             a = self.agents[aid]
             if not a.active:
                 return
+            obs = self.observatory
             comm_out = 0.0
             if self.use_erb:
+                if obs is not None:
+                    # stamp BrainTorrent-style provenance (observe-only:
+                    # the default empty vector is never read numerically)
+                    erb.meta = replace(
+                        erb.meta, version_vector=obs.propagation.version_vector()
+                    )
+                    obs.propagation.note_erb_push(aid, erb, t)
                 res = self.network.agent_push(aid, erb)
                 comm_out += res.comm_time
                 self._emit("on_push", aid, "erb", res, t)
+                if self.telemetry.enabled and res.comm_time > 0.0:
+                    self.telemetry.span("push.erb", f"agent{aid}", t, t + res.comm_time)
             if self.use_weights:
                 snap = a.snapshot_params(t)
+                if obs is not None:
+                    snap = replace(snap, version_vector=obs.propagation.version_vector())
+                    obs.propagation.note_snapshot_push(aid, snap, t)
                 res = self.network.agent_push(aid, snap, plane="weights")
                 comm_out += res.comm_time
                 self._emit("on_push", aid, "weights", res, t)
+                if self.telemetry.enabled and res.comm_time > 0.0:
+                    self.telemetry.span(
+                        "push.weights", f"agent{aid}", t, t + res.comm_time
+                    )
             if comm_out > 0.0:
                 # the upload occupies the agent's link before its next round
                 s.at(
@@ -478,6 +575,10 @@ class ADFLLSystem:
             poly_a=cfg.staleness_poly_a,
             clock=cfg.staleness_clock,
         )
+        if self.observatory is not None:
+            self.observatory.propagation.note_mix(
+                agent_id, snaps, alphas, now, cfg.staleness_clock
+            )
         return agent.mix_params(snaps, alphas), res.comm_time
 
     # -- run ------------------------------------------------------------------
@@ -516,6 +617,10 @@ class ADFLLSystem:
             }
         if self.population is not None:
             extra["population"] = self.population.summary(float(makespan))
+        if self.telemetry.enabled:
+            extra["telemetry"] = self.telemetry.summary()
+        if self.observatory is not None:
+            extra.update(self.observatory.report_extra(makespan=float(makespan)))
         return Report(
             system="adfll",
             seed=self.seed,

@@ -34,7 +34,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.plane import SharePlane
-from repro_torch.telemetry import MetricsRegistry
+from repro_torch.telemetry import NULL, MetricsRegistry, Telemetry
 
 # ---------------------------------------------------------------------------
 # link + bandwidth accounting
@@ -101,11 +101,21 @@ class BandwidthMeter:
 
     A view over ``comm.bytes`` / ``comm.msgs`` counter series in a
     private, always-enabled :class:`~repro_torch.telemetry.MetricsRegistry`,
-    so the per-plane byte totals in a report never depend on telemetry.
+    so the per-plane byte totals in a report never depend on telemetry;
+    :meth:`bind` rebases it onto a run's registry so the same totals
+    also appear in exported traces.
     """
 
-    def __init__(self):
-        self._registry = MetricsRegistry()
+    def __init__(self, registry: MetricsRegistry | None = None):
+        if registry is None or not registry.enabled:
+            registry = MetricsRegistry(max_series=64)
+        self._registry = registry
+
+    def bind(self, registry: MetricsRegistry) -> None:
+        """Account onto ``registry`` from now on (ignored when disabled —
+        a NullRegistry would silently drop the run's byte totals)."""
+        if registry.enabled:
+            self._registry = registry
 
     def account(self, plane: str, nbytes: int) -> None:
         self._registry.count("comm.bytes", int(nbytes), plane=plane)
@@ -267,11 +277,13 @@ class GossipTopology:
         rng: np.random.Generator | None = None,
         site_links: SiteLinks | None = None,
         online: Callable[[int], bool] | None = None,
+        telemetry: Telemetry | None = None,
     ):
         self.planes = planes  # shared registry (same dict as Network.planes)
         self.sampler = sampler
         self.link = link if link is not None else LinkModel()
         self.meter = meter if meter is not None else BandwidthMeter()
+        self.telemetry = telemetry if telemetry is not None else NULL
         self.site_links = site_links  # shared with Network.configure_sites
         self.rng = rng if rng is not None else np.random.default_rng(0)
         self.stores: dict[int, dict[str, dict[str, Any]]] = {}
@@ -281,6 +293,10 @@ class GossipTopology:
         # sampled nor initiates an exchange.  Its local store stays put (a
         # mailbox for in-flight deliveries); None = everyone reachable.
         self.online = online
+        # observe-only delivery hook (the observatory's coverage curves):
+        # called as on_deliver(dst, rec, plane_name, arrival_time) after
+        # every *admitted* delivery.  None costs one attribute check.
+        self.on_deliver: Callable[[int, Any, str, float], None] | None = None
 
     # -- membership ---------------------------------------------------------
     def add_agent(self, agent_id: int) -> None:
@@ -353,6 +369,8 @@ class GossipTopology:
     def _exchange(self, sched, t: float, a: int, b: int) -> int:
         """Push-pull reconciliation of one pair, every plane."""
         sent = 0
+        pair_bytes = 0
+        t_last = t
         link = self.pair_link(a, b)
         for name in sorted(self.planes):
             plane = self.planes[name]
@@ -365,25 +383,47 @@ class GossipTopology:
                     sent += 1
                     if link.drop > 0.0 and self.rng.random() < link.drop:
                         self.stats.n_dropped += 1
+                        self.telemetry.count("gossip.dropped", 1, plane=name)
                         continue
                     nbytes = plane.payload_nbytes(rec)
+                    pair_bytes += nbytes
                     self.meter.account(name, nbytes)
                     if sched is None:
-                        self._deliver(dst, rec, name)
+                        self._deliver(dst, rec, name, t)
                     else:
+                        arrival = t + link.transfer_time(nbytes)
+                        t_last = max(t_last, arrival)
                         sched.at(
-                            t + link.transfer_time(nbytes),
-                            lambda s, tt, d=dst, r=rec, p=name: self._deliver(d, r, p),
+                            arrival,
+                            lambda s, tt, d=dst, r=rec, p=name: self._deliver(
+                                d, r, p, tt
+                            ),
                             tag=f"gossip_deliver_{name}",
                         )
+        if self.telemetry.enabled and sent:
+            # span from initiation to the last in-flight delivery of the
+            # pair — a "gossip burst" on the shared gossip track
+            self.telemetry.span(
+                "gossip.exchange",
+                "gossip",
+                t,
+                t_last,
+                pair=f"{a}<->{b}",
+                records=sent,
+                bytes=pair_bytes,
+            )
+            self.telemetry.count("gossip.exchange.bytes", pair_bytes)
+            self.telemetry.observe("gossip.exchange.records", sent)
         return sent
 
-    def _deliver(self, dst: int, rec: Any, plane_name: str) -> bool:
+    def _deliver(self, dst: int, rec: Any, plane_name: str, t: float = 0.0) -> bool:
         if dst not in self.stores:  # agent left while the record was in flight
             return False
         plane = self.planes[plane_name]
         if plane.admit(self.local_store(dst, plane_name), rec):
             self.stats.n_delivered += 1
+            if self.on_deliver is not None:
+                self.on_deliver(dst, rec, plane_name, t)
             return True
         return False
 

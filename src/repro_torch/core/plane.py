@@ -58,6 +58,12 @@ class WeightSnapshot:
     the push.  ``params`` is a parameter tree the sender no longer writes
     (:meth:`~repro_torch.rl.agent.DQNAgent.snapshot_params` copies it), so
     it is safe to share by reference.
+
+    ``version_vector`` is BrainTorrent-style provenance the observatory
+    stamps when enabled: a sorted tuple of ``(agent_id, round_idx)``
+    pairs recording the sender's view of every peer's progress at push
+    time.  Purely observational — the default empty tuple is never read
+    by the numeric mixing path.
     """
 
     snap_id: str
@@ -65,6 +71,7 @@ class WeightSnapshot:
     round_idx: int
     sim_time: float
     params: Any
+    version_vector: tuple = ()
 
     @property
     def record_id(self) -> str:
@@ -156,6 +163,7 @@ class CompressedWeightSnapshot:
     treedef: tuple[tuple[str, str], ...]
     payload_nbytes: int
     dense_params: Any = None  # delta mode: sender-side reconstruction
+    version_vector: tuple = ()  # observational provenance, carried verbatim
 
     @property
     def record_id(self) -> str:
@@ -345,6 +353,7 @@ class CompressedWeightPlane(WeightPlane):
             treedef,
             payload,
             dense_params=_unflatten(treedef, recon) if mode == "delta" else None,
+            version_vector=item.version_vector,
         )
 
 

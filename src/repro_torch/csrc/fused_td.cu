@@ -11,6 +11,12 @@
 //   loss     = sum_b loss_row / B                         (per agent)
 //   grad_q   = dq / B at the selected action, 0 elsewhere
 //
+// and, when the caller asks for them (non-null pointers), the fleet
+// observatory's two per-agent statistics from the same launch:
+//
+//   td_abs   = sum_b |delta| / B       (the unclipped |delta|'s mean)
+//   q_max    = max_{b, a} |q[b, a]|    (NaN if any q is NaN)
+//
 // Replaces the TPU kernel src/repro/kernels/fused_td/kernel.py
 // (fused_td), which computed loss_row and dq over (block_b, A) VMEM tiles
 // and required B % block_b == 0; the reference's caller selected q_sel
@@ -29,7 +35,12 @@
 // block), the max over A in registers.  The per-agent sum is a tree in a
 // fixed order (each thread's rows in order, warp shuffles, then the
 // warps' partial sums through shared memory), so it is deterministic and
-// the same for any N; the block size depends on B alone.
+// the same for any N; the block size depends on B alone.  The statistics
+// ride the same tree: |delta| is summed beside the loss and max |q| is
+// reduced beside it, NaN-propagating at every level (the reference's
+// jnp.mean and jnp.max propagate NaN; fmaxf would drop it).  Without
+// them the kernel does exactly what it did before they existed: the
+// extra work is behind one uniform branch on a null pointer.
 //
 // The arithmetic is written with round-to-nearest intrinsics so that
 // nvcc cannot contract a multiply and an add into an FMA: the kernel then
@@ -55,6 +66,8 @@ struct FusedTdArgs {
   float* dq;            // [n, b] clip(delta, -1, 1)
   float* loss;          // [n]
   float* grad_q;        // [n, b, a]
+  float* td_abs;        // [n] or null: no statistics
+  float* q_max;         // [n], null exactly when td_abs is
   void* stream;         // a raw cudaStream_t of `device`
   int32_t device;
   int32_t n;
@@ -79,18 +92,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;  // lane 0 holds the warp's sum
 }
 
+// NaN wins, as in jnp.max: `v > best || v != v` keeps a NaN once seen.
+__device__ __forceinline__ float nan_max(float best, float v) {
+  return (v > best || v != v) ? v : best;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;  // lane 0 holds the warp's max
+}
+
 __global__ void __launch_bounds__(kMaxThreads) fused_td_kernel(FusedTdArgs p) {
   const int b = p.b, a = p.a;
   const float nb = static_cast<float>(b);
   const int64_t first = static_cast<int64_t>(blockIdx.x) * b;
-  float part = 0.f;
+  const bool stats = p.td_abs != nullptr;
+  float part = 0.f, abs_part = 0.f, qmax = 0.f;
   for (int i = threadIdx.x; i < b; i += blockDim.x) {
     const int64_t r = first + i;
     const float* qn = p.q_next + r * a;
     float best = qn[0];
     for (int k = 1; k < a; ++k) {
       const float v = qn[k];
-      best = (v > best || v != v) ? v : best;
+      best = nan_max(best, v);
     }
     const float* row = p.rows + r * p.f;
     // truncates and saturates, NaN to 0: astype(int32) in the reference
@@ -111,16 +138,43 @@ __global__ void __launch_bounds__(kMaxThreads) fused_td_kernel(FusedTdArgs p) {
     float* gq = p.grad_q + r * a;
     for (int k = 0; k < a; ++k) gq[k] = (valid && k == sel) ? g : 0.f;
     part = __fadd_rn(part, loss);
+    if (stats) {
+      abs_part = __fadd_rn(abs_part, ad);
+      const float* qr = p.q + r * a;
+      for (int k = 0; k < a; ++k) qmax = nan_max(qmax, fabsf(qr[k]));
+    }
   }
   __shared__ float warp_part[kMaxThreads / 32];
+  __shared__ float warp_abs[kMaxThreads / 32];
+  __shared__ float warp_qmax[kMaxThreads / 32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_warps = static_cast<int>(blockDim.x / 32);
   part = warp_sum(part);
   if (lane == 0) warp_part[warp] = part;
+  if (stats) {
+    abs_part = warp_sum(abs_part);
+    qmax = warp_max(qmax);
+    if (lane == 0) {
+      warp_abs[warp] = abs_part;
+      warp_qmax[warp] = qmax;
+    }
+  }
   __syncthreads();
   if (warp == 0) {
-    float v = lane < static_cast<int>(blockDim.x / 32) ? warp_part[lane] : 0.f;
+    float v = lane < n_warps ? warp_part[lane] : 0.f;
     v = warp_sum(v);
     if (lane == 0) p.loss[blockIdx.x] = __fdiv_rn(v, nb);
+    if (stats) {
+      // |q| >= 0, so 0 is the max's identity for the idle lanes
+      float s = lane < n_warps ? warp_abs[lane] : 0.f;
+      float m = lane < n_warps ? warp_qmax[lane] : 0.f;
+      s = warp_sum(s);
+      m = warp_max(m);
+      if (lane == 0) {
+        p.td_abs[blockIdx.x] = __fdiv_rn(s, nb);
+        p.q_max[blockIdx.x] = m;
+      }
+    }
   }
 }
 

@@ -2,10 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.experiments --list
     PYTHONPATH=src python -m repro_torch.experiments --scenario paper_fig2 \
-        [--fast] [--seed N] [--engine {fleet,fleet-eager,stepwise}] [--device cpu]
+        [--fast] [--seed N] [--engine {fleet,fleet-eager,stepwise}] [--device cpu] \
+        [--trace out.jsonl] [--dashboard out.html]
 
 Runs on the CUDA card unless ``--device cpu`` is given, and prints the
 same ``name,mean_dist_err=...`` line as ``python -m repro.experiments``.
+``--trace`` and ``--dashboard`` turn telemetry on (observe-only) and
+write the run's trace and observatory dashboard.  One ``--scenario`` a
+run; the reference's several ``--scenario`` flags and ``--json`` are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +45,18 @@ def main(argv=None) -> int:
         default=None,
         help="torch device to run on (default: cuda; 'cpu' runs on the CPU)",
     )
+    ap.add_argument(
+        "--trace",
+        default=None,
+        metavar="PATH",
+        help="capture a telemetry trace (Perfetto JSON; .jsonl for the flat format)",
+    )
+    ap.add_argument(
+        "--dashboard",
+        default=None,
+        metavar="PATH",
+        help="render the run's observatory dashboard (self-contained HTML)",
+    )
     args = ap.parse_args(argv)
     if args.list or not args.scenario:
         print(f"{'scenario':<24} {'system':<12} description")
@@ -55,7 +72,16 @@ def main(argv=None) -> int:
     spec = resolve(args.scenario, fast=args.fast, seed=args.seed)
     if args.engine is not None:
         spec = replace(spec, sys=replace(spec.sys, engine=args.engine))
-    report = run(spec, device=args.device)
+    report = run(
+        spec,
+        device=args.device,
+        trace_path=args.trace,
+        dashboard_path=args.dashboard,
+    )
+    if args.trace is not None:
+        print(f"wrote trace {args.trace}")
+    if args.dashboard is not None:
+        print(f"wrote dashboard {args.dashboard}")
     curve = " -> ".join(
         f"{p.mean_err:.2f}@{p.t:.1f}(n={p.n_agents})" for p in report.eval_curve
     )

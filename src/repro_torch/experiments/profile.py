@@ -91,9 +91,18 @@ def _timed(fn) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
-def _profile_steps(cfg: DQNConfig, n_agents: int, k_steps: int = 8) -> dict:
+def _profile_steps(
+    cfg: DQNConfig,
+    n_agents: int,
+    k_steps: int = 8,
+    *,
+    stats: bool = False,
+    repeats: int = 10,
+) -> dict:
     """Stacked train steps alone: ``k_steps`` steps of ``n_agents`` agents
-    on a random pool of valid rows, after one warm-up chunk."""
+    on a random pool of valid rows, after one warm-up chunk; the median
+    unprofiled wall of ``repeats`` chunks.  ``stats`` profiles the
+    observatory's chunk (``train_chunk_stats``) instead."""
     rng = np.random.default_rng(0)
     steps = FleetSteps(cfg, "cuda")
     slots = [steps.init_slot(seed) for seed in range(n_agents)]
@@ -106,14 +115,16 @@ def _profile_steps(cfg: DQNConfig, n_agents: int, k_steps: int = 8) -> dict:
     idx = torch.from_numpy(
         rng.integers(0, rows, (k_steps, n_agents, cfg.batch_size)).astype(np.int32)
     ).cuda()
-    _timed(lambda: steps.train_chunk(state, pool, idx))  # warm-up
-    plain = [_timed(lambda: steps.train_chunk(state, pool, idx))[1] for _ in range(10)]
+    chunk = steps.train_chunk_stats if stats else steps.train_chunk
+    _timed(lambda: chunk(state, pool, idx))  # warm-up
+    plain = [_timed(lambda: chunk(state, pool, idx))[1] for _ in range(repeats)]
     with profile(activities=ACTIVITIES) as prof:
-        _, wall_s = _timed(lambda: steps.train_chunk(state, pool, idx))
+        _, wall_s = _timed(lambda: chunk(state, pool, idx))
     dev = device_summary(prof, wall_s)
     return {
         "agents": n_agents,
         "steps": k_steps,
+        "stats": stats,
         "plain_wall_ms_per_step": statistics.median(plain) / k_steps * 1e3,
         "wall_ms_per_step": wall_s / k_steps * 1e3,
         "device_ms_per_step": dev["device_busy_s"] / k_steps * 1e3,

@@ -9,6 +9,9 @@ the train-while-serve serving plane —
 wires churn schedules, hub failures, populations and evaluation probes
 into the ADFLL system, runs it, and folds the probes and the final
 evaluation into the :class:`~repro_torch.core.experiment.Report`.
+Enabled telemetry reaches the ADFLL and serving systems (FedAvg and
+the single-agent baselines run without it, as in the reference); a
+trace and a dashboard of it are written on request.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from repro_torch.experiments.registry import get_scenario
 from repro_torch.experiments.spec import ScenarioSpec
 from repro_torch.experiments.systems import BaselineSystem, ServeSystem
 from repro_torch.rl.synth import all_tasks, paper_eight_tasks, patient_split
+from repro_torch.telemetry import Telemetry, write_dashboard, write_trace
 
 SpecLike = str | ScenarioSpec
 
@@ -98,6 +102,7 @@ def build(
     seed: int | None = None,
     hooks: Sequence[ExperimentHooks] = (),
     device: str | torch.device | None = None,
+    telemetry: Telemetry | None = None,
 ) -> System:
     """Construct (but do not run) the system a scenario describes."""
     spec = resolve(spec, fast=fast, seed=seed)
@@ -116,7 +121,13 @@ def build(
             # are the incumbents): the system starts empty
             sys_cfg = replace(sys_cfg, n_agents=0, agent_hub=(), agent_speed=())
         system = ADFLLSystem(
-            sys_cfg, spec.dqn, tasks, train_p, hooks=hooks, device=device
+            sys_cfg,
+            spec.dqn,
+            tasks,
+            train_p,
+            hooks=hooks,
+            telemetry=telemetry,
+            device=device,
         )
         if spec.agent_sites:
             system.network.configure_sites(
@@ -155,6 +166,7 @@ def build(
             train_steps=sys_cfg.train_steps_per_round,
             seed=spec.seed,
             device=device,
+            telemetry=telemetry,
         )
     return BaselineSystem(  # the single-agent Table 1 baselines
         spec.system,
@@ -204,11 +216,36 @@ def run(
     seed: int | None = None,
     hooks: Sequence[ExperimentHooks] = (),
     device: str | torch.device | None = None,
+    trace_path: str | None = None,
+    dashboard_path: str | None = None,
+    telemetry: Telemetry | None = None,
 ) -> Report:
-    """Execute one scenario end to end and return its :class:`Report`."""
+    """Execute one scenario end to end and return its :class:`Report`.
+
+    ``trace_path`` captures the run's telemetry (Perfetto JSON, or JSONL
+    when the suffix is ``.jsonl``) and ``dashboard_path`` renders it
+    (with the observatory's learning, propagation and health series)
+    into a self-contained HTML page; either one turns telemetry on, as
+    does an enabled ``telemetry`` bundle.  Telemetry is observe-only:
+    with or without it the run's numbers are bit-identical.
+    """
     rspec = resolve(spec, fast=fast, seed=seed)
-    system = build(rspec, hooks=hooks, device=device)
-    return evaluate_into(system.run(), system, rspec)
+    if telemetry is None and (trace_path is not None or dashboard_path is not None):
+        telemetry = Telemetry(enabled=True)
+    system = build(rspec, hooks=hooks, device=device, telemetry=telemetry)
+    report = evaluate_into(system.run(), system, rspec)
+    if trace_path is not None and telemetry is not None:
+        # after the evaluation: serving scenarios keep emitting through it
+        write_trace(telemetry, trace_path)
+    if dashboard_path is not None and telemetry is not None:
+        trace = {
+            "events": list(telemetry.tracer.events),
+            "metrics": telemetry.registry.summary(),
+        }
+        write_dashboard(
+            dashboard_path, trace, title=f"Fleet observatory — {rspec.name}"
+        )
+    return report
 
 
 __all__ = ["build", "evaluate_into", "resolve", "run"]

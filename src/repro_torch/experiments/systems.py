@@ -34,6 +34,7 @@ from repro_torch.rl.synth import make_volume
 from repro_torch.serve.driver import build_session, run_session
 from repro_torch.serve.queue import ServeRequest
 from repro_torch.serve.traffic import TrafficSpec
+from repro_torch.telemetry import Telemetry
 
 _LABELS = {
     "all_knowing": "AgentX",
@@ -130,7 +131,9 @@ class ServeSystem:
     serve-side metrics land in ``Report.extra["serve"]``.  ``evaluate()``
     routes held-out queries through the *same* continuous-batching
     service, so the scenario's ``mean_dist_err`` measures served
-    accuracy, not offline rollouts.
+    accuracy, not offline rollouts.  Enabled ``telemetry`` reaches the
+    session (its fleet, observatory and service) and its digest lands in
+    ``Report.extra["telemetry"]``.
     """
 
     label = "Serve"
@@ -147,6 +150,7 @@ class ServeSystem:
         train_steps: int = 20,
         seed: int = 0,
         device: str | torch.device | None = None,
+        telemetry: Telemetry | None = None,
     ):
         self.dqn_cfg = dqn_cfg
         self.tasks = list(tasks)
@@ -157,6 +161,7 @@ class ServeSystem:
         self.train_steps = train_steps
         self.seed = seed
         self.device = device
+        self.telemetry = telemetry
         self.session = None
 
     def run(self) -> Report:
@@ -168,6 +173,7 @@ class ServeSystem:
             tasks=self.tasks,
             patients=self.patients,
             device=self.device,
+            telemetry=self.telemetry,
         )
         serve_report = run_session(
             self.session,
@@ -183,6 +189,8 @@ class ServeSystem:
         # snapshot now: evaluate() keeps serving through the same
         # service, which would otherwise mutate these counters
         report.extra["serve"] = serve_report.summary()
+        if self.telemetry is not None and self.telemetry.enabled:
+            report.extra["telemetry"] = self.telemetry.summary()
         return report
 
     def evaluate(

@@ -205,7 +205,7 @@ def fused_td_pieces(dev: torch.device) -> dict:
     out = td.fused_td(q, q_next, rows, cols, gamma)
     ptrs = (q.data_ptr(), q_next.data_ptr(), rows.data_ptr())
     ptrs += tuple(x.data_ptr() for x in (out.loss_rows, out.dq, out.loss))
-    ptrs += (out.grad_q.data_ptr(), lib.raw_stream(index))
+    ptrs += (out.grad_q.data_ptr(), 0, 0, lib.raw_stream(index))
     args = td.launch_args(*ptrs, index, n, b, a, f, *cols, gamma)
     leaf = q.clone().requires_grad_(True)
     pieces = {

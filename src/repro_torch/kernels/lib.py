@@ -98,9 +98,9 @@ NVCC_FLAGS = (
 # batch, feat; 4 bytes of padding to sizeof.
 REPLAY_GATHER_ARGS = struct.Struct("@5P3i4x")
 # fused_td.cu FusedTdArgs: q, q_next, rows, loss_rows, dq, loss, grad_q,
-# stream; device, n, b, a, f, col_action, col_reward, col_done; gamma; 4
-# bytes of padding to sizeof.
-FUSED_TD_ARGS = struct.Struct("@8P8if4x")
+# td_abs, q_max (both null: no statistics), stream; device, n, b, a, f,
+# col_action, col_reward, col_done; gamma; 4 bytes of padding to sizeof.
+FUSED_TD_ARGS = struct.Struct("@10P8if4x")
 # rmsnorm.cu RmsnormArgs: x, scale, out, stream; device, n, d, route,
 # threads, rows_per_cta, vec; eps.
 RMSNORM_ARGS = struct.Struct("@4P7if")

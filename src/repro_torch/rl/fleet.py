@@ -16,7 +16,12 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   backpropagates, applies the stacked AdamW and syncs each slot's target
   on its own count.  The reference ``lax.scan``s the steps and ``vmap``s
   the agents; here the steps are a Python loop and the agent axis is a
-  batch dimension.
+  batch dimension.  :meth:`~FleetSteps.train_chunk_stats` is the same
+  loop carrying the fleet observatory's statistics: ``fused_td`` writes
+  each step's ``td_abs`` and ``q_max`` from its one launch, and the
+  chunk packs them with the losses, the gradient norms and a
+  params-finite flag into one tensor, so the flush still makes one
+  host transfer.
 * :class:`CollectSteps` / :func:`collect_fleet` — the collection phase:
   one stacked q-value forward per environment step for a cohort, with
   epsilon-greedy sampling on the host consuming each agent's own rng in
@@ -26,16 +31,18 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   ``(erb_id, version)``-keyed LRU device cache of flattened ERBs with a
   byte budget, the resident fast path, and futures that resolve in
   submission order.  :meth:`FleetEngine.train_step` is the stepwise
-  backend's one-step dispatch on the same state and cache.
+  backend's one-step dispatch on the same state and cache.  With an
+  observatory attached, flushes run the stats chunk and drain it into
+  the observatory at the flush's one host sync; with enabled telemetry
+  they record the flush span and counters.
 * :class:`ActSteps` / :func:`make_act_steps` — the serving plane's
   batched greedy-act program: each request gathers its own parameter
   row and the batch runs as one stacked forward.
 
 State updates are functional (new tensors, never writes into the
 resident ones), so a tensor handed out by ``get_params`` or
-``stacked_params`` stays a valid snapshot.  Waiting for later slices of
-the port: mesh sharding of the agent axis and the observatory's stats
-chunk.
+``stacked_params`` stays a valid snapshot.  Waiting for a later slice
+of the port: mesh sharding of the agent axis.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from repro_torch.kernels.fused_td import td_loss
 from repro_torch.kernels.replay_gather import replay_gather
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
 from repro_torch.rl.dqn import dqn_apply_stacked, dqn_init
+from repro_torch.telemetry import NULL
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -103,6 +111,8 @@ class FleetSteps:
     flat ``[R, F]`` device replay pool, and ``idx`` the ``[K, N, B]``
     int32 global row-index tensor (the one host->device transfer of a
     flush).  ``losses`` is ``[K, N]``: each slot's mean TD loss per step.
+    ``train_chunk_stats`` returns the same state with the statistics
+    packed beside the losses (:func:`unpack_stats`).
     """
 
     def __init__(self, cfg: DQNConfig, device: str | torch.device | None = None):
@@ -132,26 +142,30 @@ class FleetSteps:
         return out
 
     def loss(
-        self, params: dict, target: dict, batch: dict, rows: torch.Tensor
-    ) -> torch.Tensor:
+        self, params: dict, target: dict, batch: dict, rows: torch.Tensor, stats=None
+    ):
         """Per-slot mean TD loss ``[N]`` (``fleet.py::make_dqn_loss_fn``
         over the agent axis) of the ``[N, B, F]`` rows split into
-        ``batch``; the TD tail is one ``fused_td`` launch for all agents."""
+        ``batch``; the TD tail is one ``fused_td`` launch for all agents.
+        With ``stats`` (the ``td_abs``, ``q_max`` [N] tensors that launch
+        writes), ``(loss, td_abs, q_max)``."""
         cfg = self.cfg
         q = dqn_apply_stacked(cfg, params, batch["obs"], batch["loc"])
         with torch.no_grad():
             q_next = dqn_apply_stacked(
                 cfg, target, batch["next_obs"], batch["next_loc"]
             )
-        return td_loss(q, q_next, rows, self.td_cols, cfg.gamma)
+        return td_loss(q, q_next, rows, self.td_cols, cfg.gamma, stats)
 
-    def step(self, state: FleetState, rows: torch.Tensor):
-        """One train step of every slot on its ``[B, F]`` rows ``[N, B, F]``."""
+    def _step(self, state: FleetState, rows: torch.Tensor, stats):
+        """One train step; returns the new state, the losses ``[N]`` and
+        each slot's gradient norm ``[N]`` (the one AdamW clips by)."""
         batch = self.split_rows(rows)
         names = [(k, n) for k in state.params for n in state.params[k]]
         live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
         with torch.enable_grad():
-            losses = self.loss(live, state.target, batch, rows)
+            out = self.loss(live, state.target, batch, rows, stats)
+            losses = out if stats is None else out[0]
             # agents share no parameters: the gradient of the sum is each
             # agent's own gradient of its own mean loss
             flat = torch.autograd.grad(losses.sum(), [live[k][n] for k, n in names])
@@ -159,13 +173,20 @@ class FleetSteps:
         for (k, n), g in zip(names, flat, strict=True):
             grads[k][n] = g
         with torch.no_grad():
-            params, opt, _ = adamw_update(self.opt_cfg, state.params, grads, state.opt)
+            params, opt, gnorm = adamw_update(
+                self.opt_cfg, state.params, grads, state.opt
+            )
             count = state.count + 1
             sync = (count % self.cfg.target_update) == 0
             target = tree_map(
                 lambda t, p: torch.where(_per_slot(sync, p), p, t), state.target, params
             )
-        return FleetState(params, target, opt, count), losses.detach()
+        return FleetState(params, target, opt, count), losses.detach(), gnorm
+
+    def step(self, state: FleetState, rows: torch.Tensor):
+        """One train step of every slot on its ``[B, F]`` rows ``[N, B, F]``."""
+        state, losses, _ = self._step(state, rows, None)
+        return state, losses
 
     def train_chunk(self, state: FleetState, pool: torch.Tensor, idx: torch.Tensor):
         k_steps, n, b = idx.shape
@@ -176,6 +197,32 @@ class FleetSteps:
             state, loss = self.step(state, rows.reshape(n, b, self.feat))
             losses.append(loss)
         return state, torch.stack(losses)
+
+    def train_chunk_stats(
+        self, state: FleetState, pool: torch.Tensor, idx: torch.Tensor
+    ):
+        """:meth:`train_chunk` with the observatory's statistics (the
+        reference's ``train_chunk_stats``): the same launches and the same
+        state bit for bit, and instead of the losses one float32
+        ``[4K + 1, N]`` tensor, read with :func:`unpack_stats`.  Step k's
+        ``fused_td`` launch writes its ``td_abs`` and ``q_max`` straight
+        into rows ``K + k`` and ``2K + k``; the loss goes to row ``k``,
+        the gradient norm to ``3K + k``, and the last row is 1 where every
+        parameter of the slot is finite after the chunk."""
+        k_steps, n, b = idx.shape
+        ones = torch.ones(n * b, dtype=torch.float32, device=pool.device)
+        packed = torch.empty(
+            4 * k_steps + 1, n, dtype=torch.float32, device=pool.device
+        )
+        for k in range(k_steps):
+            rows = replay_gather(pool, idx[k].reshape(-1), ones)
+            stats = (packed[k_steps + k], packed[2 * k_steps + k])
+            state, loss, gnorm = self._step(state, rows.reshape(n, b, self.feat), stats)
+            packed[k].copy_(loss)
+            packed[3 * k_steps + k].copy_(gnorm)
+        flat = torch.cat([x.reshape(n, -1) for x in leaves(state.params)], 1)
+        packed[4 * k_steps].copy_(torch.isfinite(flat).all(1))
+        return state, packed
 
     def init_slot(self, seed: int) -> FleetState:
         """A 1-slot :class:`FleetState` from the port's own init (torch's
@@ -189,6 +236,20 @@ class FleetSteps:
             opt=adamw_init(params),
             count=torch.zeros(1, dtype=torch.int32, device=self.device),
         )
+
+
+def unpack_stats(packed: np.ndarray, k_steps: int) -> dict[str, np.ndarray]:
+    """The host copy of :meth:`FleetSteps.train_chunk_stats`' tensor as
+    the reference's stats dict: ``loss``, ``td_abs``, ``q_max`` and
+    ``grad_norm`` ``[K, N]``, ``params_finite`` ``[N]`` bool."""
+    k = k_steps
+    return {
+        "loss": packed[:k],
+        "td_abs": packed[k : 2 * k],
+        "q_max": packed[2 * k : 3 * k],
+        "grad_norm": packed[3 * k : 4 * k],
+        "params_finite": packed[4 * k] > 0.5,
+    }
 
 
 class CollectSteps:
@@ -411,7 +472,14 @@ class FleetEngine:
 
     ``n_chunk_steps`` counts stacked train steps: each launches the
     ``replay_gather`` kernel once (the minibatch rows of every agent) and
-    the ``fused_td`` kernel once (the TD tail of every agent).
+    the ``fused_td`` kernel once (the TD tail of every agent), with the
+    observatory on as well as off.
+
+    The owning system (``ADFLLSystem``, a serving session) replaces
+    ``telemetry``, ``sim_clock`` and ``observatory`` after construction;
+    the defaults cost nothing.  With an observatory, flushes run
+    :meth:`FleetSteps.train_chunk_stats` and hand its drain to
+    ``observatory.on_flush`` at the flush's one host sync.
     """
 
     def __init__(self, cfg: DQNConfig, *, device: str | torch.device | None = None):
@@ -430,6 +498,10 @@ class FleetEngine:
         self.n_steps_trained = 0
         self.n_chunk_steps = 0
         self.flush_sizes: list[int] = []
+        # observability (observe-only)
+        self.telemetry = NULL
+        self.sim_clock: Callable[[], float] | None = None
+        self.observatory = None
 
     # -- slots ---------------------------------------------------------------
     def add_slot(self, seed: int) -> int:
@@ -519,7 +591,9 @@ class FleetEngine:
         hit = self._erb_cache.get(key)
         if hit is not None:
             self._erb_cache.move_to_end(key)
+            self.telemetry.count("fleet.erb_cache.hits", 1)
             return hit
+        self.telemetry.count("fleet.erb_cache.misses", 1)
         flat = torch.from_numpy(erb_flatten(erb)).to(self.device)
         self._erb_cache[key] = flat
         self._erb_cache_nbytes += flat.numel() * flat.element_size()
@@ -529,6 +603,7 @@ class FleetEngine:
         ):
             _, evicted = self._erb_cache.popitem(last=False)
             self._erb_cache_nbytes -= evicted.numel() * evicted.element_size()
+            self.telemetry.count("fleet.erb_cache.evictions", 1)
         return flat
 
     # -- one step now (the stepwise backend) -----------------------------------
@@ -617,6 +692,8 @@ class FleetEngine:
             i = j
 
     def _flush_group(self, jobs: list[_Job]) -> None:
+        tel = self.telemetry
+        wall0 = tel.wall() if tel.enabled else 0.0
         n_jobs = len(jobs)
         k_steps = jobs[0].n_steps
         batch = jobs[0].eidx.shape[1]
@@ -648,18 +725,53 @@ class FleetEngine:
         else:
             g = torch.tensor(slots, device=self.device)
             sub = self.state.map(lambda x: x.index_select(0, g))
-        new, losses = self.steps.train_chunk(
-            sub, pool, torch.from_numpy(idx).to(self.device)
-        )
+        idx_t = torch.from_numpy(idx).to(self.device)
+        obs = self.observatory
+        if obs is None:
+            new, out = self.steps.train_chunk(sub, pool, idx_t)
+        else:
+            new, out = self.steps.train_chunk_stats(sub, pool, idx_t)
         if resident:
             self.state = new
         else:
             self.state = self.state.map(lambda s, ns: s.index_copy(0, g, ns), new)
-        losses_np = losses.cpu().numpy()  # the flush's one host sync
+        # the flush's one host sync: the losses, and with the observatory
+        # the statistics packed beside them
+        host = out.cpu().numpy()
+        if obs is None:
+            losses_np = host
+        else:
+            stats = unpack_stats(host, k_steps)
+            losses_np = stats["loss"]
+            sim_t = self.sim_clock() if self.sim_clock is not None else 0.0
+            obs.on_flush(slots, stats, n_jobs, sim_t)
         self.n_flushes += 1
         self.n_steps_trained += n_jobs * k_steps
         self.n_chunk_steps += k_steps
         self.flush_sizes.append(n_jobs)
+        if tel.enabled:
+            wall1 = tel.wall()
+            tel.span(
+                "fleet.flush",
+                "fleet",
+                wall0,
+                wall1,
+                clock="wall",
+                jobs=n_jobs,
+                k_steps=k_steps,
+                batch=batch,
+                pool_rows=total,
+                devices=1,
+                resident=resident,
+            )
+            if self.sim_clock is not None:
+                # the same flush pinned to simulated time, so trace views
+                # can correlate host cost with scheduler progress
+                tel.instant("fleet.flush", "fleet", self.sim_clock(), jobs=n_jobs)
+            tel.count("fleet.flushes", 1)
+            tel.count("fleet.steps_trained", n_jobs * k_steps)
+            tel.observe("fleet.flush.jobs", n_jobs)
+            tel.observe("fleet.flush.wall_s", wall1 - wall0)
         for jpos, job in enumerate(jobs):
             job.future.resolve(float(losses_np[-1, jpos]))
 
@@ -675,4 +787,5 @@ __all__ = [
     "make_act_steps",
     "make_dqn_opt_cfg",
     "tree_map",
+    "unpack_stats",
 ]

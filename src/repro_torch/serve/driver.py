@@ -24,7 +24,8 @@ from repro_torch.rl.fleet import FleetEngine, collect_fleet
 from repro_torch.rl.synth import paper_eight_tasks, patient_split
 from repro_torch.serve.publisher import ParamPublisher
 from repro_torch.serve.report import ServeReport
-from repro_torch.serve.service import LocalizationService, reject_enabled_telemetry
+from repro_torch.observatory import Observatory
+from repro_torch.serve.service import LocalizationService
 from repro_torch.serve.traffic import TrafficSpec, synthetic_requests
 from repro_torch.telemetry import Telemetry
 
@@ -92,17 +93,26 @@ def build_session(
     device: str | torch.device | None = None,
 ) -> ServeSession:
     """Fleet + publisher + service on ``device`` (``None`` = the CUDA
-    card), params published once (version 0)."""
+    card), params published once (version 0).  Enabled ``telemetry``
+    reaches the fleet and the service and brings the observatory, as in
+    ``ADFLLSystem`` (observe-only: the same results request by
+    request)."""
     if devices != 0:
         raise NotImplementedError(
             "repro_torch does not run devices != 0 (the multi-GPU "
             "fleet-sharding slice) yet"
         )
-    reject_enabled_telemetry(telemetry)
     engine = FleetEngine(cfg, device=device)
+    if telemetry is not None:
+        engine.telemetry = telemetry
     agents = [
         DQNAgent(i, cfg, seed=seed + i, engine=engine) for i in range(n_agents)
     ]
+    if telemetry is not None and telemetry.enabled:
+        obs = Observatory(telemetry)
+        engine.observatory = obs
+        for i, a in enumerate(agents):
+            obs.register_slot(a.slot, i)
     task_list = list(tasks if tasks is not None else paper_eight_tasks())
     if patients is None:
         patients, _ = patient_split(16)
@@ -115,6 +125,7 @@ def build_session(
         n_version_slots=traffic.n_version_slots,
         max_staleness=traffic.max_staleness,
         warmup=warmup,
+        telemetry=telemetry,
         device=engine.device,
     )
     return ServeSession(

@@ -30,7 +30,10 @@ results equal single-request serving's — tested, and the property that
 makes continuous batching safe to enable everywhere.
 
 The service runs on ``device`` (``None`` = the CUDA card): its ring and
-each tick's batch live there, and a missing card raises.
+each tick's batch live there, and a missing card raises.  With enabled
+``telemetry`` each request is a span on its agent's wall-clock track,
+each tick a span, swaps, deferred swaps and stalls instants, beside
+their counters and the latency histograms (observe-only).
 """
 
 from __future__ import annotations
@@ -48,16 +51,7 @@ from repro_torch.rl.fleet import _pow2, make_act_steps, tree_map
 from repro_torch.serve.publisher import ParamPublisher, ParamVersion
 from repro_torch.serve.queue import RequestQueue, ServeRequest, ServeResult, _Ticket
 from repro_torch.serve.report import RequestRecord, ServeReport
-from repro_torch.telemetry import Telemetry
-
-
-def reject_enabled_telemetry(telemetry: Telemetry | None) -> None:
-    """Serving carries only the disabled telemetry bundle so far."""
-    if telemetry is not None and telemetry.enabled:
-        raise NotImplementedError(
-            "repro_torch serves with telemetry disabled only: enabled telemetry "
-            "and the observatory are ROADMAP queue 1 item 8"
-        )
+from repro_torch.telemetry import NULL, Telemetry
 
 
 class LocalizationService:
@@ -76,7 +70,7 @@ class LocalizationService:
         telemetry: Telemetry | None = None,
         device: str | torch.device | None = None,
     ):
-        reject_enabled_telemetry(telemetry)
+        self.telemetry = telemetry if telemetry is not None else NULL
         if (publisher is None) == (params is None):
             raise ValueError("exactly one of publisher= or params= is required")
         if publisher is None:
@@ -148,6 +142,15 @@ class LocalizationService:
         target = (self._newest_slot + 1) % self.n_version_slots
         if self._slot_active[target] > 0:
             self.report.n_deferred_swaps += 1
+            if self.telemetry.enabled:
+                self.telemetry.instant(
+                    "serve.swap.deferred",
+                    "serve",
+                    self.telemetry.wall(),
+                    clock="wall",
+                    version=pv.version,
+                )
+                self.telemetry.count("serve.swaps.deferred", 1)
             return False
         n = self.n_agents
         tree_map(
@@ -158,6 +161,16 @@ class LocalizationService:
         self._slot_version[target] = pv.version
         self._newest_slot = target
         self.report.n_swaps += 1
+        if self.telemetry.enabled:
+            self.telemetry.instant(
+                "serve.swap",
+                "serve",
+                self.telemetry.wall(),
+                clock="wall",
+                version=pv.version,
+                slot=target,
+            )
+            self.telemetry.count("serve.swaps", 1)
         return True
 
     def sync_params(self) -> bool:
@@ -233,15 +246,43 @@ class LocalizationService:
         )
         v = self.report.versions_served
         v[ticket.version] = v.get(ticket.version, 0) + 1
+        if self.telemetry.enabled:
+            tel = self.telemetry
+            # the request's life on its agent's wall-clock track
+            tel.span(
+                "request",
+                f"agent{ticket.request.agent_id}",
+                tel.to_wall(ticket.submitted_at),
+                tel.to_wall(now),
+                clock="wall",
+                request_id=ticket.request_id,
+                version=ticket.version,
+                n_ticks=ticket.n_ticks,
+            )
+            tel.count("serve.requests.completed", 1)
+            tel.observe("serve.latency_s", now - ticket.submitted_at)
+            tel.observe("serve.queued_s", ticket.admitted_at - ticket.submitted_at)
 
     def tick(self) -> int:
         """One serving tick; returns how many requests completed."""
         now = time.perf_counter()
+        tel = self.telemetry
+        tick_t0 = tel.wall() if tel.enabled else 0.0
+        traces0 = self.steps.n_traces
         self.sync_params()
         if self.staleness > self.max_staleness:
             # staleness bound: the swap is blocked by in-flight rollouts
             # on the oldest slot — pause admission until it lands
             self.report.n_stall_ticks += 1
+            if tel.enabled:
+                tel.instant(
+                    "serve.stall",
+                    "serve",
+                    tel.wall(),
+                    clock="wall",
+                    staleness=self.staleness,
+                )
+                tel.count("serve.stall_ticks", 1)
         else:
             self._admit(now)
         self.report.queue_depth.append(len(self.queue))
@@ -285,6 +326,27 @@ class LocalizationService:
         self.report.n_ticks += 1
         self.report.batch_sizes.append(bucket)
         self.report.act_traces_end = self.steps.n_traces
+        if tel.enabled:
+            tick_t1 = tel.wall()
+            # new act shapes this tick (what a compiled program would
+            # retrace for; the reference's names)
+            compiled = self.steps.n_traces - traces0
+            tel.span(
+                "serve.tick",
+                "serve",
+                tick_t0,
+                tick_t1,
+                clock="wall",
+                n_active=n_active,
+                bucket=bucket,
+                done=done,
+                compiled=compiled,
+            )
+            if compiled:
+                tel.instant("serve.compile", "serve", tick_t1, clock="wall")
+                tel.count("serve.compiles", compiled)
+            tel.count("serve.ticks", 1)
+            tel.observe("serve.tick.batch", n_active)
         return done
 
     def drain(self) -> ServeReport:

@@ -22,12 +22,21 @@ imports JAX, so the tests run where the card is.
   versions): every request's final voxel, ticks and pinned version
   identical, one ``replay_gather`` and one ``fused_td`` launch per
   stacked step of the round between the waves.
+* the observatory's statistics: ``fused_td`` with ``td_abs`` and
+  ``q_max`` against ``fused_td_plain`` (1e-6, NaN where it has NaN) in
+  one launch, its other outputs bit for bit those of the launch
+  without statistics; ``train_chunk_stats`` bit for bit
+  ``train_chunk`` on the card, its statistics within 1e-4 of the CPU's;
+  and an observed ``paper_fig2`` against the unobserved one on the card
+  (identical records, as far as two unobserved runs agree), A = B =
+  stacked steps with the observatory on.
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -38,9 +47,13 @@ from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.core.experiment import ChurnEvent, HubFailure  # noqa: E402
 from repro_torch.experiments import registry  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
-from repro_torch.kernels.fused_td import fused_td  # noqa: E402
+from repro_torch.core.erb import flat_columns  # noqa: E402
+from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
+from repro_torch.optim.adamw import leaves  # noqa: E402
+from repro_torch.rl.fleet import FleetSteps, unpack_stats  # noqa: E402
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
+from repro_torch.telemetry import Telemetry  # noqa: E402
 
 # tiny widths: each run takes seconds on either device
 TINY = DQNConfig(
@@ -173,3 +186,117 @@ def test_batched_serving_matches_single_on_card(cuda):
     single, single_buckets, batched, batched_buckets = out
     assert single_buckets == {1} and max(batched_buckets) > 1
     assert single == batched and {v for *_, v in single} == {0, 1}
+
+
+def _td_inputs(rng, n, b, a, out_of_range, device):
+    cols = flat_columns(TINY.box_size)
+    td_cols = tuple(cols[k].start for k in ("action", "reward", "done"))
+    q = rng.standard_normal((n, b, a)).astype(np.float32)
+    q_next = rng.standard_normal((n, b, a)).astype(np.float32)
+    rows = rng.standard_normal((n, b, cols["done"].stop)).astype(np.float32)
+    rows[..., td_cols[0]] = rng.integers(0, a, (n, b))
+    rows[..., td_cols[2]] = rng.random((n, b)) < 0.3
+    if out_of_range:
+        edge = [2.7, -0.5, np.nan, -1, -6, 6, 7, -7, -100, 1e10, 5.9, 0]
+        rows[0, : len(edge), td_cols[0]] = edge[:b]
+        q[n - 1, 0, 0] = np.nan
+    ins = [torch.from_numpy(x).to(device) for x in (q, q_next, rows)]
+    return ins, td_cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,b,a,out_of_range",
+    [(4, 32, 6, False), (3, 50, 6, False), (1, 7, 1, False), (2, 12, 6, True)],
+)
+def test_fused_td_stats_match_plain_on_card(cuda, n, b, a, out_of_range):
+    ins, td_cols = _td_inputs(np.random.default_rng(b), n, b, a, out_of_range, cuda)
+    before = fused_td.launches
+    stats = (torch.empty(n, device=cuda), torch.empty(n, device=cuda))
+    got = fused_td(*ins, td_cols, 0.9, stats)
+    bare = fused_td(*ins, td_cols, 0.9)
+    want = fused_td_plain(*ins, td_cols, 0.9)
+    torch.cuda.synchronize()
+    assert fused_td.launches == before + 2  # one launch each
+    assert got.td_abs is stats[0] and got.q_max is stats[1]
+    for name in ("td_abs", "q_max"):
+        torch.testing.assert_close(
+            getattr(got, name), getattr(want, name), atol=1e-6, rtol=1e-6,
+            equal_nan=True, msg=name,
+        )
+    # the statistics change no other output
+    for x, y in zip(got[:4], bare[:4], strict=True):
+        assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+    if out_of_range:
+        assert torch.isnan(got.td_abs[0]) and torch.isnan(got.q_max[-1])
+
+
+def _chunk_inputs(rng, steps, n):
+    cfg = steps.cfg
+    slots = [steps.init_slot(seed) for seed in range(n)]
+    state = slots[0].map(lambda *xs: torch.cat(xs), *slots[1:])
+    cols = flat_columns(cfg.box_size)
+    pool = rng.random((256, cols["done"].stop), dtype=np.float32)
+    pool[:, cols["action"].start] = rng.integers(0, cfg.n_actions, 256)
+    pool[:, cols["done"].start] = rng.random(256) < 0.1
+    idx = rng.integers(0, 256, (4, n, cfg.batch_size)).astype(np.int32)
+    return state, torch.from_numpy(pool), torch.from_numpy(idx)
+
+
+@pytest.mark.cuda
+def test_train_chunk_stats_on_card(cuda):
+    cpu_steps = FleetSteps(TINY, "cpu")
+    state, pool, idx = _chunk_inputs(np.random.default_rng(0), cpu_steps, 3)
+    _, cpu_packed = cpu_steps.train_chunk_stats(state, pool, idx)
+    steps = FleetSteps(TINY, cuda)
+    state, pool, idx = (state.map(lambda x: x.to(cuda)), pool.to(cuda), idx.to(cuda))
+    replay_gather.launches = fused_td.launches = 0
+    new, packed = steps.train_chunk_stats(state, pool, idx)
+    assert replay_gather.launches == fused_td.launches == 4
+    plain, losses = steps.train_chunk(state, pool, idx)
+    torch.cuda.synchronize()
+    stats = unpack_stats(packed.cpu().numpy(), 4)
+    assert np.array_equal(stats["loss"], losses.cpu().numpy())
+    for a, b in zip(leaves(new.params), leaves(plain.params), strict=True):
+        assert torch.equal(a, b)
+    want = unpack_stats(cpu_packed.numpy(), 4)
+    for name in ("loss", "td_abs", "q_max", "grad_norm"):
+        np.testing.assert_allclose(stats[name], want[name], atol=1e-4, rtol=0)
+    assert stats["params_finite"].all() and want["params_finite"].all()
+
+
+def _records(report):
+    return json.dumps(
+        [dataclasses.astuple(r) for r in report.history], default=str
+    ), report.mean_dist_err
+
+
+@pytest.mark.cuda
+def test_observed_run_matches_unobserved_on_card(cuda):
+    spec = _tiny("paper_fig2")
+    runs = []
+    for tel in (None, None, Telemetry(enabled=True)):
+        system = build(spec, device=cuda, telemetry=tel)
+        replay_gather.launches = fused_td.launches = 0
+        report = system.run()
+        launches = (replay_gather.launches, fused_td.launches)
+        evaluate_into(report, system, spec)
+        runs.append((system, report, launches))
+    (_, off1, _), (_, off2, _), (system, on, launches) = runs
+    steps = system.engine.n_chunk_steps
+    assert launches == (steps, steps) and steps > 0
+    if _records(off1) == _records(off2):
+        assert _records(on) == _records(off1)
+    else:  # the card differs from itself: on vs off may differ as much
+        worst = max(
+            abs(a.loss - b.loss) for a, b in zip(off1.history, off2.history)
+        )
+        assert all(
+            abs(a.loss - b.loss) <= worst for a, b in zip(on.history, off1.history)
+        )
+    learning = on.extra["learning"]
+    assert learning and all(
+        np.isfinite(doc["last_loss"]) and doc["nonfinite_flushes"] == 0
+        for doc in learning.values()
+    )
+    assert on.extra["health"]["status"] != "alert"

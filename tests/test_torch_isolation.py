@@ -20,6 +20,8 @@ _PROBE = """
 import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+# the framework-free copies are scanned like the rest
+assert {"repro_torch.telemetry.trace", "repro_torch.observatory.learning"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -44,9 +46,9 @@ def test_port_imports_no_jax_and_no_reference():
         check=True,
     ).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
-    # every module of the port was imported: the zoo's, the experiments'
-    # and the sweeps' too
-    assert n_modules >= 71
+    # every module of the port was imported: the zoo's, the experiments',
+    # the sweeps', the telemetry's and the observatory's too
+    assert n_modules >= 80
     assert bad == "[]"
 
 

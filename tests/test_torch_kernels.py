@@ -429,9 +429,9 @@ def test_packed_argument_layouts():
     assert struct.unpack_from("<5Q3i", raw) == (1, 2, 3, 4, 5, 6, 7, 8)
     raw = rmsnorm.launch_args(1, 2, 3, 4, 5, 6, 7, ("masked", 32, 8, True), 0.5)
     assert struct.unpack("<4Q7if", raw) == (1, 2, 3, 4, 5, 6, 7, 1, 32, 8, 1, 0.5)
-    assert lib.FUSED_TD_ARGS.size == 8 * 8 + 8 * 4 + 4 + 4
-    raw = td_module.launch_args(*range(1, 14), 515, 516, 1032, 0.5)
-    assert struct.unpack("<8Q8if4x", raw) == (*range(1, 14), 515, 516, 1032, 0.5)
+    assert lib.FUSED_TD_ARGS.size == 10 * 8 + 8 * 4 + 4 + 4
+    raw = td_module.launch_args(*range(1, 16), 515, 516, 1032, 0.5)
+    assert struct.unpack("<10Q8if4x", raw) == (*range(1, 16), 515, 516, 1032, 0.5)
     assert lib.FLASH_ATTENTION_ARGS.size == 5 * 8 + 8 * 4 + 2 * 4
     raw = attention_module.launch_args(*range(1, 12), 1, 0, 0.25, 2.0)
     assert struct.unpack("<5Q8i2f", raw) == (*range(1, 12), 1, 0, 0.25, 2.0)
@@ -472,8 +472,12 @@ def test_replay_gather_kernel_matches_plain_on_card(cuda, rng, cap, feat, batch)
 
 
 def _assert_tail_equal(got, want):
-    """All four outputs within 1e-6 (NaN where the plain version has NaN)."""
+    """Every output within 1e-6 (NaN where the plain version has NaN); the
+    statistics where both sides carry them (the plain version always
+    does, the kernel only when asked)."""
     for name, x, y in zip(got._fields, got, want, strict=True):
+        if name in ("td_abs", "q_max") and (x is None or y is None):
+            continue
         torch.testing.assert_close(x, y, atol=1e-6, rtol=1e-6, equal_nan=True, msg=name)
 
 

@@ -39,6 +39,7 @@ from repro_torch.serve import (  # noqa: E402
 )
 from repro_torch.serve.queue import RequestQueue, _Ticket  # noqa: E402
 from repro_torch.serve.report import RequestRecord  # noqa: E402
+from repro_torch.telemetry import Telemetry  # noqa: E402
 
 # the reference's tests/test_serve.py widths
 CFG = DQNConfig(
@@ -436,17 +437,16 @@ def test_session_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         build_session(CFG, n_agents=1, traffic=traffic, devices=2, device="cpu")
 
-    class Enabled:
-        enabled = True
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_session(
-            CFG, n_agents=1, traffic=traffic, telemetry=Enabled(), device="cpu"
-        )
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LocalizationService(
-            CFG, params=_stacked_params(1), telemetry=Enabled(), device="cpu"
-        )
+    # enabled telemetry is ported: the session's fleet gets the
+    # observatory and the service the bundle
+    tel = Telemetry(enabled=True)
+    session = build_session(CFG, n_agents=1, traffic=traffic, telemetry=tel, device="cpu")
+    assert session.engine.observatory is not None
+    assert session.engine.telemetry is tel and session.service.telemetry is tel
+    service = LocalizationService(
+        CFG, params=_stacked_params(1), telemetry=tel, device="cpu"
+    )
+    assert service.telemetry is tel
 
 
 def test_serve_traffic_requires_serve_system():
