@@ -97,7 +97,10 @@ non-zero exit code and no result line:
    observatory on): every request identical to (b)'s, 20 launches of
    each fleet kernel.
 13. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
-   their plain versions on the card at the serving path's shapes and at
+   their plain versions on the card at the serving path's shapes (of
+   h2o-danube-3-4b, and the prefills of qwen2.5-14b and starcoder2-15b:
+   head_dim 128; rmsnorm also at qwen's d 5120 and at danube's train
+   step [2048, 3840]) and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
    scalar kernel otherwise), timed like phase 3 beside one PyTorch library
@@ -105,19 +108,24 @@ non-zero exit code and no result line:
    where the window does not bind); rmsnorm is bound by bytes, attention
    by operations (4 B Hq D flops per unmasked pair at the dtype's peak).
    rmsnorm's cases cover both of its routes (``cta``, ``masked``), and
-   each must move its route's launch count.
+   each must move its route's launch count.  rmsnorm's backward
+   (``RMSNorm``: the kernel forward, a plain float32 backward) against
+   autograd through the plain version at the train shape, bf16 and f32
+   (3e-2 and 1e-5 of each output's largest magnitude).
 14. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
    agree within 1e-4.
-15. zoo_main — ``python -m repro_torch.launch.serve`` at full width:
-   h2o-danube-3-4b in bfloat16, random weights drawn on the card from
-   seed 0, batch 4, prompt 1000, 32 greedy steps; launches read around
-   the prefill and decode alone (24 ``flash_attention``, all on the
-   tensor-core route, 49 x 33 ``rmsnorm``, all on the ``cta`` route:
-   49 at prefill, 49 x 32 at decode), then decode logits
-   at 4 positions against the teacher-forced ``forward`` on the card.
-
+15. zoo_main — ``python -m repro_torch.launch.serve`` at full width for
+   h2o-danube-3-4b, qwen2.5-14b and starcoder2-15b in turn, each in
+   bfloat16, random weights drawn on the card from seed 0, batch 4,
+   prompt 1000, 32 greedy steps, freed before the next; launches read
+   around the prefill and decode alone (``flash_attention`` once a layer,
+   all on the tensor-core route: 24, 48, 40; ``rmsnorm`` (2L + 1) x 33,
+   all on the ``cta`` route: 1617 for danube, 3201 for qwen, none for
+   starcoder2's LayerNorm), then decode logits at 4 positions against
+   the teacher-forced ``forward`` on the card.  Init, peak memory,
+   prefill and decode times printed for each.
 16. observatory (run after the Table 2 sweep, before phase 13) —
    ``paper_fig2 --fast`` at ``DQNConfig()`` (4 agents, ``share_planes``
    as registered; evaluation cut to one patient) twice with telemetry
@@ -134,20 +142,44 @@ non-zero exit code and no result line:
    device time with statistics on and off
    (``repro_torch.experiments.profile._profile_steps``).
 
+17. cli (after the observatory) — the reference CI's experiments call
+   through the port's CLI: ``--scenario churn_addition_fig4 --scenario
+   gossip_hetero --fast --json --trace --dashboard`` into a temporary
+   directory; exit 0, the per-scenario traces and dashboards, the JSON's
+   keys those of ``benchmarks/baselines/BENCH_experiments.json``, one
+   launch of each fleet kernel per stacked step.
+18. lm_train_chunk (before zoo_main) — a reduced float32 h2o-danube-3-4b
+   card vs CPU from one init: ``loss_fn`` and its backward (loss 1e-5
+   relative, every gradient leaf within 1e-4 of its largest magnitude
+   and non-zero on the card), one ``train_step`` each way, one at
+   ``microbatches=2``; C 2L + 1 times a forward, D never.
+19. lm_train_main — ``python -m repro_torch.launch.train`` for
+   h2o-danube-3-4b at full width and depth in bfloat16 with float32
+   moments, batch 2, seq 1024, 4 steps: finite losses, ``gnorm > 0``
+   every step, C (2L + 1) x 4 times, D never; wall, tokens a second and
+   peak memory printed.
+
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
 paths (main, baselines, sweep, topology, population, serve,
-table2_sweep, observatory) and the stepwise path: their entries carry
-``launches_by_path`` and ``launches`` is its sum.
+table2_sweep, observatory, cli) and the stepwise path, ``rmsnorm`` and
+``flash_attention`` on the zoo's (lm_train_chunk, lm_train_main and
+zoo_main for each arch): every entry carries ``launches_by_path`` and
+``launches`` is its sum.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import io
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from dataclasses import replace
@@ -162,6 +194,7 @@ from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.core.experiment import ExperimentHooks  # noqa: E402
+from repro_torch.experiments import __main__ as experiments_cli  # noqa: E402
 from repro_torch.experiments.profile import _profile_steps  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
@@ -179,13 +212,30 @@ from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather,
     replay_gather_plain,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models.model import Model, forward, logits_fn  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    Model,
+    forward,
+    logits_fn,
+    make_loss_fn,
+    make_train_step,
+)
 from repro_torch.models.rope import positions_for  # noqa: E402
-from repro_torch.optim.adamw import leaves  # noqa: E402
+from repro_torch.optim.adamw import (  # noqa: E402
+    AdamWConfig,
+    leaves,
+    tree_adamw_init,
+    tree_leaves,
+)
 from repro_torch.rl.dqn import dqn_init  # noqa: E402
-from repro_torch.rl.fleet import ActSteps, FleetSteps, tree_map  # noqa: E402
+from repro_torch.rl.fleet import (  # noqa: E402
+    ActSteps,
+    FleetEngine,
+    FleetSteps,
+    tree_map,
+)
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
 from repro_torch.telemetry import Telemetry, load_trace, write_trace  # noqa: E402
 
@@ -195,7 +245,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 N_AGENTS, BATCH = 4, 32  # the fleet's minibatch rows per step: N * B
 ZOO_ARCH = "h2o-danube-3-4b"
+# zoo_main serves each at full width; the first is the zoo's reference arch
+ZOO_ARCHS = (ZOO_ARCH, "qwen2.5-14b", "starcoder2-15b")
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
+# lm_train_main: launch.train at full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
+# the reference CI's experiments smoke (.github/workflows/ci.yml)
+CLI_SCENARIOS = ("churn_addition_fig4", "gossip_hetero")
+ROOT = Path(__file__).resolve().parent
+BENCH_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_experiments.json"
 RMS_EPS = get_config(ZOO_ARCH).norm_eps
 KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention)
 FLEET_KERNELS = ("replay_gather", "fused_td")
@@ -208,6 +266,12 @@ BASELINES = {
 }
 # sub-entries and extra times a kernel's entry of the kernels line carries
 EXTRA_FIELDS = (
+    "qwen25_14b_prefill",
+    "qwen25_14b_decode",
+    "starcoder2_15b_prefill",
+    "train",
+    "backward",
+    "launches_by_path",
     "stats_ms",
     "stats_device_ms",
     "stats_bound_ms",
@@ -1254,19 +1318,28 @@ def phase_serve(dev) -> dict[str, int]:
 
 def check_rmsnorm(dev) -> dict:
     """The prefill [B*S, d] and decode [B, d] calls of the zoo main path
-    (the ``cta`` route), float32 rows, many and few 16 KB rows (the
-    reference's largest, d = 8192 bf16), and the ``masked`` route:
-    rows of 1001 elements, whose width is no multiple of 16 bytes, rows
-    over 16 KB, and an x 2 bytes off a 16-byte boundary.  Each case must
-    move its route's launch count.  Tolerances: bf16 2e-2 (one bf16
-    rounding, as tests/test_kernels_rmsnorm.py), f32 1e-5 (sum order and
-    rsqrt)."""
+    (the ``cta`` route) for h2o-danube-3-4b (d 3840) and qwen2.5-14b
+    (d 5120: 640 vectors a row, the 256-thread plan at prefill too), the
+    danube train step's forward [B*S, d] at batch 2, seq 1024, float32
+    rows, many and few 16 KB rows (the reference's largest, d = 8192
+    bf16), and the ``masked`` route: rows of 1001 elements, whose width is
+    no multiple of 16 bytes, rows over 16 KB, and an x 2 bytes off a
+    16-byte boundary.  Each case must move its route's launch count.
+    Tolerances: bf16 2e-2 (one bf16 rounding, as
+    tests/test_kernels_rmsnorm.py), f32 1e-5 (sum order and rsqrt).
+    Then C's backward (``RMSNorm``, plain torch) against autograd through
+    ``rmsnorm_plain`` at the train shape in bf16 and f32: 3e-2 and 1e-5
+    of each output's largest magnitude."""
     rng = np.random.default_rng(3)
     d = get_config(ZOO_ARCH).d_model
+    dq = get_config("qwen2.5-14b").d_model
     bf, f32 = torch.bfloat16, torch.float32
     cases = (
         ("prefill", ZOO_BATCH * ZOO_PROMPT, d, bf, "cta", 0, 2e-2),
         ("decode", ZOO_BATCH, d, bf, "cta", 0, 2e-2),
+        ("qwen25_14b_prefill", ZOO_BATCH * ZOO_PROMPT, dq, bf, "cta", 0, 2e-2),
+        ("qwen25_14b_decode", ZOO_BATCH, dq, bf, "cta", 0, 2e-2),
+        ("train", TRAIN_BATCH * TRAIN_SEQ, d, bf, "cta", 0, 2e-2),
         ("many_f32", 1500, 1000, f32, "cta", 0, 1e-5),
         ("many_16k", 1024, 8192, bf, "cta", 0, 2e-2),
         ("one_f32", 1, d, f32, "cta", 0, 1e-5),
@@ -1301,7 +1374,9 @@ def check_rmsnorm(dev) -> dict:
             f"rmsnorm {name} [{n}, {width}] {dtype}: max|d|={err}",
         )
         worst = max(worst, err)
-        if name not in ("prefill", "decode"):
+        if name in ("many_f32", "many_16k", "one_f32", "ragged", "few_16k"):
+            continue
+        if name in ("tail", "wide", "unaligned"):
             continue
         nbytes = 2 * n * width * x.element_size() + width * 4
         timed[name] = {
@@ -1318,9 +1393,59 @@ def check_rmsnorm(dev) -> dict:
             "bound_by": "bytes",
             "shape": [n, width, str(dtype).removeprefix("torch.")],
         }
-    main = {"max_abs_err": worst, **timed["prefill"], "decode": timed["decode"]}
+    main = {
+        "max_abs_err": worst,
+        **timed.pop("prefill"),
+        **timed,
+        "backward": check_rmsnorm_backward(dev),
+    }
     emit({"phase": "kernel", "name": "rmsnorm", **main})
     return main
+
+
+def check_rmsnorm_backward(dev) -> dict:
+    """C's backward at the train shape, bf16 and f32, against autograd
+    through ``rmsnorm_plain``; times of one forward and backward each."""
+    n, d = TRAIN_BATCH * TRAIN_SEQ, get_config(ZOO_ARCH).d_model
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for dtype, rtol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-5)):
+        x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+        scale = torch.randn(d, generator=gen, device=dev)
+        g = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+        xa, sa = x.requires_grad_(), scale.requires_grad_()
+
+        def kernel():
+            y = RMSNorm.apply(xa, sa, RMS_EPS)
+            return (y, *torch.autograd.grad(y, (xa, sa), g))
+
+        def plain():
+            y = rmsnorm_plain(xa, sa, RMS_EPS)
+            return (y, *torch.autograd.grad(y, (xa, sa), g))
+
+        before = rmsnorm.launches
+        got = kernel()
+        launched = rmsnorm.launches - before
+        want = plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for key, a, b in zip(("y", "dx", "dscale"), got, want, strict=True):
+            a, b = a.detach(), b.detach()
+            err = float((a.float() - b.float()).abs().max())
+            scale_ = float(b.float().abs().max())
+            require(
+                a.dtype == b.dtype and err <= rtol * scale_,
+                f"rmsnorm backward {dtype} {key}: max|d|={err}, max={scale_}",
+            )
+            errs[key] = err / scale_
+        require(launched == 1, f"rmsnorm backward: {launched} launches, not 1")
+        out[str(dtype).removeprefix("torch.")] = {
+            "rel_err": errs,
+            "tol": rtol,
+            "ms": cuda_ms(kernel, reps=50, warmup=5),
+            "plain_ms": cuda_ms(plain, reps=50, warmup=5),
+        }
+    return out
 
 
 def unmasked_pairs(s: int, window: int | None) -> int:
@@ -1351,8 +1476,14 @@ def check_flash_attention(dev) -> dict:
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     w = cfg.sliding_window
     bf, f32 = torch.bfloat16, torch.float32
+    qw, sc = get_config("qwen2.5-14b"), get_config("starcoder2-15b")
     cases = (
         ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, d, bf, w, 0.0, 3e-2),
+        # head_dim 128 prefills of the two 15 B configs (no window)
+        ("qwen25_14b_prefill", ZOO_BATCH, ZOO_PROMPT, qw.n_heads, qw.n_kv_heads,
+         qw.resolved_head_dim, bf, None, 0.0, 3e-2),
+        ("starcoder2_15b_prefill", ZOO_BATCH, ZOO_PROMPT, sc.n_heads, sc.n_kv_heads,
+         sc.resolved_head_dim, bf, None, 0.0, 3e-2),
         ("window", 1, 4608, hq, hkv, d, bf, w, 0.0, 3e-2),
         ("softcap", 2, 333, 8, 2, d, f32, None, 30.0, 2e-5),
         ("tile", 1, 64, 1, 1, 64, bf, None, 0.0, 3e-2),
@@ -1392,12 +1523,14 @@ def check_flash_attention(dev) -> dict:
             f"flash_attention {name} {[b, s, nq, nkv, hd]} {dtype}: max|d|={err}",
         )
         worst = max(worst, err)
-        if name not in ("main", "window"):
+        if name not in ("main", "window") and not name.endswith("_prefill"):
             continue
         bound, by = attention_bound(b, s, nq, nkv, hd, dtype, window)
         # SDPA's boolean mask: True = attend (causal, inside the window)
         i = torch.arange(s, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        mask = i[None, :] <= i[:, None]
+        if window is not None:
+            mask &= i[:, None] - i[None, :] < window
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         reps = 50 if name == "main" else 20
         out[name] = {
@@ -1413,10 +1546,12 @@ def check_flash_attention(dev) -> dict:
             "bound_by": by,
             "shape": [b, s, nq, nkv, hd, str(dtype).removeprefix("torch.")],
         }
-        if name == "main":
-            # the window (4096) does not bind at S = 1000: is_causal computes
-            # the same function and may take SDPA's flash backend
-            require(s <= window, "the main case's window must not bind")
+        if name != "window":
+            # no window, or one (4096) that does not bind at S = 1000:
+            # is_causal computes the same function and may take SDPA's
+            # flash backend
+            require(window is None or s <= window, f"{name}: the window binds")
+
             def causal():
                 return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
 
@@ -1426,7 +1561,7 @@ def check_flash_attention(dev) -> dict:
                 lambda: attention_plain(q, k, v, **kw), reps=20, warmup=2
             )
         del q, k, v, got, want, mask
-    main = {"max_abs_err": worst, **out["main"], "window": out["window"]}
+    main = {"max_abs_err": worst, **out.pop("main"), **out}
     emit({"phase": "kernel", "name": "flash_attention", **main})
     return main
 
@@ -1614,21 +1749,286 @@ def phase_observatory(dev) -> dict[str, int]:
     return {k: launches[k] for k in FLEET_KERNELS}
 
 
-def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
-    """The serving CLI's path at full width, then decode logits at 4
-    positions against the teacher-forced forward on the card.
+def _loss_and_grads(cfg, params, batch):
+    """``loss_fn``'s loss and its gradients (in ``tree_leaves`` order) at a
+    copy of ``params`` that requires them; C and D launches moved."""
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    flat = tree_leaves(live)
+    before = rmsnorm.launches, flash_attention.launches
+    total, metrics = make_loss_fn(cfg)(live, batch)
+    grads = torch.autograd.grad(total, flat)
+    moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
+    return float(metrics["loss"].detach()), [g.float().cpu() for g in grads], moved
+
+
+def phase_lm_train_chunk(dev) -> dict[str, int]:
+    """A narrow float32 h2o-danube-3-4b (2 kv heads, window 64, as
+    zoo_chunk), card (C on the card) vs CPU (plain versions), from the
+    same params and tokens: ``loss_fn`` and its backward, then one
+    ``train_step`` each way and, on the card, one at ``microbatches=2``.
+    Loss within 1e-5 relative; every gradient leaf within 1e-4 of its
+    largest magnitude, and non-zero on the card (a kernel output that
+    autograd cannot see through would leave the norms and the attention
+    projections without one); C launched 2L + 1 times a forward (k times
+    that with k microbatches), D never."""
+    cfg = replace(get_config(ZOO_ARCH).reduced(), n_kv_heads=2, sliding_window=64)
+    rng = np.random.default_rng(6)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 97)), dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = Model(cfg, "cpu").init_params(0)
+    Model(cfg, dev)  # the card's precision settings (TF32 off)
+    per_forward = 2 * cfg.n_layers + 1
+    reset_launches()
+    loss_c, grads_c, moved_c = _loss_and_grads(cfg, params, batch)
+    loss_g, grads_g, moved_g = _loss_and_grads(
+        cfg, tree_to(params, dev), tree_to(batch, dev)
+    )
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    leaf_err = max(
+        float((g - c).abs().max()) / float(c.abs().max())
+        for g, c in zip(grads_g, grads_c, strict=True)
+    )
+    zero_leaves = [i for i, g in enumerate(grads_g) if not bool(g.abs().max() > 0)]
+    steps = {}
+    opt = AdamWConfig()
+    for name, where, k in (("cpu", "cpu", 1), ("gpu", dev, 1), ("gpu_k2", dev, 2)):
+        # a copy each: the step updates its state in place
+        p = tree_map(lambda t: t.clone(), tree_to(params, where))
+        state = {"params": p, "opt": tree_adamw_init(opt, p)}
+        step = make_train_step(cfg, opt, microbatches=k)
+        before = rmsnorm.launches, flash_attention.launches
+        state, m = step(state, tree_to(batch, where))
+        steps[name] = {
+            "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "launches": (
+                rmsnorm.launches - before[0],
+                flash_attention.launches - before[1],
+            ),
+            "params": [t.float().cpu() for t in tree_leaves(state["params"])],
+        }
+    launches = read_launches()
+    step_err = max(
+        abs(steps["gpu"][key] - steps["cpu"][key]) / abs(steps["cpu"][key])
+        for key in ("loss", "grad_norm")
+    )
+    param_err = max(
+        float((a - b).abs().max())
+        for a, b in zip(steps["gpu"]["params"], steps["cpu"]["params"], strict=True)
+    )
+    emit(
+        {
+            "phase": "lm_train_chunk",
+            "config": f"{cfg.name}, n_kv_heads=2, sliding_window=64, float32",
+            "batch": [4, 96],
+            "loss": [loss_c, loss_g],
+            "loss_rel_err": loss_err,
+            "grad_leaves": len(grads_g),
+            "grad_max_rel_err": leaf_err,
+            "zero_grad_leaves_on_card": zero_leaves,
+            "loss_fn_launches_cpu_gpu": [moved_c, moved_g],
+            "train_step": {
+                k: {kk: v for kk, v in step.items() if kk != "params"}
+                for k, step in steps.items()
+            },
+            "train_step_rel_err": step_err,
+            "train_step_params_max_abs_err": param_err,
+            "launches": launches,
+        }
+    )
+    require(loss_err <= 1e-5, f"lm train chunk: loss differs by {loss_err} (rel)")
+    require(leaf_err <= 1e-4, f"lm train chunk: a gradient leaf differs by {leaf_err}")
+    require(not zero_leaves, f"lm train chunk: zero gradient leaves {zero_leaves}")
+    require(
+        moved_c == (0, 0) and moved_g == (per_forward, 0),
+        f"lm train chunk: loss_fn launches {moved_c} (CPU), {moved_g} (card)",
+    )
+    step_launches = [v["launches"] for v in steps.values()]
+    require(
+        step_launches == [(0, 0), (per_forward, 0), (2 * per_forward, 0)],
+        f"lm train chunk: train_step launches {step_launches}",
+    )
+    require(step_err <= 1e-5, f"lm train chunk: step metrics differ by {step_err}")
+    require(param_err <= 1e-4, f"lm train chunk: params differ by {param_err}")
+    return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
+
+
+def phase_lm_train_main(dev) -> dict[str, int]:
+    """``python -m repro_torch.launch.train`` at full width and depth:
+    h2o-danube-3-4b in bfloat16 with float32 moments (``opt_cfg_for``),
+    batch 2, seq 1024, 4 steps, weights from seed 0.  Its printed lines are
+    read back: every step's loss finite and ``gnorm > 0``; C launched
+    (2L + 1) x steps times, D never; the steps' wall and tokens a second,
+    and the peak of device memory."""
+    cfg = get_config(ZOO_ARCH)
+    argv = ["--arch", ZOO_ARCH, "--steps", str(TRAIN_STEPS)]
+    argv += ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = buf.getvalue().splitlines()
+    step_line = re.compile(r"step +(\d+) loss=(\S+) gnorm=(\S+)")
+    steps = [
+        (int(m.group(1)), float(m.group(2)), float(m.group(3)))
+        for m in map(step_line.fullmatch, lines)
+        if m
+    ]
+    done = re.fullmatch(r"(\d+) steps in (\S+)s \((\d+) tok/s\)", lines[-1])
+    want_rms = (2 * cfg.n_layers + 1) * TRAIN_STEPS
+    steps_s = float(done.group(2)) if done else float("nan")
+    emit(
+        {
+            "phase": "lm_train_main",
+            "arch": ZOO_ARCH,
+            "cuts": "none (full width and depth; random weights from seed 0)",
+            "argv": argv,
+            "stdout": lines,
+            "steps": steps,
+            "wall_s": wall_s,
+            # the driver's own clock over its steps, the first included
+            "step_s": steps_s / TRAIN_STEPS,
+            "tok_per_s": int(done.group(3)) if done else None,
+            "peak_gb": peak_gb,
+            "launches": launches,
+            "launches_by_route": {"rmsnorm": dict(rmsnorm.launches_by_route)},
+        }
+    )
+    require(rc == 0 and done is not None, f"lm train main: exit {rc}, lines {lines}")
+    require(
+        [i for i, _, _ in steps] == list(range(TRAIN_STEPS)),
+        f"lm train main: steps printed {steps}",
+    )
+    require(
+        all(np.isfinite(loss) and gnorm > 0 for _, loss, gnorm in steps),
+        f"lm train main: losses and grad norms {steps}",
+    )
+    require(
+        launches["rmsnorm"] == want_rms and launches["flash_attention"] == 0,
+        f"lm train main: launches {launches}, want rmsnorm {want_rms} and no D",
+    )
+    return {"rmsnorm": launches["rmsnorm"], "flash_attention": 0}
+
+
+@contextmanager
+def fleet_engines():
+    """Every ``FleetEngine`` built inside the block, in order."""
+    built, init = [], FleetEngine.__init__
+
+    def spy(self, *args, **kw):
+        init(self, *args, **kw)
+        built.append(self)
+
+    FleetEngine.__init__ = spy
+    try:
+        yield built
+    finally:
+        FleetEngine.__init__ = init
+
+
+def phase_cli(dev) -> dict[str, int]:
+    """The reference CI's experiments call through the port's CLI on the
+    card: ``--scenario churn_addition_fig4 --scenario gossip_hetero --fast
+    --json --trace --dashboard`` into a temporary directory.  Exit 0; both
+    traces and both dashboards under the per-scenario names; the JSON's
+    top-level keys, and each config's keys, those of
+    ``benchmarks/baselines/BENCH_experiments.json``; A = B = the engines'
+    stacked steps, read around the call."""
+    baseline = json.loads(BENCH_BASELINE.read_text())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        argv = [a for name in CLI_SCENARIOS for a in ("--scenario", name)]
+        argv += ["--fast", "--json", str(out / "BENCH_experiments.json")]
+        argv += ["--trace", str(out / "trace.jsonl")]
+        argv += ["--dashboard", str(out / "dashboard.html")]
+        reset_launches()
+        buf = io.StringIO()
+        with fleet_engines() as engines, contextlib.redirect_stdout(buf):
+            rc = experiments_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        steps = sum(e.n_chunk_steps for e in engines)
+        files = sorted(p.name for p in out.iterdir())
+        payload = json.loads((out / "BENCH_experiments.json").read_text())
+    want_files = sorted(
+        ["BENCH_experiments.json"]
+        + [f"trace.{n}.jsonl" for n in CLI_SCENARIOS]
+        + [f"dashboard.{n}.html" for n in CLI_SCENARIOS]
+    )
+    configs = payload.get("configs", {})
+    emit(
+        {
+            "phase": "cli",
+            "argv": argv,
+            "seconds": time.perf_counter() - t0,
+            "stdout": buf.getvalue().splitlines(),
+            "files": files,
+            "stacked_steps": steps,
+            "launches": launches,
+            "mean_dist_err": {k: v.get("mean_dist_err") for k, v in configs.items()},
+        }
+    )
+    require(rc == 0, f"cli: exit {rc}")
+    require(files == want_files, f"cli: wrote {files}, not {want_files}")
+    require(
+        sorted(payload) == sorted(baseline)
+        and sorted(configs) == sorted(CLI_SCENARIOS),
+        f"cli: JSON keys {sorted(payload)}, configs {sorted(configs)}",
+    )
+    for name in CLI_SCENARIOS:
+        # the baseline carries no `extra` (the traced run's holds the
+        # observatory's and telemetry's documents): the keys outside it
+        got = sorted(k for k in configs[name] if k != "extra")
+        want = sorted(k for k in baseline["configs"][name] if k != "extra")
+        require(got == want, f"cli {name}: keys {got}, baseline {want}")
+        require(
+            np.isfinite(configs[name]["mean_dist_err"]),
+            f"cli {name}: mean_dist_err {configs[name]['mean_dist_err']}",
+        )
+    require(
+        steps > 0
+        and launches["replay_gather"] == steps
+        and launches["fused_td"] == steps,
+        f"cli: launches {launches}, stacked steps {steps}",
+    )
+    return {k: launches[k] for k in FLEET_KERNELS}
+
+
+def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
+    """The serving CLI's path at full width for ``arch``, then decode
+    logits at 4 positions against the teacher-forced forward on the card;
+    the model is freed before the next one is drawn.  D launches once a
+    layer at prefill, all on the tensor-core route; C (2L + 1) x 33 times,
+    all on the ``cta`` route, for an RMSNorm config, never for a
+    LayerNorm one (starcoder2-15b).
 
     Tolerance: the bf16 3e-2 of tests/test_kernels.py, relative to the
     largest logit.  The two paths round differently at every bf16 product
-    (a [B, 1, D] decode GEMM against a [B, S, D] one) through 24 layers of
-    a bf16 residual stream, so an element-wise allclose(3e-2, 3e-2) is too
-    tight at full depth (max |d| 0.057 on an H100); the float32 zoo_chunk
-    holds the arithmetic itself to 1e-4."""
+    (a [B, 1, D] decode GEMM against a [B, S, D] one) through every layer
+    of a bf16 residual stream, so an element-wise allclose(3e-2, 3e-2) is
+    too tight at full depth (max |d| 0.057 on an H100 for danube); the
+    float32 zoo_chunk holds the arithmetic itself to 1e-4."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, params, prompt = serve.setup(ZOO_ARCH, ZOO_BATCH, ZOO_PROMPT, 0, dev)
+    model, params, prompt = serve.setup(arch, ZOO_BATCH, ZOO_PROMPT, 0, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = model.cfg
+    n_params = sum(t.numel() for t in tree_leaves(params))
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out = serve.generate(model, params, prompt, ZOO_GEN)
@@ -1650,16 +2050,19 @@ def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(out.logits).all())
     n_layers = cfg.n_layers
     emit(
         {
             "phase": "zoo_main",
-            "arch": ZOO_ARCH,
+            "arch": arch,
             "cuts": "none (random weights from seed 0)",
+            "params": n_params,
             "batch": ZOO_BATCH,
             "prompt": ZOO_PROMPT,
             "gen": ZOO_GEN,
             "init_s": init_s,
+            "init_peak_gb": init_peak_gb,
             "prefill_s": out.prefill_s,
             "decode_s": out.decode_s,
             "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
@@ -1673,28 +2076,33 @@ def phase_zoo_main(dev) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
             "sample_ids": out.tokens[0, :8].tolist(),
         }
     )
-    require(bool(torch.isfinite(out.logits).all()), "zoo main: non-finite logits")
+    del model, params, prompt, out, hidden, want, got, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(finite, f"zoo main {arch}: non-finite logits")
     require(
         launches["flash_attention"] == n_layers,
-        f"flash_attention launched {launches['flash_attention']} times, not {n_layers}",
+        f"{arch}: flash_attention launched {launches['flash_attention']} times, "
+        f"not {n_layers}",
     )
     require(
         by_route["flash_attention"] == {"wgmma": n_layers, "scalar": 0},
-        f"flash_attention routes {by_route}: every prefill layer must take wgmma",
+        f"{arch}: flash_attention routes {by_route}: every prefill layer on wgmma",
     )
-    want_rms = (2 * n_layers + 1) * (ZOO_GEN + 1)
+    want_rms = (2 * n_layers + 1) * (ZOO_GEN + 1) if cfg.norm == "rmsnorm" else 0
     require(
         launches["rmsnorm"] == want_rms,
-        f"rmsnorm launched {launches['rmsnorm']} times, not {want_rms}",
+        f"{arch}: rmsnorm launched {launches['rmsnorm']} times, not {want_rms}",
     )
     want_routes = {"cta": want_rms, "masked": 0}
     require(
         by_route["rmsnorm"] == want_routes,
-        f"rmsnorm routes {by_route['rmsnorm']}, not {want_routes}",
+        f"{arch}: rmsnorm routes {by_route['rmsnorm']}, not {want_routes}",
     )
     require(
         err <= 3e-2 * scale,
-        f"zoo main: decode vs teacher-forced logits max|d|={err}, max|logit|={scale}",
+        f"zoo main {arch}: decode vs teacher-forced logits max|d|={err}, "
+        f"max|logit|={scale}",
     )
     return launches, by_route
 
@@ -1721,13 +2129,21 @@ def main() -> int:
     by_path["serve"] = phase_serve(dev)
     by_path["table2_sweep"] = phase_sweep(dev, "paper_table2_hub_failure")
     by_path["observatory"] = phase_observatory(dev)
+    by_path["cli"] = phase_cli(dev)
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)
     phase_zoo_chunk(dev)
-    zoo_launches, by_route = phase_zoo_main(dev)
+    # the zoo's paths, C and D launches read around each alone
+    zoo_paths = {"lm_train_chunk": phase_lm_train_chunk(dev)}
+    zoo_paths["lm_train_main"] = phase_lm_train_main(dev)
+    by_route = None
+    for arch in ZOO_ARCHS:
+        zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch)
+        by_route = by_route or routes  # danube's: the zoo's reference path
     for name in ("rmsnorm", "flash_attention"):
-        launches[name] = zoo_launches[name]
+        launches[name] = sum(p[name] for p in zoo_paths.values())
+        results[name]["launches_by_path"] = {p: n[name] for p, n in zoo_paths.items()}
     meta = {
         "replay_gather": (
             "src/repro_torch/csrc/replay_gather.cu",

@@ -220,7 +220,7 @@ def list_configs() -> list[str]:
 _LOADED = False
 
 # the reference's assigned architectures; the port registers the ones
-# whose blocks it has ported (the serving slice: dense GQA only)
+# whose blocks it has ported (dense GQA: (ATTN, FFN_DENSE) with tokens in)
 ASSIGNED = (
     "h2o-danube-3-4b",
     "jamba-1.5-large-398b",
@@ -242,7 +242,8 @@ def _ensure_loaded() -> None:
     _LOADED = True
     import importlib
 
-    importlib.import_module("repro_torch.configs.h2o_danube3")
+    for mod in ("h2o_danube3", "qwen25_14b", "starcoder2_15b"):
+        importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def param_count(cfg: ModelConfig) -> tuple[int, int]:

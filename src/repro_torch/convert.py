@@ -10,7 +10,10 @@ convert one agent's tree and a stacked fleet's.
 
 The model zoo's params (:func:`zoo_params_from_numpy`) keep the
 reference's layout leaf for leaf: nested dicts, ``x @ w`` weights, the
-per-group leaves stacked on a leading ``[G, ...]`` axis.
+per-group leaves stacked on a leading ``[G, ...]`` axis; its train state
+(:func:`zoo_train_state_from_numpy`) adds the AdamW moments, in their own
+dtype (``opt_dtype``), and the step count.  A bfloat16 leaf crosses as
+its bits (``ml_dtypes``' bfloat16 and torch's are the same format).
 
 The port's own init cannot reproduce JAX's threefry bits, so tests seed
 the port from converted reference params.
@@ -102,6 +105,52 @@ def zoo_params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dic
     return _leaf_from_numpy(tree, device)
 
 
+def zoo_params_to_numpy(tree: dict) -> dict:
+    """Port model-zoo params -> numpy, dtypes kept; a bfloat16 leaf comes
+    back as ``ml_dtypes.bfloat16`` where that is installed (JAX brings
+    it), else as its ``uint16`` bits."""
+    if isinstance(tree, dict):
+        return {k: zoo_params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.int16).numpy().view(np.uint16)
+    try:
+        import ml_dtypes
+    except ImportError:
+        return bits
+    return bits.view(ml_dtypes.bfloat16)
+
+
+def zoo_train_state_from_numpy(
+    state: dict, device: str | torch.device = "cpu"
+) -> dict:
+    """The reference's LM train state ``{params, opt: {m, v, count}}`` as
+    numpy -> the port's (``models/model.py::init_train_state``'s layout)."""
+    opt = state["opt"]
+    return {
+        "params": zoo_params_from_numpy(state["params"], device),
+        "opt": {
+            "m": zoo_params_from_numpy(opt["m"], device),
+            "v": zoo_params_from_numpy(opt["v"], device),
+            "count": torch.tensor(np.asarray(opt["count"], np.int32), device=device),
+        },
+    }
+
+
+def zoo_train_state_to_numpy(state: dict) -> dict:
+    """The inverse of :func:`zoo_train_state_from_numpy`."""
+    opt = state["opt"]
+    return {
+        "params": zoo_params_to_numpy(state["params"]),
+        "opt": {
+            "m": zoo_params_to_numpy(opt["m"]),
+            "v": zoo_params_to_numpy(opt["v"]),
+            "count": opt["count"].cpu().numpy(),
+        },
+    }
+
+
 def fleet_state_to_numpy(state: FleetState) -> dict:
     """Port :class:`FleetState` -> numpy dict (the inverse)."""
     return {
@@ -120,4 +169,7 @@ __all__ = [
     "fleet_state_from_numpy",
     "fleet_state_to_numpy",
     "zoo_params_from_numpy",
+    "zoo_params_to_numpy",
+    "zoo_train_state_from_numpy",
+    "zoo_train_state_to_numpy",
 ]

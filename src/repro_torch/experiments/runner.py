@@ -16,6 +16,7 @@ trace and a dashboard of it are written on request.
 
 from __future__ import annotations
 
+import json
 from collections.abc import Sequence
 from dataclasses import replace
 
@@ -216,12 +217,14 @@ def run(
     seed: int | None = None,
     hooks: Sequence[ExperimentHooks] = (),
     device: str | torch.device | None = None,
+    json_path: str | None = None,
     trace_path: str | None = None,
     dashboard_path: str | None = None,
     telemetry: Telemetry | None = None,
 ) -> Report:
     """Execute one scenario end to end and return its :class:`Report`.
 
+    ``json_path`` writes the report as :func:`write_json` does.
     ``trace_path`` captures the run's telemetry (Perfetto JSON, or JSONL
     when the suffix is ``.jsonl``) and ``dashboard_path`` renders it
     (with the observatory's learning, propagation and health series)
@@ -245,7 +248,21 @@ def run(
         write_dashboard(
             dashboard_path, trace, title=f"Fleet observatory — {rspec.name}"
         )
+    if json_path:
+        write_json(json_path, [report], fast=fast)
     return report
 
 
-__all__ = ["build", "evaluate_into", "resolve", "run"]
+def write_json(path: str, reports: Sequence[Report], *, fast: bool = False) -> None:
+    """One ``BENCH_*.json`` in the shape ``benchmarks/check_regression.py``
+    gates on (the reference's payload, key for key)."""
+    payload = {
+        "benchmark": "experiments",
+        "fast": bool(fast),
+        "configs": {r.scenario: r.summary() for r in reports},
+    }
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, sort_keys=True)
+
+
+__all__ = ["build", "evaluate_into", "resolve", "run", "write_json"]

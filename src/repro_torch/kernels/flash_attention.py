@@ -30,7 +30,11 @@ guard in C, raw stream handle); the call is device-bound, so this keeps
 one calling convention for all kernels rather than saving time.
 
 On a CPU tensor :func:`flash_attention` computes :func:`attention_plain`;
-on a CUDA tensor it launches a kernel or raises.  ``launches`` counts
+on a CUDA tensor it launches a kernel or raises.  There is no backward
+(the reference trains through its plain ``chunked_attention``, as the
+port does: ``models/attention.py``), so a call that autograd would have
+to differentiate raises on either device instead of dropping the
+gradient.  ``launches`` counts
 kernel launches only, ``launches_by_route`` splits them by route.
 """
 
@@ -148,6 +152,11 @@ def flash_attention(
     """q [B,S,Hq,D], k/v [B,S,Hkv,D] (float32 or bfloat16, contiguous,
     Hq a multiple of Hkv, D <= 128) -> [B,S,Hq,D] in q's dtype."""
     _check(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: train through "
+            "models.attention.chunked_attention (attn_impl='chunked')"
+        )
     if scale is None:
         scale = q.shape[-1] ** -0.5
     index = lib.device_index("flash_attention", q, k, v)

@@ -26,6 +26,12 @@ routes before the launch (no fallback between them):
 On a CPU tensor :func:`rmsnorm` computes :func:`rmsnorm_plain`; on a CUDA
 tensor it launches a kernel or raises.  ``launches`` counts kernel
 launches only, ``launches_by_route`` splits them by route.
+
+:class:`RMSNorm` is the differentiable form the model calls: its forward
+is :func:`rmsnorm` (the kernel on the card), its backward the explicit
+formula in float32 in plain torch (the reference has no backward kernel
+either: JAX differentiates its plain ``norm_apply``).  The wrapper alone
+returns a tensor the kernel wrote, which autograd cannot see through.
 """
 
 from __future__ import annotations
@@ -140,12 +146,50 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 rmsnorm.launches = 0
 rmsnorm.launches_by_route = dict.fromkeys(ROUTES, 0)
 
+
+def rmsnorm_backward(
+    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dscale)`` of ``y = x * rstd * scale`` for the upstream ``g``,
+    in float32: with ``x^ = x * rstd`` and ``gs = g * scale``,
+    ``dx = rstd * (gs - x^ * mean(gs * x^))`` and ``dscale = sum_rows g * x^``.
+    ``dx`` comes back in x's dtype, ``dscale`` in float32."""
+    xf = x.float()
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    gf = g.float()
+    gs = gf * scale.float()
+    dx = rstd * (gs - xhat * (gs * xhat).mean(-1, keepdim=True))
+    dscale = (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale
+
+
+class RMSNorm(torch.autograd.Function):
+    """``RMSNorm.apply(x, scale, eps)``: :func:`rmsnorm` forward (one kernel
+    launch on a CUDA tensor, the plain version on a CPU one) with
+    :func:`rmsnorm_backward` as its gradient.  The per-row ``rstd`` is
+    computed again in the backward, so the forward stays one launch."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, g, ctx.eps)
+        return dx, dscale, None
+
 __all__ = [
     "REGISTER_ROW_BYTES",
     "ROUTES",
+    "RMSNorm",
     "SPREAD_ROWS",
     "launch_args",
     "launch_plan",
     "rmsnorm",
+    "rmsnorm_backward",
     "rmsnorm_plain",
 ]

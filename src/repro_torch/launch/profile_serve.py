@@ -1,9 +1,10 @@
 """Where the model zoo's serving path spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch NAME]
 
-Profiles the run ``chip_smoke.py``'s ``zoo_main`` drives: h2o-danube-3-4b
-at full width in bfloat16, random weights from seed 0, batch 4, prompt
+Profiles the run ``chip_smoke.py``'s ``zoo_main`` drives: ``--arch``
+(h2o-danube-3-4b by default; qwen2.5-14b, starcoder2-15b) at full width
+in bfloat16, random weights from seed 0, batch 4, prompt
 1000, 32 greedy steps (``repro_torch.launch.serve.generate``).  One
 warm-up generation, one plain generation for the wall times, then the
 prefill and the decode loop each under ``torch.profiler`` (CPU + CUDA
@@ -16,6 +17,7 @@ kernels with the most device time.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -29,8 +31,8 @@ from repro_torch.launch import serve
 ARCH, BATCH, PROMPT, GEN = "h2o-danube-3-4b", 4, 1000, 32
 
 
-def profile_serve() -> dict:
-    model, params, prompt = serve.setup(ARCH, BATCH, PROMPT, 0)
+def profile_serve(arch: str = ARCH) -> dict:
+    model, params, prompt = serve.setup(arch, BATCH, PROMPT, 0)
     serve.generate(model, params, prompt, GEN)  # warm-up: cuBLAS, lazy loading
     plain = serve.generate(model, params, prompt, GEN)
 
@@ -51,7 +53,7 @@ def profile_serve() -> dict:
         decode_s = time.perf_counter() - t0
     decode = device_summary(prof_decode, decode_s)
     return {
-        "arch": ARCH,
+        "arch": arch,
         "batch": BATCH,
         "prompt": PROMPT,
         "gen": GEN,
@@ -68,8 +70,10 @@ def profile_serve() -> dict:
     }
 
 
-def main() -> int:
-    result = profile_serve()
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile_serve")
+    ap.add_argument("--arch", default=ARCH, help="zoo config to serve")
+    result = profile_serve(ap.parse_args(argv).arch)
     result["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(result))
     return 0

@@ -3,12 +3,16 @@
 The port of the reference's ``models/attention.py`` (GQA only; MLA waits
 for the zoo slice of deepseek-v2-lite, and ``blocks.py`` raises for it).
 
-Prefill runs the hand-written ``flash_attention`` kernel: the same
-function as the reference's default ``chunked_attention`` and its
-``attn_impl="pallas"`` route.  Decode attends one token against a KV
-cache with a plain einsum, as the reference does.  The cache is a ring
-buffer of ``sliding_window`` slots for SWA models, full-length otherwise;
-position ``p`` lives in slot ``p % window``.
+Serving's prefill (``attn_impl="kernel"``, the default) runs the
+hand-written ``flash_attention`` kernel: the same function as the
+reference's ``chunked_attention`` and its ``attn_impl="pallas"`` route.
+Training runs :func:`chunked_attention` (``attn_impl="chunked"``), the
+port of the reference's plain online-softmax attention, which is what
+the reference trains through and which autograd differentiates (the
+kernel has no backward and refuses a gradient).  Decode attends one
+token against a KV cache with a plain einsum, as the reference does.
+The cache is a ring buffer of ``sliding_window`` slots for SWA models,
+full-length otherwise; position ``p`` lives in slot ``p % window``.
 
 Two deliberate differences from the reference:
 
@@ -25,10 +29,94 @@ from __future__ import annotations
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import dense_apply, dense_init, torch_dtype
+
+F32 = torch.float32
+ATTN_IMPLS = ("kernel", "chunked")
+
+
+def _q_block(qi, qblk, k, v, *, causal, window, scale, kv_chunk, softcap):
+    """One query chunk of :func:`chunked_attention`: the online softmax over
+    every kv chunk (none is skipped, as in the reference), products in
+    float32, P rounded to v's dtype before the second product."""
+    b, qc, hq, _ = qblk.shape
+    s = k.shape[1]
+    dev = qblk.device
+    qpos = qi * qc + torch.arange(qc, device=dev)
+    qf = qblk.float()
+    m = torch.full((b, hq, qc), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros((b, hq, qc), dtype=F32, device=dev)  # noqa: E741
+    acc = torch.zeros((b, hq, qc, v.shape[-1]), dtype=F32, device=dev)
+    for kj in range(s // kv_chunk):
+        kblk = k[:, kj * kv_chunk : (kj + 1) * kv_chunk]
+        vblk = v[:, kj * kv_chunk : (kj + 1) * kv_chunk]
+        kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+        s_blk = torch.einsum("bqhd,bkhd->bhqk", qf, kblk.float()) * scale
+        if softcap > 0.0:
+            s_blk = softcap * torch.tanh(s_blk / softcap)
+        mask = torch.ones((qc, kv_chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= (qpos[:, None] - kpos[None, :]) < window
+        s_blk = torch.where(mask, s_blk, NEG_INF)
+        # the running max only shifts the exponent: the output does not
+        # depend on it, so it carries no gradient
+        m_new = torch.maximum(m, s_blk.detach().amax(-1))
+        p = torch.exp(s_blk - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)  # noqa: E741
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vblk.dtype).float(), vblk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]  # [B, hq, qc, dv]
+    return out.transpose(1, 2).to(qblk.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int | None,
+    scale: float,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """q [B,S,Hq,D], k/v [B,S,Hkv,Dk]/[B,S,Hkv,Dv] -> [B,S,Hq,Dv].
+
+    The reference's ``chunked_attention``: GQA kv heads repeated to Hq, an
+    online softmax over ``q_chunk`` x ``kv_chunk`` blocks with causal,
+    window and softcap masking, accumulated in float32.  Under autograd
+    each query chunk is checkpointed (the reference's ``jax.checkpoint``
+    of its ``q_step``), so the backward holds one chunk's scores at a
+    time.  S must be a multiple of both chunks (after ``min(chunk, S)``)."""
+    b, s, hq, _ = q.shape
+    g = hq // k.shape[2]
+    qc, kc = min(q_chunk, s), min(kv_chunk, s)
+    if s % qc or s % kc:
+        raise ValueError(
+            f"chunked_attention: S={s} is no multiple of the chunks ({qc}, {kc})"
+        )
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    kw = dict(causal=causal, window=window, scale=scale, kv_chunk=kc, softcap=softcap)
+    outs = []
+    for qi in range(s // qc):
+        qblk = q[:, qi * qc : (qi + 1) * qc]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_q_block, qi, qblk, k, v, use_reentrant=False, **kw))
+        else:
+            outs.append(_q_block(qi, qblk, k, v, **kw))
+    return torch.cat(outs, 1)
 
 
 def decode_attention(
@@ -113,10 +201,16 @@ def gqa_apply(
     mode: str,
     positions: torch.Tensor,
     cache: dict[str, torch.Tensor] | None = None,
+    attn_impl: str = "kernel",
 ):
     """x [B,S,D] (train/prefill) or [B,1,D] (decode); positions [B,S].
-    Returns (y, cache): the prefill's cache to hand over, decode's updated
-    cache (the same tensors, written in place), or None in train mode."""
+    ``attn_impl`` picks the train/prefill attention: ``"kernel"`` (the
+    ``flash_attention`` kernel, forward only) or ``"chunked"``
+    (:func:`chunked_attention`, differentiable).  Returns (y, cache): the
+    prefill's cache to hand over, decode's updated cache (the same
+    tensors, written in place), or None in train mode."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = dense_apply(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
@@ -131,7 +225,8 @@ def gqa_apply(
 
     window = cfg.sliding_window
     if mode in ("train", "prefill"):
-        y = flash_attention(
+        attend = flash_attention if attn_impl == "kernel" else chunked_attention
+        y = attend(
             q,
             k,
             v,
@@ -169,6 +264,8 @@ def gqa_apply(
 
 
 __all__ = [
+    "ATTN_IMPLS",
+    "chunked_attention",
     "decode_attention",
     "gqa_apply",
     "gqa_cache_init",

@@ -58,13 +58,21 @@ def block_apply(
     mode: str,
     positions: torch.Tensor,
     cache: dict[str, torch.Tensor] | None = None,
+    attn_impl: str = "kernel",
 ):
     """Returns (x, new_cache).  (The reference also returns MoE's router
-    loss; a dense FFN has none.)"""
+    loss; a dense FFN has none.)  ``attn_impl``: see
+    :func:`attention.gqa_apply`."""
     _check_kinds(mixer, ffn)
     h = norm_apply(cfg, p["norm1"], x)
     y, new_cache = attention.gqa_apply(
-        cfg, p["mixer"], h, mode=mode, positions=positions, cache=cache
+        cfg,
+        p["mixer"],
+        h,
+        mode=mode,
+        positions=positions,
+        cache=cache,
+        attn_impl=attn_impl,
     )
     x = x + y
     x = x + mlp_apply(cfg, p["ffn"], norm_apply(cfg, p["norm2"], x))

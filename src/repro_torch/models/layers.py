@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import RMSNorm
 
 F32 = torch.float32
 
@@ -70,10 +70,11 @@ def norm_init(
 def norm_apply(
     cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor
 ) -> torch.Tensor:
-    """RMSNorm through the ``rmsnorm`` kernel's wrapper; LayerNorm (which no
-    TPU kernel backs) in plain torch.  Both in float32, cast back."""
+    """RMSNorm through the ``rmsnorm`` kernel (``RMSNorm``: differentiable,
+    its backward in plain torch); LayerNorm (which no TPU kernel backs) in
+    plain torch.  Both in float32, cast back."""
     if cfg.norm != "layernorm":
-        return rmsnorm(x, p["scale"], cfg.norm_eps)
+        return RMSNorm.apply(x, p["scale"], cfg.norm_eps)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)

@@ -1,12 +1,17 @@
-"""Model assembly for serving: init, caches, forward, prefill and decode.
+"""Model assembly: init, caches, forward, the loss and the train step,
+prefill and decode.
 
-The port of the reference's ``models/model.py`` (serving members only:
-the train step, ``chunked_xent`` and the loss wait for the zoo's training
-slice).  The parameter layout is the reference's: the per-group leaves are
-stacked on a leading ``[G, ...]`` axis, so converting reference params is
-a dtype change, and ``forward`` loops over the groups in Python where the
-reference scans.  There is no mesh or sharding policy: one card holds the
-whole model.
+The port of the reference's ``models/model.py``.  The parameter layout is
+the reference's: the per-group leaves are stacked on a leading ``[G, ...]``
+axis, so converting reference params is a dtype change, and ``forward``
+loops over the groups in Python where the reference scans.  There is no
+mesh or sharding policy: one card holds the whole model.  Of the
+reference's ``ShardingPolicy`` the train step keeps the knobs that change
+what is computed or held (``loss_chunk``, ``microbatches``); per-layer
+rematerialisation and the mesh's gather hoisting change no number and are
+left out.  Training attends through ``chunked_attention``
+(``attn_impl="chunked"``), as the reference trains through its XLA path;
+serving's prefill through the ``flash_attention`` kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -27,6 +33,14 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed_apply,
 )
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    tree_adamw_init,
+    tree_adamw_update,
+    tree_leaves,
+)
+
+F32 = torch.float32
 
 
 def _stack(trees: list) -> Any:
@@ -43,6 +57,47 @@ def _index(tree: Any, g: int) -> Any:
     return tree[g]
 
 
+def _unbind(tree: Any, n: int) -> list:
+    """The ``n`` per-group trees of a ``[G, ...]``-stacked nested dict, as
+    views.  One ``unbind`` a leaf: under autograd each leaf's G gradients
+    come back in one stack, where indexing group by group would build a
+    full-size gradient for every group."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in parts} for g in range(n)]
+    return tree.unbind(0)
+
+
+def _stacked_empty(tree: Any, n: int) -> Any:
+    """Uninitialised ``[n, ...]`` leaves shaped like ``tree``'s."""
+    if isinstance(tree, dict):
+        return {k: _stacked_empty(v, n) for k, v in tree.items()}
+    return tree.new_empty((n, *tree.shape))
+
+
+def _put(dst: Any, src: Any, g: int) -> None:
+    """Copy every leaf of ``src`` into slice ``[g]`` of ``dst``'s."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], g)
+    else:
+        dst[g].copy_(src)
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_from_leaves(like: Any, leaves) -> Any:
+    """``like``'s structure filled from ``leaves`` in :func:`tree_leaves`
+    order (an iterator, consumed)."""
+    if isinstance(like, dict):
+        return {k: _tree_from_leaves(like[k], leaves) for k in sorted(like)}
+    return next(leaves)
+
+
 def _check_layout(cfg: ModelConfig) -> None:
     if cfg.first_k_dense:
         raise NotImplementedError(
@@ -56,20 +111,26 @@ def _check_layout(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
     """Fresh params on the generator's device, with the reference's names,
-    shapes and init scales (its distributions, not its bits)."""
+    shapes and init scales (its distributions, not its bits).  Each
+    stacked ``[G, ...]`` leaf is allocated once and group ``g`` is drawn
+    into slice ``[g]``, groups in order, so the peak holds the params and
+    one group more (not twice the params)."""
     _check_layout(cfg)
     params: dict[str, Any] = {
         "embed": embed_init(cfg, generator),
         "final_norm": norm_init(cfg, cfg.d_model, generator.device),
     }
-    groups = [
-        {
+    groups = None
+    for g in range(cfg.n_groups):
+        one = {
             f"b{j}": block_init(cfg, mixer, ffn, generator)
             for j, (mixer, ffn) in enumerate(cfg.pattern)
         }
-        for _ in range(cfg.n_groups)
-    ]
-    params["groups"] = _stack(groups)
+        if groups is None:
+            groups = _stacked_empty(one, cfg.n_groups)
+        _put(groups, one, g)
+        del one
+    params["groups"] = groups
     return params
 
 
@@ -89,7 +150,10 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict[str,
         f"b{j}": block_cache_init(cfg, mixer, batch, clen, dtype, device)
         for j, (mixer, _) in enumerate(cfg.pattern)
     }
-    return {"groups": _stack([one] * cfg.n_groups)}
+    groups = _stacked_empty(one, cfg.n_groups)
+    for g in range(cfg.n_groups):
+        _put(groups, one, g)
+    return {"groups": groups}
 
 
 # ---------------------------------------------------------------------------
@@ -103,21 +167,23 @@ def forward(
     *,
     mode: str,
     caches: dict[str, Any] | None = None,
+    attn_impl: str = "kernel",
 ):
     """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S].
 
     Returns (hidden [B,S,D], caches): in prefill mode the caches to hand
     to decode, in decode mode ``caches`` written in place, in train mode
     (the teacher-forced forward) None.  (The reference also returns MoE's
-    router loss; the dense blocks ported so far have none.)"""
+    router loss; the dense blocks ported so far have none.)
+    ``attn_impl``: ``"kernel"`` (serving) or ``"chunked"`` (training; see
+    ``attention.gqa_apply``)."""
     _check_layout(cfg)
     if inputs.dtype in (torch.int32, torch.int64):
         x = embed_apply(params["embed"], inputs)
     else:
         x = inputs.to(torch_dtype(cfg.dtype))
     handed = {f"b{j}": [] for j in range(len(cfg.pattern))}
-    for g in range(cfg.n_groups):
-        gp = _index(params["groups"], g)
+    for g, gp in enumerate(_unbind(params["groups"], cfg.n_groups)):
         for j, (mixer, ffn) in enumerate(cfg.pattern):
             c = _index(caches["groups"][f"b{j}"], g) if caches is not None else None
             x, nc = block_apply(
@@ -129,6 +195,7 @@ def forward(
                 mode=mode,
                 positions=positions,
                 cache=c,
+                attn_impl=attn_impl,
             )
             handed[f"b{j}"].append(nc)
     x = norm_apply(cfg, params["final_norm"], x)
@@ -139,6 +206,150 @@ def forward(
 
 def logits_fn(cfg: ModelConfig, params: dict[str, Any], hidden: torch.Tensor):
     return unembed_apply(cfg, params["embed"], hidden)
+
+
+def _xent_chunk(cfg: ModelConfig, embed: dict, h: torch.Tensor, lab: torch.Tensor):
+    logits = unembed_apply(cfg, embed, h).float()
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lab >= 0).to(F32)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_xent(
+    cfg: ModelConfig,
+    params: dict[str, Any],
+    hidden: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    loss_chunk: int = 2048,
+):
+    """Cross entropy over S in chunks of ``min(loss_chunk, S)`` tokens:
+    the float32 logsumexp minus the gold logit, labels < 0 masked out.
+    Returns ``(sum_nll, n_valid)``, float32 scalars.  Under autograd each
+    chunk is checkpointed (the reference's ``jax.checkpoint``), so the
+    ``[B, S, V]`` logits are never held, in the forward or the backward."""
+    b, s, _ = hidden.shape
+    c = min(loss_chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_xent: S={s} is no multiple of the chunk {c}")
+    nll = torch.zeros((), dtype=F32, device=hidden.device)
+    n = torch.zeros((), dtype=F32, device=hidden.device)
+    for i in range(s // c):
+        args = (cfg, params["embed"], hidden[:, i * c : (i + 1) * c])
+        lab = labels[:, i * c : (i + 1) * c]
+        if torch.is_grad_enabled():
+            dn, dc = checkpoint(_xent_chunk, *args, lab, use_reentrant=False)
+        else:
+            dn, dc = _xent_chunk(*args, lab)
+        nll, n = nll + dn, n + dc
+    return nll, n
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def make_loss_fn(
+    cfg: ModelConfig, *, attn_impl: str = "chunked", loss_chunk: int = 2048
+):
+    """``(params, batch{tokens|embeds, labels[, positions]}) -> (total,
+    {"loss", "aux", "n_tokens"})``: the mean next-token loss over the
+    labels >= 0, plus the router loss (0 for the dense blocks ported so
+    far) at the config's weight."""
+
+    def loss_fn(params, batch):
+        inputs = batch.get("tokens", batch.get("embeds"))
+        b, s = inputs.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
+        hidden, _ = forward(
+            cfg, params, inputs, positions, mode="train", attn_impl=attn_impl
+        )
+        nll, n = chunked_xent(
+            cfg, params, hidden, batch["labels"], loss_chunk=loss_chunk
+        )
+        loss = nll / torch.clamp(n, min=1.0)
+        aux = torch.zeros((), dtype=F32, device=loss.device)
+        total = loss + cfg.moe.router_aux_weight * aux
+        return total, {"loss": loss, "aux": aux, "n_tokens": n}
+
+    return loss_fn
+
+
+def init_train_state(
+    cfg: ModelConfig, generator: torch.Generator, opt_cfg: AdamWConfig
+) -> dict[str, Any]:
+    params = init_params(cfg, generator)
+    return {"params": params, "opt": tree_adamw_init(opt_cfg, params)}
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``(total, metrics, grads)`` of ``loss_fn`` at ``params`` (which stay
+    untouched and need no ``requires_grad``): grads in each leaf's dtype,
+    shaped like ``params``."""
+    live = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+    total, metrics = loss_fn(live, batch)
+    grads = torch.autograd.grad(total, tree_leaves(live))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return total.detach(), metrics, _tree_from_leaves(params, iter(grads))
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    *,
+    attn_impl: str = "chunked",
+    loss_chunk: int = 2048,
+    microbatches: int = 1,
+):
+    """``(state{params, opt}, batch) -> (state, metrics)``: the gradient of
+    :func:`make_loss_fn`'s total, then one AdamW step (in place: the
+    returned state holds the same tensors).  With ``microbatches=k`` the
+    batch's leading axis splits as the reference splits it (microbatch
+    ``i`` takes rows ``i, i+k, ...``); the gradients (in the params'
+    dtype), the totals and the metrics are summed over the microbatches
+    and divided by k (``n_tokens`` stays a sum).  Metrics: ``loss, aux,
+    n_tokens, total, grad_norm``."""
+    loss_fn = make_loss_fn(cfg, attn_impl=attn_impl, loss_chunk=loss_chunk)
+    k = microbatches
+
+    def train_step(state, batch):
+        params = state["params"]
+        if k == 1:
+            total, metrics, grads = value_and_grad(loss_fn, params, batch)
+        else:
+            first = tree_leaves(batch)[0]
+            lead = first.shape[0]
+
+            def microbatch(x, i):
+                if x.dim() >= 1 and x.shape[0] == lead:
+                    return x.reshape(lead // k, k, *x.shape[1:])[:, i]
+                return x
+
+            grads = _tree_map(torch.zeros_like, params)
+            total = torch.zeros((), dtype=F32, device=first.device)
+            metrics = dict.fromkeys(("loss", "aux", "n_tokens"), total)
+            for i in range(k):
+                mb = {key: microbatch(x, i) for key, x in batch.items()}
+                t, m, g = value_and_grad(loss_fn, params, mb)
+                for acc, gi in zip(tree_leaves(grads), tree_leaves(g), strict=True):
+                    acc.add_(gi)
+                del g
+                total = total + t
+                metrics = {key: metrics[key] + m[key] for key in metrics}
+            grads = _tree_map(lambda g: g / k, grads)
+            total = total / k
+            metrics = {
+                "loss": metrics["loss"] / k,
+                "aux": metrics["aux"] / k,
+                "n_tokens": metrics["n_tokens"],
+            }
+        params, opt, gnorm = tree_adamw_update(opt_cfg, params, grads, state["opt"])
+        metrics = dict(metrics, total=total, grad_norm=gnorm)
+        return {"params": params, "opt": opt}, metrics
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------
@@ -178,18 +389,31 @@ def make_serve_step(cfg: ModelConfig):
 
 
 class Model:
-    """The serving members of the functional API, bound to a config and a
+    """The functional API bound to a config, an optimizer config and a
     device (``None`` = the CUDA card; raises without one)."""
 
-    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        device: str | torch.device | None = None,
+        opt_cfg: AdamWConfig = AdamWConfig(),
+    ):
         self.cfg = cfg
+        self.opt_cfg = opt_cfg
         self.device = resolve_device(device)
+        self.loss_fn = make_loss_fn(cfg)
+        self.train_step = make_train_step(cfg, opt_cfg)
         self.prefill_step = make_prefill_step(cfg)
         self.serve_step = make_serve_step(cfg)
 
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def init_params(self, seed: int) -> dict[str, Any]:
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return init_params(self.cfg, gen)
+        return init_params(self.cfg, self._generator(seed))
+
+    def init_train_state(self, seed: int) -> dict[str, Any]:
+        return init_train_state(self.cfg, self._generator(seed), self.opt_cfg)
 
     def init_caches(self, batch: int, seq_len: int) -> dict[str, Any]:
         return init_caches(self.cfg, batch, seq_len, self.device)
@@ -198,10 +422,15 @@ class Model:
 __all__ = [
     "Model",
     "cache_len_for",
+    "chunked_xent",
     "forward",
     "init_caches",
     "init_params",
+    "init_train_state",
     "logits_fn",
+    "make_loss_fn",
     "make_prefill_step",
     "make_serve_step",
+    "make_train_step",
+    "value_and_grad",
 ]

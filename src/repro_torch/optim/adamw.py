@@ -13,6 +13,12 @@ row), and each agent's update is exactly the reference's
 
 Not ``torch.optim.AdamW``: that one has no per-agent norm or schedule
 and rounds its bias correction in double precision.
+
+The model zoo's language models train one tree with one ``count``
+(:func:`tree_adamw_init`, :func:`tree_adamw_update`): the reference's
+arithmetic leaf by leaf in its pytree order, the moments stored in
+``opt_dtype`` (bfloat16 for the largest configs,
+``launch/specs.py::opt_cfg_for``), updated in place.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ class AdamWConfig:
     clip_norm: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10_000
+    opt_dtype: str = "float32"  # the LM tree's moments; the fleet's are f32
 
 
 def leaves(tree: dict) -> list[torch.Tensor]:
@@ -103,4 +110,102 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt: dict):
     return new_p, {"m": new_m, "v": new_v, "count": count}, gnorm
 
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "leaves"]
+# ---------------------------------------------------------------------------
+# one tree (the model zoo's language models)
+# ---------------------------------------------------------------------------
+_CHUNK = 1 << 26  # elements a float32 temporary of the tree update holds
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """A nested dict's tensors in ``jax.tree_util.tree_leaves`` order
+    (keys sorted at every level)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _chunks(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Views of ``t`` split along its first axis into pieces of at most
+    about :data:`_CHUNK` elements (the update is elementwise, so the
+    pieces give the same numbers as the whole; they bound the float32
+    temporaries of a bf16 leaf of several GB)."""
+    if t.dim() == 0 or t.numel() <= _CHUNK:
+        return (t,)
+    return t.split(max(1, _CHUNK // (t.numel() // t.shape[0])))
+
+
+def tree_adamw_init(cfg: AdamWConfig, params: dict) -> dict:
+    """Zero moments in ``cfg.opt_dtype`` shaped like ``params``, count 0."""
+    dt = getattr(torch, cfg.opt_dtype)
+
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros(tree.shape, dtype=dt, device=tree.device)
+
+    first = tree_leaves(params)[0]
+    return {
+        "m": zeros(params),
+        "v": zeros(params),
+        "count": torch.zeros((), dtype=torch.int32, device=first.device),
+    }
+
+
+def tree_global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum, over the leaves in order, of each leaf's float32
+    sum of squares (the reference's ``global_norm``)."""
+    total = 0
+    for g in tree_leaves(grads):
+        total = total + sum(c.float().square().sum() for c in _chunks(g))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def tree_adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt: dict):
+    """One AdamW step of the reference's ``adamw_update`` on one tree, in
+    place: ``params``, ``opt["m"]`` and ``opt["v"]`` are overwritten (the
+    reference's train step donates its state the same way) and
+    ``opt["count"]`` replaced.  Returns ``(params, opt, gnorm)``.  Every
+    leaf is updated in float32 and stored back in its own dtype (the
+    moments in ``opt_dtype``); the schedule, the clip scale and the bias
+    corrections are float32 tensors, as JAX computes them."""
+    count = opt["count"] + 1
+    gnorm = tree_global_norm(grads)
+    clip = torch.full_like(gnorm, cfg.clip_norm)
+    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    lr = cosine_schedule(cfg, count)
+    c = count.to(F32)
+    bc1 = 1.0 - torch.pow(torch.full_like(c, cfg.b1), c)
+    bc2 = 1.0 - torch.pow(torch.full_like(c, cfg.b2), c)
+    flat = zip(
+        tree_leaves(params),
+        tree_leaves(grads),
+        tree_leaves(opt["m"]),
+        tree_leaves(opt["v"]),
+        strict=True,
+    )
+    for p, g, m, v in flat:
+        for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m), _chunks(v)):
+            gf = gc.float() * scale
+            m32 = mc.float() * cfg.b1 + (1 - cfg.b1) * gf
+            v32 = vc.float() * cfg.b2 + (1 - cfg.b2) * gf * gf
+            step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+            step = step + cfg.weight_decay * pc.float()
+            pc.copy_(pc.float() - lr * step)
+            mc.copy_(m32)
+            vc.copy_(v32)
+    opt["count"] = count
+    return params, opt, gnorm
+
+
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "cosine_schedule",
+    "leaves",
+    "tree_adamw_init",
+    "tree_adamw_update",
+    "tree_global_norm",
+    "tree_leaves",
+]

@@ -30,6 +30,13 @@ imports JAX, so the tests run where the card is.
   and an observed ``paper_fig2`` against the unobserved one on the card
   (identical records, as far as two unobserved runs agree), A = B =
   stacked steps with the observatory on.
+* the zoo's LM train step: C's backward (``RMSNorm``) against autograd
+  through ``rmsnorm_plain`` at the danube train shape; a reduced
+  float32 h2o-danube-3-4b's ``loss_fn`` and its gradients on the card
+  against the CPU (every leaf's gradient non-zero on the card: a kernel
+  output that autograd cannot see through would cut the norms' and the
+  attention projections' gradients to zero), C launched ``2L + 1``
+  times a forward, D never; and D refusing a gradient on the card.
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
@@ -50,7 +57,11 @@ from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.core.erb import flat_columns  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
-from repro_torch.optim.adamw import leaves  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.models.model import Model, make_loss_fn  # noqa: E402
+from repro_torch.optim.adamw import leaves, tree_leaves  # noqa: E402
 from repro_torch.rl.fleet import FleetSteps, unpack_stats  # noqa: E402
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
@@ -300,3 +311,83 @@ def test_observed_run_matches_unobserved_on_card(cuda):
         for doc in learning.values()
     )
     assert on.extra["health"]["status"] != "alert"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype, rtol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)]
+)
+def test_rmsnorm_backward_matches_plain_on_card(cuda, dtype, rtol):
+    """The danube train shape [2048, 3840]: C's forward launches once, its
+    backward (plain torch) agrees with autograd through ``rmsnorm_plain``
+    within ``rtol`` of each output's largest magnitude."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2048, 3840, generator=gen, device=cuda).to(dtype)
+    scale = torch.randn(3840, generator=gen, device=cuda)
+    g = torch.randn(2048, 3840, generator=gen, device=cuda).to(dtype)
+    out = []
+    fns = (
+        lambda a, b: RMSNorm.apply(a, b, 1e-5),
+        lambda a, b: rmsnorm_plain(a, b, 1e-5),
+    )
+    for fn in fns:
+        xa, sa = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        before = rmsnorm.launches
+        y = fn(xa, sa)
+        launched = rmsnorm.launches - before
+        out.append((y, *torch.autograd.grad(y, (xa, sa), g), launched))
+    (y, dx, ds, n), (y_p, dx_p, ds_p, n_p) = out
+    assert (n, n_p) == (1, 0)
+    for got, want in ((y, y_p), (dx, dx_p), (ds, ds_p)):
+        got, want = got.detach(), want.detach()
+        assert got.dtype == want.dtype
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= rtol * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_lm_loss_and_grads_card_match_cpu(cuda):
+    cfg = dataclasses.replace(
+        get_config("h2o-danube-3-4b").reduced(), n_kv_heads=2, sliding_window=64
+    )
+    params = Model(cfg, "cpu").init_params(0)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 97)), dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        live = _to(params, dev)
+        flat = tree_leaves(live)
+        for t in flat:
+            t.requires_grad_(True)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        before = rmsnorm.launches, flash_attention.launches
+        total, _ = make_loss_fn(cfg)(live, batch)
+        grads = torch.autograd.grad(total, flat)
+        moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
+        out[str(dev)] = (float(total), [g.cpu() for g in grads], moved)
+    (loss_c, grads_c, moved_c), (loss_g, grads_g, moved_g) = out["cpu"], out["cuda"]
+    assert moved_c == (0, 0) and moved_g == (2 * cfg.n_layers + 1, 0)
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for gc, gg in zip(grads_c, grads_g, strict=True):
+        scale = float(gc.abs().max())
+        assert float(gg.abs().max()) > 0  # every leaf reached on the card
+        assert float((gg - gc).abs().max()) <= 1e-4 * scale
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_gradient_on_card(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 64, 1, 64, device=cuda, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q.clone().requires_grad_(), k, k)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        assert flash_attention(q.clone().requires_grad_(), k, k).shape == q.shape
+    assert flash_attention.launches == before + 1

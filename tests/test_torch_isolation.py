@@ -22,6 +22,7 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 # the framework-free copies are scanned like the rest
 assert {"repro_torch.telemetry.trace", "repro_torch.observatory.learning"} <= set(names)
+assert {"repro_torch.launch.train", "repro_torch.checkpoint.ckpt"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -47,8 +48,9 @@ def test_port_imports_no_jax_and_no_reference():
     ).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
     # every module of the port was imported: the zoo's, the experiments',
-    # the sweeps', the telemetry's and the observatory's too
-    assert n_modules >= 80
+    # the sweeps', the telemetry's, the observatory's and the LM training
+    # slice's (data, checkpoint, launch.train) too
+    assert n_modules >= 88
     assert bad == "[]"
 
 
@@ -67,7 +69,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.experiments.__main__ import main
     from repro_torch.experiments.runner import run
     from repro_torch.experiments.systems import BaselineSystem
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import Model
     from repro_torch.rl.agent import DQNAgent
     from repro_torch.rl.fleet import FleetEngine
@@ -93,6 +95,7 @@ def test_entry_points_default_to_cuda():
         lambda: Model(get_config("h2o-danube-3-4b-smoke")),
         lambda: serve.main(["--arch", "h2o-danube-3-4b-smoke", "--gen", "1"]),
         lambda: serve.main(["--fleet", "--requests", "2"]),
+        lambda: train.main(["--arch", "h2o-danube-3-4b-smoke", "--steps", "1"]),
         lambda: run("serve_localization", fast=True),
         lambda: build_session(cfg, n_agents=1, traffic=TrafficSpec(n_requests=2)),
         lambda: LocalizationService(cfg, params={"fc0": {"b": torch.zeros(1, 6)}}),

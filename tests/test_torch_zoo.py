@@ -101,7 +101,7 @@ def test_config_is_the_reference_copy(ref):
 
 def test_unported_configs_raise_and_say_so():
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("qwen2.5-14b")
+        get_config("qwen2-vl-2b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-model")
 
@@ -256,7 +256,7 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "prefill [2x70]" in out and "decoded 3 tokens x 2 reqs" in out
 
 
-def test_serve_cli_fleet_is_not_ported(capsys):
+def test_serve_cli_fleet_serves_on_the_cpu(capsys):
     """``--fleet`` (named when it was refused) now serves the localization
     fleet on the CPU: a hot swap, no new act shapes after warmup."""
     argv = ["--fleet", "--device", "cpu", "--requests", "8", "--max-batch", "4"]
