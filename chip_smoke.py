@@ -98,9 +98,12 @@ non-zero exit code and no result line:
    each fleet kernel.
 13. kernels — the model zoo's ``rmsnorm`` and ``flash_attention`` against
    their plain versions on the card at the serving path's shapes (of
-   h2o-danube-3-4b, and the prefills of qwen2.5-14b and starcoder2-15b:
-   head_dim 128; rmsnorm also at qwen's d 5120 and at danube's train
-   step [2048, 3840]) and at
+   h2o-danube-3-4b, and the prefills of every other zoo_main arch:
+   head_dim 128 for qwen2.5-14b, starcoder2-15b, qwen2-vl-2b (12/2),
+   qwen3-moe (64/4), moonshot (16/16) and deepseek-v2-lite's dense prefix
+   layer (16/16 at S = 480), musicgen-medium at 24/24 of 64; rmsnorm also
+   at qwen's d 5120, at qwen2-vl's 1536, moonshot's 2048 and qwen3-moe's
+   4096, prefill and decode, and at danube's train step [2048, 3840]) and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
    scalar kernel otherwise), timed like phase 3 beside one PyTorch library
@@ -117,14 +120,23 @@ non-zero exit code and no result line:
    of 96 tokens (past the window), then 8 decode steps; logits must
    agree within 1e-4.
 15. zoo_main — ``python -m repro_torch.launch.serve`` at full width for
-   h2o-danube-3-4b, qwen2.5-14b and starcoder2-15b in turn, each in
-   bfloat16, random weights drawn on the card from seed 0, batch 4,
-   prompt 1000, 32 greedy steps, freed before the next; launches read
-   around the prefill and decode alone (``flash_attention`` once a layer,
-   all on the tensor-core route: 24, 48, 40; ``rmsnorm`` (2L + 1) x 33,
-   all on the ``cta`` route: 1617 for danube, 3201 for qwen, none for
-   starcoder2's LayerNorm), then decode logits at 4 positions against
-   the teacher-forced ``forward`` on the card.  Init, peak memory,
+   h2o-danube-3-4b, qwen2.5-14b, starcoder2-15b, qwen2-vl-2b (M-RoPE,
+   embeds in), musicgen-medium (embeds in, LayerNorm),
+   qwen3-moe-235b-a22b (MoE; cut to 8 of its 94 layers),
+   moonshot-v1-16b-a3b (MoE with shared experts, a dense prefix layer)
+   and deepseek-v2-lite-16b (MLA, MoE, the dense prefix; prompt cut to
+   480) in turn, each in bfloat16, random weights drawn on the card from
+   seed 0, batch 4, prompt 1000, 32 greedy steps, freed before the next;
+   launches read around the prefill and decode alone
+   (``flash_attention`` once an attention layer, all on the tensor-core
+   route: 24, 48, 40, 28, 48, 8, 48, 1; ``rmsnorm`` (2L + 1) x 33, all on
+   the ``cta`` route: 1617 for danube, 3201 for qwen and moonshot, 1881
+   for qwen2-vl, 561 for qwen3-moe, 1815 for deepseek, none for
+   starcoder2's and musicgen's LayerNorm), then decode logits at 4
+   positions against the teacher-forced ``forward`` on the card (an MoE
+   arch: on a second generation at capacity factor 16, where no pair is
+   dropped; the timed one runs at the published 1.25 and prints the
+   pairs it dropped at prefill and at decode).  Init, peak memory,
    prefill and decode times printed for each.
 16. observatory (run after the Table 2 sweep, before phase 13) —
    ``paper_fig2 --fast`` at ``DQNConfig()`` (4 agents, ``share_planes``
@@ -148,24 +160,32 @@ non-zero exit code and no result line:
    directory; exit 0, the per-scenario traces and dashboards, the JSON's
    keys those of ``benchmarks/baselines/BENCH_experiments.json``, one
    launch of each fleet kernel per stacked step.
-18. lm_train_chunk (before zoo_main) — a reduced float32 h2o-danube-3-4b
-   card vs CPU from one init: ``loss_fn`` and its backward (loss 1e-5
-   relative, every gradient leaf within 1e-4 of its largest magnitude
-   and non-zero on the card), one ``train_step`` each way, one at
-   ``microbatches=2``; C 2L + 1 times a forward, D never.
+18. lm_train_chunk (before zoo_main) — a reduced float32 h2o-danube-3-4b,
+   deepseek-v2-lite-16b-smoke (MoE, MLA, the dense prefix) and
+   qwen2-vl-2b-smoke (embeds, M-RoPE positions [3, B, S]), each card vs
+   CPU from one init: ``loss_fn`` and its backward (loss and router loss
+   1e-5 relative, every gradient leaf within 1e-4 of its largest
+   magnitude and non-zero on the card, the routers' included; an embeds
+   config's unused token table excepted), one ``train_step`` each way,
+   one at ``microbatches=2``; C 2L + 1 times a forward, D never.
 19. lm_train_main — ``python -m repro_torch.launch.train`` for
    h2o-danube-3-4b at full width and depth in bfloat16 with float32
    moments, batch 2, seq 1024, 4 steps: finite losses, ``gnorm > 0``
    every step, C (2L + 1) x 4 times, D never; wall, tokens a second and
    peak memory printed.
+20. zoo_window (after zoo_main) — the sliding-window prefill -> decode
+   handoff at full width: h2o-danube-3-4b (window 4096), batch 1, a
+   prompt of 4100 tokens (past the window, no multiple of it), 8 greedy
+   steps, each step's logits against the teacher-forced forward at 3e-2
+   of the largest logit; D 24, C 49 x 9.
 
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
 paths (main, baselines, sweep, topology, population, serve,
 table2_sweep, observatory, cli) and the stepwise path, ``rmsnorm`` and
-``flash_attention`` on the zoo's (lm_train_chunk, lm_train_main and
-zoo_main for each arch): every entry carries ``launches_by_path`` and
+``flash_attention`` on the zoo's (lm_train_chunk, lm_train_main,
+zoo_main for each arch and zoo_window): every entry carries ``launches_by_path`` and
 ``launches`` is its sum.
 """
 
@@ -191,7 +211,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import ATTN, FFN_MOE, get_config  # noqa: E402
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.core.experiment import ExperimentHooks  # noqa: E402
 from repro_torch.experiments import __main__ as experiments_cli  # noqa: E402
@@ -213,8 +233,9 @@ from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather_plain,
 )
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import profile_serve, serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     Model,
     forward,
@@ -246,8 +267,29 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 N_AGENTS, BATCH = 4, 32  # the fleet's minibatch rows per step: N * B
 ZOO_ARCH = "h2o-danube-3-4b"
 # zoo_main serves each at full width; the first is the zoo's reference arch
-ZOO_ARCHS = (ZOO_ARCH, "qwen2.5-14b", "starcoder2-15b")
+ZOO_ARCHS = (
+    ZOO_ARCH,
+    "qwen2.5-14b",
+    "starcoder2-15b",
+    "qwen2-vl-2b",
+    "musicgen-medium",
+    "qwen3-moe-235b-a22b",
+    "moonshot-v1-16b-a3b",
+    "deepseek-v2-lite-16b",
+)
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
+# zoo_main's cuts (launch/profile_serve.py): deepseek-v2-lite at prompt
+# 480, qwen3-moe at 8 of its 94 layers
+ZOO_PROMPTS, ZOO_LAYERS = profile_serve.PROMPTS, profile_serve.LAYERS
+# zoo_window: danube's window handoff, a prompt past 4096 and no multiple of it
+WINDOW_PROMPT, WINDOW_GEN = 4100, 8
+# zoo_main's float32 decode check of the MoE archs: full width, the depth
+# that fits the card with capacity factor 16's buffers
+ZOO_F32_LAYERS = {
+    "qwen3-moe-235b-a22b": 2,
+    "moonshot-v1-16b-a3b": 6,
+    "deepseek-v2-lite-16b": 6,
+}
 # lm_train_main: launch.train at full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
 # the reference CI's experiments smoke (.github/workflows/ci.yml)
@@ -269,6 +311,14 @@ EXTRA_FIELDS = (
     "qwen25_14b_prefill",
     "qwen25_14b_decode",
     "starcoder2_15b_prefill",
+    "qwen2_vl_2b_prefill",
+    "qwen2_vl_2b_decode",
+    "musicgen_medium_prefill",
+    "qwen3_moe_235b_a22b_prefill",
+    "qwen3_moe_235b_a22b_decode",
+    "moonshot_v1_16b_a3b_prefill",
+    "moonshot_v1_16b_a3b_decode",
+    "deepseek_v2_lite_16b_prefill",
     "train",
     "backward",
     "launches_by_path",
@@ -1316,6 +1366,12 @@ def phase_serve(dev) -> dict[str, int]:
     return total
 
 
+def _key(arch: str) -> str:
+    """An arch's name as a key of the kernels line: ``qwen2.5-14b`` ->
+    ``qwen25_14b``."""
+    return arch.replace(".", "").replace("-", "_")
+
+
 def check_rmsnorm(dev) -> dict:
     """The prefill [B*S, d] and decode [B, d] calls of the zoo main path
     (the ``cta`` route) for h2o-danube-3-4b (d 3840) and qwen2.5-14b
@@ -1334,11 +1390,22 @@ def check_rmsnorm(dev) -> dict:
     d = get_config(ZOO_ARCH).d_model
     dq = get_config("qwen2.5-14b").d_model
     bf, f32 = torch.bfloat16, torch.float32
+    # the serving shapes of the other RMSNorm widths: qwen2-vl d 1536,
+    # moonshot's (and deepseek's) 2048, qwen3-moe's 4096
+    new_widths = [
+        (_key(arch), get_config(arch).d_model)
+        for arch in ("qwen2-vl-2b", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b")
+    ]
     cases = (
         ("prefill", ZOO_BATCH * ZOO_PROMPT, d, bf, "cta", 0, 2e-2),
         ("decode", ZOO_BATCH, d, bf, "cta", 0, 2e-2),
         ("qwen25_14b_prefill", ZOO_BATCH * ZOO_PROMPT, dq, bf, "cta", 0, 2e-2),
         ("qwen25_14b_decode", ZOO_BATCH, dq, bf, "cta", 0, 2e-2),
+        *(
+            (f"{key}_{mode}", n, width, bf, "cta", 0, 2e-2)
+            for key, width in new_widths
+            for mode, n in (("prefill", ZOO_BATCH * ZOO_PROMPT), ("decode", ZOO_BATCH))
+        ),
         ("train", TRAIN_BATCH * TRAIN_SEQ, d, bf, "cta", 0, 2e-2),
         ("many_f32", 1500, 1000, f32, "cta", 0, 1e-5),
         ("many_16k", 1024, 8192, bf, "cta", 0, 2e-2),
@@ -1476,14 +1543,19 @@ def check_flash_attention(dev) -> dict:
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     w = cfg.sliding_window
     bf, f32 = torch.bfloat16, torch.float32
-    qw, sc = get_config("qwen2.5-14b"), get_config("starcoder2-15b")
+    # the prefills of the other zoo_main archs (no window): the two 15 B
+    # configs, qwen2-vl (12/2), musicgen (24/24 of 64), qwen3-moe (64/4),
+    # moonshot (MHA 16/16) and deepseek's dense prefix layer (16/16 at its
+    # prompt of 480)
+    prefills = tuple(
+        (f"{_key(arch)}_prefill", ZOO_BATCH, ZOO_PROMPTS.get(arch, ZOO_PROMPT),
+         c.n_heads, c.n_kv_heads, c.resolved_head_dim, bf, None, 0.0, 3e-2)
+        for arch in ZOO_ARCHS[1:]
+        for c in (get_config(arch),)
+    )
     cases = (
         ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, d, bf, w, 0.0, 3e-2),
-        # head_dim 128 prefills of the two 15 B configs (no window)
-        ("qwen25_14b_prefill", ZOO_BATCH, ZOO_PROMPT, qw.n_heads, qw.n_kv_heads,
-         qw.resolved_head_dim, bf, None, 0.0, 3e-2),
-        ("starcoder2_15b_prefill", ZOO_BATCH, ZOO_PROMPT, sc.n_heads, sc.n_kv_heads,
-         sc.resolved_head_dim, bf, None, 0.0, 3e-2),
+        *prefills,
         ("window", 1, 4608, hq, hkv, d, bf, w, 0.0, 3e-2),
         ("softcap", 2, 333, 8, 2, d, f32, None, 30.0, 2e-5),
         ("tile", 1, 64, 1, 1, 64, bf, None, 0.0, 3e-2),
@@ -1750,45 +1822,130 @@ def phase_observatory(dev) -> dict[str, int]:
 
 
 def _loss_and_grads(cfg, params, batch):
-    """``loss_fn``'s loss and its gradients (in ``tree_leaves`` order) at a
-    copy of ``params`` that requires them; C and D launches moved."""
+    """``loss_fn``'s loss, router loss and gradients (in ``tree_leaves``
+    order) at a copy of ``params`` that requires them; C and D launches
+    moved."""
     live = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
     flat = tree_leaves(live)
     before = rmsnorm.launches, flash_attention.launches
     total, metrics = make_loss_fn(cfg)(live, batch)
-    grads = torch.autograd.grad(total, flat)
+    grads = torch.autograd.grad(total, flat, materialize_grads=True)
     moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
-    return float(metrics["loss"].detach()), [g.float().cpu() for g in grads], moved
+    loss, aux = (float(metrics[k].detach()) for k in ("loss", "aux"))
+    return loss, aux, [g.float().cpu() for g in grads], moved
+
+
+def leaf_paths(tree, prefix="") -> list[str]:
+    """``/``-joined key paths of a nested dict's leaves, in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def lm_train_batch(cfg, rng) -> dict[str, torch.Tensor]:
+    """A [4, 96] batch on the host: tokens or embeds, the next-token
+    labels, and for M-RoPE distinct t/h/w positions [3, 4, 96]."""
+    b, s = 4, 96
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s + 1)), dtype=torch.int32)
+    batch = {"labels": toks[:, 1:]}
+    if cfg.input_kind == "embeds":
+        emb = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        batch["embeds"] = torch.tensor(emb)
+    else:
+        batch["tokens"] = toks[:, :-1]
+    if cfg.rope == "mrope":
+        hw = np.sort(rng.integers(0, s, (2, b, s)), axis=-1)
+        t = np.broadcast_to(np.arange(s), (1, b, s))
+        batch["positions"] = torch.tensor(np.concatenate([t, hw]), dtype=torch.int32)
+    return batch
+
+
+def lm_train_configs() -> list:
+    """``lm_train_chunk``'s configs: a narrow danube (2 kv heads, window 64,
+    as zoo_chunk), deepseek-v2-lite's reduced config (MLA, MoE with a
+    shared expert, the dense prefix layer) and qwen2-vl-2b's (embeds in,
+    M-RoPE, positions [3, B, S] split by the microbatches)."""
+    danube = replace(get_config(ZOO_ARCH).reduced(), n_kv_heads=2, sliding_window=64)
+    return [
+        (danube, f"{danube.name}, n_kv_heads=2, sliding_window=64, float32"),
+        (get_config("deepseek-v2-lite-16b-smoke"), "float32"),
+        (get_config("qwen2-vl-2b-smoke"), "float32"),
+    ]
 
 
 def phase_lm_train_chunk(dev) -> dict[str, int]:
-    """A narrow float32 h2o-danube-3-4b (2 kv heads, window 64, as
-    zoo_chunk), card (C on the card) vs CPU (plain versions), from the
-    same params and tokens: ``loss_fn`` and its backward, then one
-    ``train_step`` each way and, on the card, one at ``microbatches=2``.
-    Loss within 1e-5 relative; every gradient leaf within 1e-4 of its
-    largest magnitude, and non-zero on the card (a kernel output that
-    autograd cannot see through would leave the norms and the attention
-    projections without one); C launched 2L + 1 times a forward (k times
-    that with k microbatches), D never."""
-    cfg = replace(get_config(ZOO_ARCH).reduced(), n_kv_heads=2, sliding_window=64)
+    """Each of :func:`lm_train_configs`, card (C on the card) vs CPU (plain
+    versions), from the same params and batch: ``loss_fn`` and its
+    backward, then one ``train_step`` each way and, on the card, one at
+    ``microbatches=2``.  Loss and router loss within 1e-5 relative; every
+    gradient leaf within 1e-4 of its largest magnitude, and non-zero on
+    the card wherever the loss reaches it (a kernel output that autograd
+    cannot see through would leave the norms and the attention
+    projections without one; the routers' gradients come through the
+    gates): every leaf but an embeds config's unused token table; C
+    launched 2L + 1 times a forward (k times that with k microbatches), D
+    never."""
     rng = np.random.default_rng(6)
-    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 97)), dtype=torch.int32)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    reset_launches()
+    rows = []
+    for cfg, label in lm_train_configs():
+        rows.append(lm_train_chunk_one(dev, cfg, label, lm_train_batch(cfg, rng)))
+    launches = read_launches()
+    emit({"phase": "lm_train_chunk", "configs": rows, "launches": launches})
+    for row in rows:
+        name = row["config"]
+        require(row["loss_rel_err"] <= 1e-5, f"lm train chunk {name}: loss differs")
+        require(row["aux_rel_err"] <= 1e-5, f"lm train chunk {name}: aux differs")
+        require(
+            row["grad_max_rel_err"] <= 1e-4,
+            f"lm train chunk {name}: a gradient leaf differs by "
+            f"{row['grad_max_rel_err']}",
+        )
+        require(
+            row["zero_grad_leaves_on_card"] == row["unreached_leaves"],
+            f"lm train chunk {name}: zero gradient leaves "
+            f"{row['zero_grad_leaves_on_card']}",
+        )
+        per_forward = row["rmsnorm_per_forward"]
+        require(
+            row["loss_fn_launches_cpu_gpu"] == [(0, 0), (per_forward, 0)],
+            f"lm train chunk {name}: loss_fn launches "
+            f"{row['loss_fn_launches_cpu_gpu']}",
+        )
+        step_launches = [v["launches"] for v in row["train_step"].values()]
+        require(
+            step_launches == [(0, 0), (per_forward, 0), (2 * per_forward, 0)],
+            f"lm train chunk {name}: train_step launches {step_launches}",
+        )
+        require(
+            row["train_step_rel_err"] <= 1e-5,
+            f"lm train chunk {name}: step metrics differ by "
+            f"{row['train_step_rel_err']}",
+        )
+        require(
+            row["train_step_params_max_abs_err"] <= 1e-4,
+            f"lm train chunk {name}: params differ",
+        )
+    return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
+
+
+def lm_train_chunk_one(dev, cfg, label, batch) -> dict:
     params = Model(cfg, "cpu").init_params(0)
     Model(cfg, dev)  # the card's precision settings (TF32 off)
-    per_forward = 2 * cfg.n_layers + 1
-    reset_launches()
-    loss_c, grads_c, moved_c = _loss_and_grads(cfg, params, batch)
-    loss_g, grads_g, moved_g = _loss_and_grads(
+    loss_c, aux_c, grads_c, moved_c = _loss_and_grads(cfg, params, batch)
+    loss_g, aux_g, grads_g, moved_g = _loss_and_grads(
         cfg, tree_to(params, dev), tree_to(batch, dev)
     )
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    aux_err = abs(aux_g - aux_c) / abs(aux_c) if aux_c else abs(aux_g)
     leaf_err = max(
-        float((g - c).abs().max()) / float(c.abs().max())
+        float((g - c).abs().max()) / max(float(c.abs().max()), 1e-30)
         for g, c in zip(grads_g, grads_c, strict=True)
     )
-    zero_leaves = [i for i, g in enumerate(grads_g) if not bool(g.abs().max() > 0)]
+    paths = leaf_paths(params)
+    zero_leaves = [p for p, g in zip(paths, grads_g) if not bool(g.abs().max() > 0)]
+    unreached = ["embed/tok"] if cfg.input_kind == "embeds" else []
     steps = {}
     opt = AdamWConfig()
     for name, where, k in (("cpu", "cpu", 1), ("gpu", dev, 1), ("gpu_k2", dev, 2)):
@@ -1800,6 +1957,7 @@ def phase_lm_train_chunk(dev) -> dict[str, int]:
         state, m = step(state, tree_to(batch, where))
         steps[name] = {
             "loss": float(m["loss"]),
+            "aux": float(m["aux"]),
             "grad_norm": float(m["grad_norm"]),
             "launches": (
                 rmsnorm.launches - before[0],
@@ -1807,50 +1965,37 @@ def phase_lm_train_chunk(dev) -> dict[str, int]:
             ),
             "params": [t.float().cpu() for t in tree_leaves(state["params"])],
         }
-    launches = read_launches()
     step_err = max(
         abs(steps["gpu"][key] - steps["cpu"][key]) / abs(steps["cpu"][key])
-        for key in ("loss", "grad_norm")
+        for key in ("loss", "aux", "grad_norm")
+        if steps["cpu"][key]
     )
     param_err = max(
         float((a - b).abs().max())
         for a, b in zip(steps["gpu"]["params"], steps["cpu"]["params"], strict=True)
     )
-    emit(
-        {
-            "phase": "lm_train_chunk",
-            "config": f"{cfg.name}, n_kv_heads=2, sliding_window=64, float32",
-            "batch": [4, 96],
-            "loss": [loss_c, loss_g],
-            "loss_rel_err": loss_err,
-            "grad_leaves": len(grads_g),
-            "grad_max_rel_err": leaf_err,
-            "zero_grad_leaves_on_card": zero_leaves,
-            "loss_fn_launches_cpu_gpu": [moved_c, moved_g],
-            "train_step": {
-                k: {kk: v for kk, v in step.items() if kk != "params"}
-                for k, step in steps.items()
-            },
-            "train_step_rel_err": step_err,
-            "train_step_params_max_abs_err": param_err,
-            "launches": launches,
-        }
-    )
-    require(loss_err <= 1e-5, f"lm train chunk: loss differs by {loss_err} (rel)")
-    require(leaf_err <= 1e-4, f"lm train chunk: a gradient leaf differs by {leaf_err}")
-    require(not zero_leaves, f"lm train chunk: zero gradient leaves {zero_leaves}")
-    require(
-        moved_c == (0, 0) and moved_g == (per_forward, 0),
-        f"lm train chunk: loss_fn launches {moved_c} (CPU), {moved_g} (card)",
-    )
-    step_launches = [v["launches"] for v in steps.values()]
-    require(
-        step_launches == [(0, 0), (per_forward, 0), (2 * per_forward, 0)],
-        f"lm train chunk: train_step launches {step_launches}",
-    )
-    require(step_err <= 1e-5, f"lm train chunk: step metrics differ by {step_err}")
-    require(param_err <= 1e-4, f"lm train chunk: params differ by {param_err}")
-    return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
+    return {
+        "config": cfg.name,
+        "label": label,
+        "batch": sorted(batch),
+        "loss": [loss_c, loss_g],
+        "aux": [aux_c, aux_g],
+        "loss_rel_err": loss_err,
+        "aux_rel_err": aux_err,
+        "grad_leaves": len(grads_g),
+        "router_leaves": [p for p in paths if p.endswith("router")],
+        "grad_max_rel_err": leaf_err,
+        "zero_grad_leaves_on_card": zero_leaves,
+        "unreached_leaves": unreached,
+        "rmsnorm_per_forward": 2 * cfg.n_layers + 1,
+        "loss_fn_launches_cpu_gpu": [moved_c, moved_g],
+        "train_step": {
+            k: {kk: v for kk, v in step.items() if kk != "params"}
+            for k, step in steps.items()
+        },
+        "train_step_rel_err": step_err,
+        "train_step_params_max_abs_err": param_err,
+    }
 
 
 def phase_lm_train_main(dev) -> dict[str, int]:
@@ -2005,13 +2150,160 @@ def phase_cli(dev) -> dict[str, int]:
     return {k: launches[k] for k in FLEET_KERNELS}
 
 
+@contextmanager
+def moe_dispatches():
+    """Each MoE layer's dispatch in call order, as (its expert choices
+    [T, k], the pairs it dropped): ``models/moe.py``'s dispatch wrapped
+    for the block (one device reduction a layer, no host sync)."""
+    calls = []
+    dispatch = moe._dispatch_indices
+
+    def recording(eidx, *args):
+        e_flat, slot, keep = dispatch(eidx, *args)
+        calls.append((eidx, (~keep).sum()))
+        return e_flat, slot, keep
+
+    moe._dispatch_indices = recording
+    try:
+        yield calls
+    finally:
+        moe._dispatch_indices = dispatch
+
+
+def generation_choices(calls, n_moe: int, prompt_len: int) -> list[torch.Tensor]:
+    """Per MoE layer, the expert choices [B, prompt + ZOO_GEN, k] a
+    generation made: its prefill's for the prompt, then each decode
+    step's (``calls`` from :func:`moe_dispatches`, prefill first)."""
+    decode = calls[n_moe : n_moe * (ZOO_GEN + 1)]
+    return [
+        torch.cat(
+            [
+                calls[layer][0].view(ZOO_BATCH, prompt_len, -1),
+                torch.stack([decode[i * n_moe + layer][0] for i in range(ZOO_GEN)], 1),
+            ],
+            1,
+        )
+        for layer in range(n_moe)
+    ]
+
+
+@contextmanager
+def replayed_routing(choices: list[torch.Tensor]):
+    """Route every MoE layer of one forward as ``choices`` say (one
+    [B, S, k] tensor a layer, in order): the layer's own float32 router
+    gives the gates of those experts, renormalised, and its loss."""
+    route = moe._route
+    layers = iter(choices)
+
+    def replay(cfg, router_w, x_flat):
+        _, _, aux = route(cfg, router_w, x_flat)
+        eidx = next(layers).reshape(x_flat.shape[0], -1)
+        probs = torch.softmax(x_flat.float() @ router_w, dim=-1)
+        gates = probs.gather(-1, eidx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates.to(x_flat.dtype), eidx, aux
+
+    moe._route = replay
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def moe_decode_check(model, params, prompt, at) -> dict:
+    """An MoE config's decode against the teacher-forced forward, at a
+    capacity factor where nothing drops: a generation, then the forward
+    twice.  Free, it routes by its own router: where rounding breaks a
+    near-tie of the top-k otherwise than the generation did, an expert
+    changes (``routing_flips``: the share of decode's choices that
+    differ a layer, first, last and mean; the prompt tokens whose
+    choices differ from the prefill's).  Replayed, it takes the
+    generation's choices (:func:`replayed_routing`), so the two compute
+    the same function and the difference is the arithmetic's alone."""
+    prompt_len = prompt.shape[1]
+    n_moe = sum(ffn == FFN_MOE for _, ffn in model.cfg.layer_pattern)
+    with moe_dispatches() as calls:
+        out = serve.generate(model, params, prompt, ZOO_GEN)
+        free = decode_vs_forward(model, params, prompt, out, at)
+    choices = generation_choices(calls, n_moe, prompt_len)
+    forced = [c[0].view(ZOO_BATCH, prompt_len + ZOO_GEN, -1) for c in calls[-n_moe:]]
+    flips, prompt_flips = [], 0
+    for got, want in zip(choices, forced, strict=True):
+        differ = (got.sort(-1).values != want.sort(-1).values).any(-1)
+        flips.append(float(differ[:, prompt_len:].float().mean()))
+        prompt_flips += int(differ[:, :prompt_len].sum())
+    with replayed_routing(choices):
+        err, scale, agree = decode_vs_forward(model, params, prompt, out, at)
+    del calls, choices, forced, out
+    return {
+        "max_abs_err": err,
+        "max_abs_logit": scale,
+        "argmax_agree": agree,
+        "free_max_abs_err": free[0],
+        "free_argmax_agree": free[2],
+        "routing_flips_first_last_mean": [flips[0], flips[-1], sum(flips) / n_moe],
+        "prompt_routing_flips": prompt_flips,
+    }
+
+
+def moe_float32_check(dev, arch: str, prompt_len: int) -> dict:
+    """:func:`moe_decode_check` in float32 at full width, depth cut to
+    ``ZOO_F32_LAYERS`` (to fit the card), capacity factor 16, every decode
+    step: the replayed forward within 1e-4 of the largest logit
+    (zoo_chunk's float32 tolerance)."""
+    cfg = get_config(arch)
+    no_drop = replace(cfg.moe, capacity_factor=16.0)
+    cfg = replace(cfg, n_layers=ZOO_F32_LAYERS[arch], dtype="float32", moe=no_drop)
+    model = Model(cfg, dev)
+    params = model.init_params(0)
+    tok = serve.prompt_tokens(cfg.vocab_size, ZOO_BATCH, prompt_len, 0)
+    prompt = torch.tensor(tok, dtype=torch.int32, device=dev)
+    check = moe_decode_check(model, params, prompt, list(range(ZOO_GEN)))
+    del model, params, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "capacity_factor": 16.0, **check, "tol": 1e-4}
+
+
+def decode_vs_forward(model, params, prompt, out, at) -> tuple[float, float, float]:
+    """Decode logits of ``out`` at steps ``at`` against the teacher-forced
+    forward over the prompt and the inputs decode was fed (the greedy
+    ids, or an embeds config's zero embeds): (max |d|, max |logit|,
+    argmax agreement)."""
+    cfg, (b, s) = model.cfg, prompt.shape[:2]
+    if cfg.input_kind == "embeds":
+        fed = prompt.new_zeros((b, ZOO_GEN, cfg.d_model))
+    else:
+        fed = out.tokens[:, :ZOO_GEN]
+    inputs = torch.cat([prompt, fed], 1)
+    pos = positions_for(cfg, b, inputs.shape[1], device=prompt.device)
+    hidden = forward(cfg, params, inputs, pos, mode="train")[0]
+    want = logits_fn(cfg, params, hidden[:, [s + i for i in at]]).float()
+    got = out.logits[at].transpose(0, 1)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return err, scale, float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+
 def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
-    """The serving CLI's path at full width for ``arch``, then decode
-    logits at 4 positions against the teacher-forced forward on the card;
-    the model is freed before the next one is drawn.  D launches once a
-    layer at prefill, all on the tensor-core route; C (2L + 1) x 33 times,
-    all on the ``cta`` route, for an RMSNorm config, never for a
-    LayerNorm one (starcoder2-15b).
+    """The serving CLI's path at full width for ``arch`` (prompt and depth
+    as ``ZOO_PROMPTS``/``ZOO_LAYERS`` cut them), then decode logits at 4
+    positions against the teacher-forced forward on the card; the model
+    is freed before the next one is drawn.  D launches once an attention
+    layer at prefill (MLA layers attend through ``chunked_attention``),
+    all on the tensor-core route; C (2L + 1) x 33 times, all on the
+    ``cta`` route, for an RMSNorm config, never for a LayerNorm one
+    (starcoder2-15b, musicgen-medium).  An MoE config's timed generation
+    runs at its published capacity factor 1.25, where pairs are dropped
+    (counted at prefill and at decode).  Its decode check runs where no
+    pair is dropped (capacity factor 16: the forward over every token
+    drops other pairs than decode's four-token steps), on a second
+    generation of the same prompt, with the forward routed as the
+    generation was (:func:`moe_decode_check`): in bf16 the two paths
+    round the router's input differently, and where that breaks a top-k
+    near-tie otherwise an expert changes, which moves the logits past
+    the tolerance below (the free forward's difference and its routing
+    flips are printed).  Then :func:`moe_float32_check`.
 
     Tolerance: the bf16 3e-2 of tests/test_kernels.py, relative to the
     largest logit.  The two paths round differently at every bf16 product
@@ -2019,77 +2311,116 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
     of a bf16 residual stream, so an element-wise allclose(3e-2, 3e-2) is
     too tight at full depth (max |d| 0.057 on an H100 for danube); the
     float32 zoo_chunk holds the arithmetic itself to 1e-4."""
+    prompt_len, n_layers = ZOO_PROMPTS.get(arch, ZOO_PROMPT), ZOO_LAYERS.get(arch)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, params, prompt = serve.setup(arch, ZOO_BATCH, ZOO_PROMPT, 0, dev)
+    model, params, prompt = serve.setup(
+        arch, ZOO_BATCH, prompt_len, 0, dev, n_layers=n_layers
+    )
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = model.cfg
     n_params = sum(t.numel() for t in tree_leaves(params))
+    n_moe = sum(ffn == FFN_MOE for _, ffn in cfg.layer_pattern)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    out = serve.generate(model, params, prompt, ZOO_GEN)
+    with moe_dispatches() as calls:
+        out = serve.generate(model, params, prompt, ZOO_GEN)
     launches = read_launches()
     by_route = {
         "flash_attention": dict(flash_attention.launches_by_route),
         "rmsnorm": dict(rmsnorm.launches_by_route),
     }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    # teacher-forced: the prompt and the fed tokens in one forward
-    toks = torch.cat([prompt, out.tokens[:, :ZOO_GEN]], 1)
-    at = [0, 10, 21, ZOO_GEN - 1]
-    pos = positions_for(cfg, ZOO_BATCH, toks.shape[1], device=dev)
-    hidden = forward(cfg, params, toks, pos, mode="train")[0]
-    want = logits_fn(cfg, params, hidden[:, [ZOO_PROMPT + i for i in at]]).float()
-    got = out.logits[at].transpose(0, 1)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     finite = bool(torch.isfinite(out.logits).all())
-    n_layers = cfg.n_layers
+    prefill_s, decode_s = out.prefill_s, out.decode_s
+    sample_ids = out.tokens[0, :8].tolist()
+    n_dispatches = len(calls)
+    dropped = {
+        "prefill": int(sum(n for _, n in calls[:n_moe])),
+        "decode": int(sum(n for _, n in calls[n_moe:])),
+        "prefill_pairs": ZOO_BATCH * prompt_len * cfg.moe.top_k * n_moe,
+        "decode_pairs": ZOO_BATCH * ZOO_GEN * cfg.moe.top_k * n_moe,
+    }
+    at = [0, 10, 21, ZOO_GEN - 1]
+    moe_checks = {}
+    if n_moe:
+        # a second generation where nothing drops, held to the forward
+        # under its own routing (the gate) and under the forward's (printed)
+        del out, calls
+        no_drop = replace(cfg.moe, capacity_factor=16.0)
+        checked = Model(replace(cfg, moe=no_drop), dev)
+        moe_checks = moe_decode_check(checked, params, prompt, at)
+        err, scale, agree = (
+            moe_checks.pop(k) for k in ("max_abs_err", "max_abs_logit", "argmax_agree")
+        )
+        del checked
+        out = None
+    else:
+        err, scale, agree = decode_vs_forward(model, params, prompt, out, at)
+        del calls
+    cuts = []
+    if n_layers is not None:
+        cuts.append(f"depth {n_layers} of {get_config(arch).n_layers} layers")
+    if prompt_len != ZOO_PROMPT:
+        cuts.append(
+            f"prompt {prompt_len} (chunked_attention's S: <= 512 or a multiple of 1024)"
+        )
+    n_attn = sum(mixer == ATTN for mixer, _ in cfg.layer_pattern)
     emit(
         {
             "phase": "zoo_main",
             "arch": arch,
-            "cuts": "none (random weights from seed 0)",
+            "cuts": "; ".join(cuts) or "none",
+            "weights": "random from seed 0",
+            "n_layers": cfg.n_layers,
             "params": n_params,
             "batch": ZOO_BATCH,
-            "prompt": ZOO_PROMPT,
+            "prompt": prompt_len,
             "gen": ZOO_GEN,
             "init_s": init_s,
             "init_peak_gb": init_peak_gb,
-            "prefill_s": out.prefill_s,
-            "decode_s": out.decode_s,
-            "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
+            "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / decode_s,
             "peak_gb": peak_gb,
             "launches": launches,
             "launches_by_route": by_route,
+            "dropped_pairs": dropped if n_moe else None,
+            "teacher_forced_capacity_factor": 16.0 if n_moe else None,
             "teacher_forced_positions": at,
             "teacher_forced_max_abs_err": err,
             "teacher_forced_max_abs_logit": scale,
             "teacher_forced_argmax_agree": agree,
-            "sample_ids": out.tokens[0, :8].tolist(),
+            **moe_checks,
+            "sample_ids": sample_ids,
         }
     )
-    del model, params, prompt, out, hidden, want, got, toks
+    del model, params, prompt, out
     gc.collect()
     torch.cuda.empty_cache()
+    if n_moe:
+        f32 = moe_float32_check(dev, arch, prompt_len)
+        emit({"phase": "zoo_main_float32", "arch": arch, **f32})
+        require(
+            f32["max_abs_err"] <= f32["tol"] * f32["max_abs_logit"],
+            f"zoo main {arch}: float32 decode vs teacher-forced max|d|="
+            f"{f32['max_abs_err']}, max|logit|={f32['max_abs_logit']}",
+        )
     require(finite, f"zoo main {arch}: non-finite logits")
     require(
-        launches["flash_attention"] == n_layers,
+        launches["flash_attention"] == n_attn,
         f"{arch}: flash_attention launched {launches['flash_attention']} times, "
-        f"not {n_layers}",
+        f"not {n_attn}",
     )
     require(
-        by_route["flash_attention"] == {"wgmma": n_layers, "scalar": 0},
+        by_route["flash_attention"] == {"wgmma": n_attn, "scalar": 0},
         f"{arch}: flash_attention routes {by_route}: every prefill layer on wgmma",
     )
-    want_rms = (2 * n_layers + 1) * (ZOO_GEN + 1) if cfg.norm == "rmsnorm" else 0
+    want_rms = (2 * cfg.n_layers + 1) * (ZOO_GEN + 1) if cfg.norm == "rmsnorm" else 0
     require(
         launches["rmsnorm"] == want_rms,
         f"{arch}: rmsnorm launched {launches['rmsnorm']} times, not {want_rms}",
@@ -2100,11 +2431,75 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
         f"{arch}: rmsnorm routes {by_route['rmsnorm']}, not {want_routes}",
     )
     require(
+        n_dispatches == n_moe * (ZOO_GEN + 1),
+        f"{arch}: {n_dispatches} MoE dispatches, not {n_moe} x {ZOO_GEN + 1}",
+    )
+    require(
         err <= 3e-2 * scale,
         f"zoo main {arch}: decode vs teacher-forced logits max|d|={err}, "
         f"max|logit|={scale}",
     )
     return launches, by_route
+
+
+def phase_zoo_window(dev) -> dict[str, int]:
+    """The sliding-window prefill -> decode handoff at full width:
+    h2o-danube-3-4b (window 4096), batch 1, a prompt of ``WINDOW_PROMPT``
+    tokens (past the window and no multiple of it, so the handed-over ring
+    is rolled by 4100 % 4096), then ``WINDOW_GEN`` greedy steps, every
+    step's logits against the teacher-forced forward at 3e-2 of the
+    largest logit (zoo_main's tolerance).  D once a layer, C (2L + 1) x
+    (steps + 1)."""
+    cfg = get_config(ZOO_ARCH)
+    require(
+        WINDOW_PROMPT > cfg.sliding_window and WINDOW_PROMPT % cfg.sliding_window,
+        "zoo window: the prompt must pass the window and be no multiple of it",
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, prompt = serve.setup(ZOO_ARCH, 1, WINDOW_PROMPT, 0, dev)
+    reset_launches()
+    out = serve.generate(model, params, prompt, WINDOW_GEN)
+    launches = read_launches()
+    toks = torch.cat([prompt, out.tokens[:, :WINDOW_GEN]], 1)
+    pos = positions_for(cfg, 1, toks.shape[1], device=dev)
+    hidden = forward(cfg, params, toks, pos, mode="train")[0][:, WINDOW_PROMPT:]
+    want = logits_fn(cfg, params, hidden).float()
+    got = out.logits.transpose(0, 1)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    per_step = (got - want).abs().amax((0, 2)).tolist()
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    emit(
+        {
+            "phase": "zoo_window",
+            "arch": ZOO_ARCH,
+            "window": cfg.sliding_window,
+            "batch": 1,
+            "prompt": WINDOW_PROMPT,
+            "gen": WINDOW_GEN,
+            "ring_shift": WINDOW_PROMPT % cfg.sliding_window,
+            "teacher_forced_max_abs_err": err,
+            "teacher_forced_max_abs_err_per_step": per_step,
+            "teacher_forced_max_abs_logit": scale,
+            "teacher_forced_argmax_agree": agree,
+            "prefill_s": out.prefill_s,
+            "launches": launches,
+        }
+    )
+    del model, params, prompt, out, hidden, want, got, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_rms = (2 * cfg.n_layers + 1) * (WINDOW_GEN + 1)
+    require(
+        launches["flash_attention"] == cfg.n_layers and launches["rmsnorm"] == want_rms,
+        f"zoo window: launches {launches}",
+    )
+    require(
+        err <= 3e-2 * scale,
+        f"zoo window: decode vs teacher-forced logits max|d|={err}, max|logit|={scale}",
+    )
+    return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
 
 
 def main() -> int:
@@ -2141,6 +2536,7 @@ def main() -> int:
     for arch in ZOO_ARCHS:
         zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch)
         by_route = by_route or routes  # danube's: the zoo's reference path
+    zoo_paths["zoo_window"] = phase_zoo_window(dev)
     for name in ("rmsnorm", "flash_attention"):
         launches[name] = sum(p[name] for p in zoo_paths.values())
         results[name]["launches_by_path"] = {p: n[name] for p, n in zoo_paths.items()}

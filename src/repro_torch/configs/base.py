@@ -205,8 +205,8 @@ def get_config(name: str) -> ModelConfig:
         return _REGISTRY[name]
     if name in ASSIGNED:
         raise KeyError(
-            f"{name} is not ported yet: the model zoo's later slices port its "
-            "blocks (ROADMAP queue 1, model zoo); only "
+            f"{name} is not ported yet: its Mamba and xLSTM blocks "
+            "(models/ssm.py) come with ROADMAP queue 1 item 3.6; only "
             f"{', '.join(sorted(_REGISTRY))} runs in repro_torch so far"
         )
     raise KeyError(f"unknown config {name!r}")
@@ -220,7 +220,7 @@ def list_configs() -> list[str]:
 _LOADED = False
 
 # the reference's assigned architectures; the port registers the ones
-# whose blocks it has ported (dense GQA: (ATTN, FFN_DENSE) with tokens in)
+# whose blocks it has ported (all but the Mamba and xLSTM ones)
 ASSIGNED = (
     "h2o-danube-3-4b",
     "jamba-1.5-large-398b",
@@ -242,7 +242,16 @@ def _ensure_loaded() -> None:
     _LOADED = True
     import importlib
 
-    for mod in ("h2o_danube3", "qwen25_14b", "starcoder2_15b"):
+    for mod in (
+        "h2o_danube3",
+        "musicgen_medium",
+        "qwen25_14b",
+        "moonshot_16b",
+        "deepseek_v2_lite",
+        "qwen3_moe_235b",
+        "starcoder2_15b",
+        "qwen2_vl_2b",
+    ):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -12,8 +12,11 @@ The model zoo's params (:func:`zoo_params_from_numpy`) keep the
 reference's layout leaf for leaf: nested dicts, ``x @ w`` weights, the
 per-group leaves stacked on a leading ``[G, ...]`` axis; its train state
 (:func:`zoo_train_state_from_numpy`) adds the AdamW moments, in their own
-dtype (``opt_dtype``), and the step count.  A bfloat16 leaf crosses as
-its bits (``ml_dtypes``' bfloat16 and torch's are the same format).
+dtype (``opt_dtype``), and the step count.  Both walk the tree whatever
+its keys (the dense ``prefix`` subtree, MLA's and MoE's leaves) and keep
+each leaf's dtype (float32 routers and norms beside bfloat16 weights).
+A bfloat16 leaf crosses as its bits (``ml_dtypes``' bfloat16 and
+torch's are the same format).
 
 The port's own init cannot reproduce JAX's threefry bits, so tests seed
 the port from converted reference params.

@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch NAME]
 
 Profiles the run ``chip_smoke.py``'s ``zoo_main`` drives: ``--arch``
-(h2o-danube-3-4b by default; qwen2.5-14b, starcoder2-15b) at full width
-in bfloat16, random weights from seed 0, batch 4, prompt
-1000, 32 greedy steps (``repro_torch.launch.serve.generate``).  One
+(h2o-danube-3-4b by default; any registered config) at full width in
+bfloat16, random weights from seed 0, batch 4, prompt 1000, 32 greedy
+steps (``repro_torch.launch.serve.generate``), with zoo_main's cuts:
+deepseek-v2-lite-16b at prompt 480, qwen3-moe-235b-a22b at 8 of its 94
+layers.  One
 warm-up generation, one plain generation for the wall times, then the
 prefill and the decode loop each under ``torch.profiler`` (CPU + CUDA
 activities).  Prints one JSON object with, for the prefill and the
@@ -29,33 +31,46 @@ from repro_torch.experiments.profile import ACTIVITIES, device_summary
 from repro_torch.launch import serve
 
 ARCH, BATCH, PROMPT, GEN = "h2o-danube-3-4b", 4, 1000, 32
+# zoo_main's cuts.  deepseek's MLA prefill attends through
+# chunked_attention, whose S must be <= 512 or a multiple of 1024 (480 +
+# 32 = 512 tokens in all); qwen3-moe's 94 layers hold about 470 GB of
+# bf16 weights, 8 of them about 42 GB (widths untouched)
+PROMPTS = {"deepseek-v2-lite-16b": 480}
+LAYERS = {"qwen3-moe-235b-a22b": 8}
 
 
 def profile_serve(arch: str = ARCH) -> dict:
-    model, params, prompt = serve.setup(arch, BATCH, PROMPT, 0)
+    prompt_len = PROMPTS.get(arch, PROMPT)
+    model, params, prompt = serve.setup(
+        arch, BATCH, prompt_len, 0, n_layers=LAYERS.get(arch)
+    )
     serve.generate(model, params, prompt, GEN)  # warm-up: cuBLAS, lazy loading
     plain = serve.generate(model, params, prompt, GEN)
+    key = "embeds" if model.cfg.input_kind == "embeds" else "tokens"
+    zeros = torch.zeros((BATCH, 1, model.cfg.d_model), device="cuda")
 
     with profile(activities=ACTIVITIES) as prof_prefill:
         t0 = time.perf_counter()
-        _, pre = model.prefill_step(params, {"tokens": prompt})
+        _, pre = model.prefill_step(params, {key: prompt})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-    caches = serve.load_prefill(model.init_caches(BATCH, PROMPT + GEN), pre)
+    caches = serve.load_prefill(model.init_caches(BATCH, prompt_len + GEN), pre)
     tok = plain.tokens[:, :1]
     with profile(activities=ACTIVITIES) as prof_decode:
         t0 = time.perf_counter()
         for i in range(GEN):
-            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device="cuda")
-            lg, caches = model.serve_step(params, caches, {"tokens": tok, "pos": pos})
+            pos = torch.full((BATCH,), prompt_len + i, dtype=torch.int32, device="cuda")
+            step = {key: zeros if key == "embeds" else tok, "pos": pos}
+            lg, caches = model.serve_step(params, caches, step)
             tok = lg.argmax(-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
     decode = device_summary(prof_decode, decode_s)
     return {
         "arch": arch,
+        "n_layers": model.cfg.n_layers,
         "batch": BATCH,
-        "prompt": PROMPT,
+        "prompt": prompt_len,
         "gen": GEN,
         "prefill": {
             "wall_s": plain.prefill_s,

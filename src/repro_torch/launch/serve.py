@@ -15,8 +15,11 @@ Transformer mode — one prefill, then batched greedy decode:
         --batch 4 --prompt-len 1000 --gen 32 [--seed 0] [--device cpu]
 
 The weights are random, drawn on the device from ``--seed``; the prompt
-is drawn with numpy from the same seed, as the reference draws it.
-``--arch NAME-smoke`` serves the config's reduced CPU variant.
+is drawn with numpy from the same seed, as the reference draws it: token
+ids, or for a config whose input is embeddings (qwen2-vl-2b,
+musicgen-medium: the frontend is the reference's stub) standard-normal
+``[B, S, d_model]`` float32 embeds, with zero embeds fed at every decode
+step.  ``--arch NAME-smoke`` serves the config's reduced CPU variant.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -47,8 +50,9 @@ def _sync(device: torch.device) -> None:
 
 
 def load_prefill(caches, pre_caches):
-    """Copy the prefill's k/v/kpos into the decode caches (the reference's
-    ``_load_prefill``).
+    """Copy the prefill's caches (k/v/kpos, MLA's latent ckv/krope/kpos,
+    the dense prefix's and the groups') into the decode caches (the
+    reference's ``_load_prefill``).
 
     Every prefill leaf must either match its decode leaf exactly or be a
     same-rank prefix of it (kv caches sized for the whole conversation);
@@ -81,13 +85,25 @@ def prompt_tokens(
     return rng.integers(0, vocab_size, (batch, prompt_len))
 
 
+def prompt_embeds(d_model: int, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """The reference driver's prompt for an embeds config: numpy
+    ``default_rng(seed)`` standard normals [B, S, d_model], float32."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, prompt_len, d_model)).astype(np.float32)
+
+
 def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Generation:
-    """Prefill ``prompt`` [B, S] once, then ``gen`` greedy decode steps,
-    each feeding the previous step's argmax."""
+    """Prefill ``prompt`` (token ids [B, S], or embeds [B, S, D] for an
+    embeds config) once, then ``gen`` greedy decode steps, each feeding
+    the previous step's argmax (an embeds config: zero embeds, as the
+    reference's driver feeds)."""
     dev = model.device
-    b, s = prompt.shape
+    b, s = prompt.shape[:2]
+    embeds = model.cfg.input_kind == "embeds"
+    key = "embeds" if embeds else "tokens"
+    zeros = torch.zeros((b, 1, model.cfg.d_model), device=dev) if embeds else None
     t0 = time.perf_counter()
-    last_logits, pre_caches = model.prefill_step(params, {"tokens": prompt})
+    last_logits, pre_caches = model.prefill_step(params, {key: prompt})
     # decode caches sized for the whole conversation; the prefill's k/v in
     caches = load_prefill(model.init_caches(b, s + gen), pre_caches)
     tok = last_logits.argmax(-1).to(torch.int32)[:, None]
@@ -98,7 +114,8 @@ def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Gene
     t0 = time.perf_counter()
     for i in range(gen):
         pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
-        lg, caches = model.serve_step(params, caches, {"tokens": tok, "pos": pos})
+        step = {key: zeros if embeds else tok, "pos": pos}
+        lg, caches = model.serve_step(params, caches, step)
         tok = lg.argmax(-1).to(torch.int32)[:, None]
         tokens.append(tok)
         logits.append(lg.float())
@@ -111,17 +128,30 @@ def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Gene
     return Generation(torch.cat(tokens, 1), stacked, prefill_s, decode_s)
 
 
-def setup(arch: str, batch: int, prompt_len: int, seed: int, device=None):
+def setup(
+    arch: str,
+    batch: int,
+    prompt_len: int,
+    seed: int,
+    device=None,
+    n_layers: int | None = None,
+):
     """(model, params, prompt) as the CLI builds them: random params drawn on
-    the device from ``seed``, the prompt from numpy's ``default_rng(seed)``."""
-    model = Model(get_config(arch), device)
-    if model.cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{arch}: embedding inputs are not ported yet (ROADMAP queue 1)"
-        )
+    the device from ``seed``, the prompt from numpy's ``default_rng(seed)``
+    (:func:`prompt_tokens`, or :func:`prompt_embeds` for an embeds
+    config).  ``n_layers`` cuts the config's depth (a model too deep for
+    one card), widths untouched."""
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers)
+    model = Model(cfg, device)
     params = model.init_params(seed)
-    tok = prompt_tokens(model.cfg.vocab_size, batch, prompt_len, seed)
-    prompt = torch.tensor(tok, dtype=torch.int32, device=model.device)
+    if cfg.input_kind == "embeds":
+        emb = prompt_embeds(cfg.d_model, batch, prompt_len, seed)
+        prompt = torch.tensor(emb, device=model.device)
+    else:
+        tok = prompt_tokens(cfg.vocab_size, batch, prompt_len, seed)
+        prompt = torch.tensor(tok, dtype=torch.int32, device=model.device)
     return model, params, prompt
 
 
@@ -172,7 +202,7 @@ def main(argv=None) -> int:
     model, params, prompt = setup(
         args.arch, args.batch, args.prompt_len, args.seed, args.device
     )
-    b, s = prompt.shape
+    b, s = prompt.shape[:2]
     out = generate(model, params, prompt, args.gen)
     print(f"prefill [{b}x{s}] in {out.prefill_s:.2f}s")
     tok_s = args.gen * b / out.decode_s if out.decode_s > 0 else float("inf")

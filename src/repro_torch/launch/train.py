@@ -11,7 +11,10 @@ Runs on the CUDA card unless ``--device cpu`` is given:
 The weights are random, drawn on the device from a generator seeded by
 ``--seed``; the batches are the reference's synthetic token stream
 (``data/pipeline.py::token_batches``, numpy, the same seed), ids taken
-modulo the vocabulary.  It prints the reference's lines: the parameter
+modulo the vocabulary.  A config whose input is embeddings (qwen2-vl-2b,
+musicgen-medium) takes, as the reference's driver does, standard-normal
+``[B, S, d_model]`` float32 embeds from numpy's ``default_rng(seed)``
+and the stream's labels.  It prints the reference's lines: the parameter
 count, ``step i loss= gnorm=`` at every tenth of the run and the last
 step, and the steps' wall and tokens a second.  There is no production
 mesh: one card holds the model.
@@ -23,6 +26,7 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_pytree
@@ -47,11 +51,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{args.arch}: embedding inputs are not ported yet "
-            "(ROADMAP queue 1 item 3.3)"
-        )
     model = Model(cfg, args.device, opt_cfg_for(cfg))
     dev = model.device
     state = model.init_train_state(args.seed)
@@ -66,14 +65,18 @@ def main(argv=None) -> int:
         seed=args.seed,
     )
     stream = token_batches(sc)
+    rng = np.random.default_rng(args.seed)
 
     t0 = time.time()
     for i in range(args.steps):
         raw = next(stream)
-        batch = {
-            k: torch.tensor(raw[k] % cfg.vocab_size, device=dev)
-            for k in ("tokens", "labels")
-        }
+        batch = {"labels": torch.tensor(raw["labels"] % cfg.vocab_size, device=dev)}
+        if cfg.input_kind == "embeds":
+            shape = (args.batch, args.seq, cfg.d_model)
+            emb = rng.standard_normal(shape).astype(np.float32)
+            batch["embeds"] = torch.tensor(emb, device=dev)
+        else:
+            batch["tokens"] = torch.tensor(raw["tokens"] % cfg.vocab_size, device=dev)
         state, metrics = model.train_step(state, batch)
         if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
             loss = float(metrics["loss"])

@@ -1,7 +1,7 @@
-"""GQA/MHA attention with an optional sliding window.
+"""Attention mixers: GQA/MHA with an optional sliding window, and
+DeepSeek-V2's multi-head latent attention (MLA).
 
-The port of the reference's ``models/attention.py`` (GQA only; MLA waits
-for the zoo slice of deepseek-v2-lite, and ``blocks.py`` raises for it).
+The port of the reference's ``models/attention.py``.
 
 Serving's prefill (``attn_impl="kernel"``, the default) runs the
 hand-written ``flash_attention`` kernel: the same function as the
@@ -13,6 +13,16 @@ kernel has no backward and refuses a gradient).  Decode attends one
 token against a KV cache with a plain einsum, as the reference does.
 The cache is a ring buffer of ``sliding_window`` slots for SWA models,
 full-length otherwise; position ``p`` lives in slot ``p % window``.
+Positions are ``[B, S]``, or ``[3, B, S]`` for M-RoPE, whose first (t)
+coordinate is the one a cache slot records.
+
+MLA trains and prefills on the expanded path (per-head k and v from the
+latent) through :func:`chunked_attention` whatever ``attn_impl`` says:
+its q/k heads (nope + rope, 192 wide at full width) are past the
+kernel's largest head_dim, and the reference runs it there too.  Decode
+is the absorbed path: scores and the weighted sum in the
+``kv_lora_rank`` latent space, products in float32; its cache is the
+latent ``{ckv, krope, kpos}``.
 
 Two deliberate differences from the reference:
 
@@ -175,6 +185,17 @@ def gqa_cache_init(
     }
 
 
+def _cache_positions(positions: torch.Tensor) -> torch.Tensor:
+    """The positions a cache records: [B, S], the t coordinate of M-RoPE's
+    [3, B, S]."""
+    return positions if positions.dim() == 2 else positions[0]
+
+
+def _decode_pos(positions: torch.Tensor) -> torch.Tensor:
+    """Decode's current position [B] from [B, 1] or M-RoPE's [3, B, 1]."""
+    return _cache_positions(positions)[:, 0]
+
+
 def prefill_cache(
     k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, window: int | None
 ) -> dict[str, torch.Tensor]:
@@ -182,6 +203,7 @@ def prefill_cache(
     for a window shorter than the prompt the last ``w`` entries rolled by
     ``s % w``, so that position ``p`` sits in slot ``p % w`` where decode
     looks for it."""
+    positions = _cache_positions(positions)
     s = k.shape[1]
     if window is None or s <= window:
         return {"k": k, "v": v, "kpos": positions}
@@ -203,10 +225,10 @@ def gqa_apply(
     cache: dict[str, torch.Tensor] | None = None,
     attn_impl: str = "kernel",
 ):
-    """x [B,S,D] (train/prefill) or [B,1,D] (decode); positions [B,S].
-    ``attn_impl`` picks the train/prefill attention: ``"kernel"`` (the
-    ``flash_attention`` kernel, forward only) or ``"chunked"``
-    (:func:`chunked_attention`, differentiable).  Returns (y, cache): the
+    """x [B,S,D] (train/prefill) or [B,1,D] (decode); positions [B,S] or
+    M-RoPE's [3,B,S].  ``attn_impl`` picks the train/prefill attention:
+    ``"kernel"`` (the ``flash_attention`` kernel, forward only) or
+    ``"chunked"`` (:func:`chunked_attention`, differentiable).  Returns (y, cache): the
     prefill's cache to hand over, decode's updated cache (the same
     tensors, written in place), or None in train mode."""
     if attn_impl not in ATTN_IMPLS:
@@ -239,7 +261,7 @@ def gqa_apply(
         if mode == "prefill":
             new_cache = prefill_cache(k, v, positions, window)
     elif mode == "decode":
-        pos = positions[:, 0]
+        pos = _decode_pos(positions)
         slot = pos if window is None else pos % cache["k"].shape[1]
         bidx = torch.arange(b, device=x.device)
         slot = slot.long()
@@ -263,6 +285,120 @@ def gqa_apply(
     return dense_apply(p["wo"], y), new_cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+def mla_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    a = cfg.mla
+    dtype = torch_dtype(cfg.dtype)
+    d, h = cfg.d_model, cfg.n_heads
+    qd = a.nope_head_dim + a.rope_head_dim
+    p = {
+        "w_dkv": dense_init(d, a.kv_lora_rank, dtype, generator),
+        "w_krope": dense_init(d, a.rope_head_dim, dtype, generator),
+        "w_uk": dense_init(a.kv_lora_rank, h * a.nope_head_dim, dtype, generator),
+        "w_uv": dense_init(a.kv_lora_rank, h * a.v_head_dim, dtype, generator),
+        "wo": dense_init(h * a.v_head_dim, d, dtype, generator),
+    }
+    if a.q_lora_rank:
+        p["w_dq"] = dense_init(d, a.q_lora_rank, dtype, generator)
+        p["w_uq"] = dense_init(a.q_lora_rank, h * qd, dtype, generator)
+    else:
+        p["wq"] = dense_init(d, h * qd, dtype, generator)
+    return p
+
+
+def mla_cache_init(
+    cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype, device
+) -> dict[str, torch.Tensor]:
+    a = cfg.mla
+    return {
+        "ckv": torch.zeros(
+            (batch, cache_len, a.kv_lora_rank), dtype=dtype, device=device
+        ),
+        "krope": torch.zeros(
+            (batch, cache_len, a.rope_head_dim), dtype=dtype, device=device
+        ),
+        "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, the rope's cos/sin)."""
+    a = cfg.mla
+    b, s, _ = x.shape
+    if a.q_lora_rank:
+        q = dense_apply(p["w_uq"], dense_apply(p["w_dq"], x))
+    else:
+        q = dense_apply(p["wq"], x)
+    q = q.reshape(b, s, cfg.n_heads, a.nope_head_dim + a.rope_head_dim)
+    q_nope, q_rope = q[..., : a.nope_head_dim], q[..., a.nope_head_dim :]
+    cs = rope_lib.cos_sin_for(cfg, positions, head_dim=a.rope_head_dim)
+    return q_nope, rope_lib.apply_rope(q_rope, *cs), cs
+
+
+def mla_apply(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,
+    *,
+    mode: str,
+    positions: torch.Tensor,
+    cache: dict[str, torch.Tensor] | None = None,
+):
+    """x [B,S,D] (train/prefill) or [B,1,D] (decode).  Returns (y, cache)
+    as :func:`gqa_apply` does; the cache is the latent ``{ckv, krope,
+    kpos}``, written in place at decode."""
+    a = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
+    q_nope, q_rope, cs = _mla_q(cfg, p, x, positions)
+    ckv = dense_apply(p["w_dkv"], x)  # [B, S, r]
+    krope = dense_apply(p["w_krope"], x)[:, :, None, :]
+    krope = rope_lib.apply_rope(krope, *cs)[:, :, 0]  # [B, S, rope]
+
+    if mode in ("train", "prefill"):
+        # expanded path: per-head k/v materialised from the latent
+        k_nope = dense_apply(p["w_uk"], ckv).reshape(b, s, h, a.nope_head_dim)
+        v = dense_apply(p["w_uv"], ckv).reshape(b, s, h, a.v_head_dim)
+        kr = krope[:, :, None, :].expand(b, s, h, a.rope_head_dim)
+        k = torch.cat([k_nope, kr], -1)
+        q = torch.cat([q_nope, q_rope], -1)
+        y = chunked_attention(q, k, v, causal=True, window=None, scale=scale)
+        new_cache = None
+        if mode == "prefill":
+            kpos = _cache_positions(positions)
+            new_cache = {"ckv": ckv, "krope": krope, "kpos": kpos}
+    elif mode == "decode":
+        # absorbed path: score and combine in the latent space
+        pos = _decode_pos(positions)
+        bidx = torch.arange(b, device=x.device)
+        slot = pos.long()
+        cache["ckv"][bidx, slot] = ckv[:, 0]
+        cache["krope"][bidx, slot] = krope[:, 0]
+        cache["kpos"][bidx, slot] = pos.to(torch.int32)
+        ckv_c, kr_c, kpos = cache["ckv"].float(), cache["krope"].float(), cache["kpos"]
+        r = a.kv_lora_rank
+        w_uk = p["w_uk"]["w"].reshape(r, h, a.nope_head_dim).float()
+        # W_uk absorbed into q: q_lat [B, H, r], rounded as the reference's
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk).to(x.dtype)
+        s_lat = torch.einsum("bhr,bkr->bhk", q_lat.float(), ckv_c)
+        s_rope = torch.einsum("bhd,bkd->bhk", q_rope[:, 0].float(), kr_c)
+        s_all = (s_lat + s_rope) * scale
+        valid = (kpos >= 0) & (kpos <= pos[:, None])
+        s_all = s_all.masked_fill(~valid[:, None, :], NEG_INF)
+        pr = torch.softmax(s_all, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhk,bkr->bhr", pr.float(), ckv_c).to(x.dtype)
+        w_uv = p["w_uv"]["w"].reshape(r, h, a.v_head_dim).float()
+        y = torch.einsum("bhr,rhd->bhd", o_lat.float(), w_uv).to(x.dtype)[:, None]
+        new_cache = cache
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    y = y.reshape(b, s, h * a.v_head_dim)
+    return dense_apply(p["wo"], y), new_cache
+
+
 __all__ = [
     "ATTN_IMPLS",
     "chunked_attention",
@@ -270,5 +406,8 @@ __all__ = [
     "gqa_apply",
     "gqa_cache_init",
     "gqa_init",
+    "mla_apply",
+    "mla_cache_init",
+    "mla_init",
     "prefill_cache",
 ]

@@ -21,7 +21,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init
@@ -98,28 +98,27 @@ def _tree_from_leaves(like: Any, leaves) -> Any:
     return next(leaves)
 
 
-def _check_layout(cfg: ModelConfig) -> None:
-    if cfg.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: unrolled dense prefix layers (first_k_dense) are not "
-            "ported yet; they come with the zoo slice of deepseek-v2-lite"
-        )
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
     """Fresh params on the generator's device, with the reference's names,
-    shapes and init scales (its distributions, not its bits).  Each
-    stacked ``[G, ...]`` leaf is allocated once and group ``g`` is drawn
-    into slice ``[g]``, groups in order, so the peak holds the params and
-    one group more (not twice the params)."""
-    _check_layout(cfg)
+    shapes and init scales (its distributions, not its bits): the
+    unrolled dense prefix (``first_k_dense`` layers of attention and a
+    dense FFN of ``first_k_dense_d_ff``) as ``prefix/l{i}``, then the
+    groups.  Each stacked ``[G, ...]`` leaf is allocated once and group
+    ``g`` is drawn into slice ``[g]``, groups in order, so the peak holds
+    the params and one group more (not twice the params)."""
     params: dict[str, Any] = {
         "embed": embed_init(cfg, generator),
         "final_norm": norm_init(cfg, cfg.d_model, generator.device),
     }
+    if cfg.first_k_dense:
+        d_ff = cfg.first_k_dense_d_ff or cfg.d_ff
+        params["prefix"] = {
+            f"l{i}": block_init(cfg, ATTN, FFN_DENSE, generator, d_ff=d_ff)
+            for i in range(cfg.first_k_dense)
+        }
     groups = None
     for g in range(cfg.n_groups):
         one = {
@@ -142,10 +141,16 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict[str, Any]:
     """Empty decode caches for ``seq_len`` tokens (ring-buffer length for
-    SWA models), stacked ``[G, ...]`` like the params."""
-    _check_layout(cfg)
+    SWA models): the prefix's per layer, the groups' stacked ``[G, ...]``
+    like the params."""
     dtype = torch_dtype(cfg.dtype)
     clen = cache_len_for(cfg, seq_len)
+    caches: dict[str, Any] = {}
+    if cfg.first_k_dense:
+        caches["prefix"] = {
+            f"l{i}": block_cache_init(cfg, ATTN, batch, clen, dtype, device)
+            for i in range(cfg.first_k_dense)
+        }
     one = {
         f"b{j}": block_cache_init(cfg, mixer, batch, clen, dtype, device)
         for j, (mixer, _) in enumerate(cfg.pattern)
@@ -153,7 +158,8 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict[str,
     groups = _stacked_empty(one, cfg.n_groups)
     for g in range(cfg.n_groups):
         _put(groups, one, g)
-    return {"groups": groups}
+    caches["groups"] = groups
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -169,39 +175,46 @@ def forward(
     caches: dict[str, Any] | None = None,
     attn_impl: str = "kernel",
 ):
-    """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S].
+    """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S] (or
+    M-RoPE's [3,B,S]).
 
-    Returns (hidden [B,S,D], caches): in prefill mode the caches to hand
-    to decode, in decode mode ``caches`` written in place, in train mode
-    (the teacher-forced forward) None.  (The reference also returns MoE's
-    router loss; the dense blocks ported so far have none.)
-    ``attn_impl``: ``"kernel"`` (serving) or ``"chunked"`` (training; see
-    ``attention.gqa_apply``)."""
-    _check_layout(cfg)
+    Returns (hidden [B,S,D], aux, caches): ``aux`` is the sum of the MoE
+    layers' router losses (a float32 scalar, 0 without MoE); the caches
+    are, in prefill mode, the ones to hand to decode, in decode mode
+    ``caches`` written in place, in train mode (the teacher-forced
+    forward) None.  ``attn_impl``: ``"kernel"`` (serving) or
+    ``"chunked"`` (training; see ``attention.gqa_apply``)."""
     if inputs.dtype in (torch.int32, torch.int64):
         x = embed_apply(params["embed"], inputs)
     else:
-        x = inputs.to(torch_dtype(cfg.dtype))
-    handed = {f"b{j}": [] for j in range(len(cfg.pattern))}
+        x = inputs.to(torch_dtype(cfg.dtype)).contiguous()
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    kw = dict(mode=mode, positions=positions, attn_impl=attn_impl)
+    handed: dict[str, Any] = {}
+    if cfg.first_k_dense:
+        handed["prefix"] = {}
+        for i in range(cfg.first_k_dense):
+            name = f"l{i}"
+            c = caches["prefix"][name] if caches is not None else None
+            x, nc, _ = block_apply(
+                cfg, params["prefix"][name], x, mixer=ATTN, ffn=FFN_DENSE, cache=c, **kw
+            )
+            handed["prefix"][name] = nc
+    in_groups = {f"b{j}": [] for j in range(len(cfg.pattern))}
     for g, gp in enumerate(_unbind(params["groups"], cfg.n_groups)):
         for j, (mixer, ffn) in enumerate(cfg.pattern):
             c = _index(caches["groups"][f"b{j}"], g) if caches is not None else None
-            x, nc = block_apply(
-                cfg,
-                gp[f"b{j}"],
-                x,
-                mixer=mixer,
-                ffn=ffn,
-                mode=mode,
-                positions=positions,
-                cache=c,
-                attn_impl=attn_impl,
+            x, nc, a = block_apply(
+                cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, cache=c, **kw
             )
-            handed[f"b{j}"].append(nc)
+            in_groups[f"b{j}"].append(nc)
+            if a is not None:
+                aux = aux + a
     x = norm_apply(cfg, params["final_norm"], x)
     if mode == "prefill":
-        return x, {"groups": {k: _stack(v) for k, v in handed.items()}}
-    return x, caches
+        handed["groups"] = {k: _stack(v) for k, v in in_groups.items()}
+        return x, aux, handed
+    return x, aux, caches
 
 
 def logits_fn(cfg: ModelConfig, params: dict[str, Any], hidden: torch.Tensor):
@@ -254,8 +267,8 @@ def make_loss_fn(
 ):
     """``(params, batch{tokens|embeds, labels[, positions]}) -> (total,
     {"loss", "aux", "n_tokens"})``: the mean next-token loss over the
-    labels >= 0, plus the router loss (0 for the dense blocks ported so
-    far) at the config's weight."""
+    labels >= 0, plus the router loss (0 without MoE) at the config's
+    weight."""
 
     def loss_fn(params, batch):
         inputs = batch.get("tokens", batch.get("embeds"))
@@ -263,14 +276,13 @@ def make_loss_fn(
         positions = batch.get("positions")
         if positions is None:
             positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
-        hidden, _ = forward(
+        hidden, aux, _ = forward(
             cfg, params, inputs, positions, mode="train", attn_impl=attn_impl
         )
         nll, n = chunked_xent(
             cfg, params, hidden, batch["labels"], loss_chunk=loss_chunk
         )
         loss = nll / torch.clamp(n, min=1.0)
-        aux = torch.zeros((), dtype=F32, device=loss.device)
         total = loss + cfg.moe.router_aux_weight * aux
         return total, {"loss": loss, "aux": aux, "n_tokens": n}
 
@@ -287,10 +299,11 @@ def init_train_state(
 def value_and_grad(loss_fn, params, batch):
     """``(total, metrics, grads)`` of ``loss_fn`` at ``params`` (which stay
     untouched and need no ``requires_grad``): grads in each leaf's dtype,
-    shaped like ``params``."""
+    shaped like ``params``.  A leaf the loss does not reach (the token
+    table of an embeds config) gets zeros, as under ``jax.grad``."""
     live = _tree_map(lambda t: t.detach().requires_grad_(True), params)
     total, metrics = loss_fn(live, batch)
-    grads = torch.autograd.grad(total, tree_leaves(live))
+    grads = torch.autograd.grad(total, tree_leaves(live), materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return total.detach(), metrics, _tree_from_leaves(params, iter(grads))
 
@@ -307,9 +320,12 @@ def make_train_step(
     :func:`make_loss_fn`'s total, then one AdamW step (in place: the
     returned state holds the same tensors).  With ``microbatches=k`` the
     batch's leading axis splits as the reference splits it (microbatch
-    ``i`` takes rows ``i, i+k, ...``); the gradients (in the params'
-    dtype), the totals and the metrics are summed over the microbatches
-    and divided by k (``n_tokens`` stays a sum).  Metrics: ``loss, aux,
+    ``i`` takes rows ``i, i+k, ...``), and M-RoPE positions ``[3, B, S]``
+    split along their batch axis alike (the reference splits any
+    ``positions`` along axis 1, which for ``[B, S]`` ones would be the
+    sequence: here those split with the batch); the gradients (in the
+    params' dtype), the totals and the metrics are summed over the
+    microbatches and divided by k (``n_tokens`` stays a sum).  Metrics: ``loss, aux,
     n_tokens, total, grad_norm``."""
     loss_fn = make_loss_fn(cfg, attn_impl=attn_impl, loss_chunk=loss_chunk)
     k = microbatches
@@ -322,7 +338,9 @@ def make_train_step(
             first = tree_leaves(batch)[0]
             lead = first.shape[0]
 
-            def microbatch(x, i):
+            def microbatch(key, x, i):
+                if key == "positions" and x.dim() == 3:  # M-RoPE [3, B, S]
+                    return x[:, i::k]
                 if x.dim() >= 1 and x.shape[0] == lead:
                     return x.reshape(lead // k, k, *x.shape[1:])[:, i]
                 return x
@@ -331,7 +349,7 @@ def make_train_step(
             total = torch.zeros((), dtype=F32, device=first.device)
             metrics = dict.fromkeys(("loss", "aux", "n_tokens"), total)
             for i in range(k):
-                mb = {key: microbatch(x, i) for key, x in batch.items()}
+                mb = {key: microbatch(key, x, i) for key, x in batch.items()}
                 t, m, g = value_and_grad(loss_fn, params, mb)
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g), strict=True):
                     acc.add_(gi)
@@ -365,7 +383,7 @@ def make_prefill_step(cfg: ModelConfig):
         positions = batch.get("positions")
         if positions is None:
             positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
-        hidden, caches = forward(cfg, params, inputs, positions, mode="prefill")
+        hidden, _, caches = forward(cfg, params, inputs, positions, mode="prefill")
         last = logits_fn(cfg, params, hidden[:, -1:])
         return last[:, 0], caches
 
@@ -380,7 +398,9 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, caches, batch):
         inputs = batch.get("tokens", batch.get("embeds"))
         positions = batch["pos"][:, None]
-        hidden, new_caches = forward(
+        if cfg.rope == "mrope":
+            positions = positions[None].expand(3, *positions.shape)
+        hidden, _, new_caches = forward(
             cfg, params, inputs, positions, mode="decode", caches=caches
         )
         return logits_fn(cfg, params, hidden)[:, 0], new_caches

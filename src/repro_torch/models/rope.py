@@ -1,7 +1,7 @@
-"""Rotary position embeddings (standard RoPE, rotate-half).
+"""Rotary position embeddings: standard RoPE (rotate-half) and
+Qwen2-VL's M-RoPE.
 
-The port of the reference's ``models/rope.py``.  Qwen2-VL's M-RoPE waits
-for the zoo slice that ports that config and raises here.
+The port of the reference's ``models/rope.py``.
 """
 
 from __future__ import annotations
@@ -11,10 +11,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 F32 = torch.float32
-_MROPE = (
-    "M-RoPE is not ported yet: it comes with the zoo slice of qwen2-vl-2b "
-    "(ROADMAP queue 1)"
-)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -30,8 +26,25 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
-def mrope_cos_sin(positions3, head_dim: int, theta: float, sections):
-    raise NotImplementedError(_MROPE)
+def mrope_cos_sin(
+    positions3: torch.Tensor, head_dim: int, theta: float, sections
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE.
+
+    positions3: [3, ...] (t, h, w) position ids.  ``sections`` splits the
+    head_dim/2 frequency bands among (t, h, w), in that order; each band
+    rotates by its own coordinate.  Returns cos/sin [..., head_dim/2]."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {half}")
+    freqs = rope_freqs(head_dim, theta, positions3.device)
+    ang = positions3.to(F32)[..., None] * freqs  # [3, ..., half]
+    bands, start = [], 0
+    for coord, width in enumerate(sections):
+        bands.append(ang[coord, ..., start : start + width])
+        start += width
+    sel = torch.cat(bands, -1)  # [..., half]
+    return torch.cos(sel), torch.sin(sel)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -49,15 +62,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def positions_for(
     cfg: ModelConfig, batch: int, seq: int, offset: int = 0, device=None
 ) -> torch.Tensor:
-    """Default position ids [B, S] (int32)."""
-    if cfg.rope == "mrope":
-        raise NotImplementedError(_MROPE)
+    """Default position ids: [B, S] (int32), or [3, B, S] for M-RoPE with
+    the three coordinates equal (Qwen2-VL's ids for a text-only segment)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
-    return pos.expand(batch, seq)
+    pos = pos.expand(batch, seq)
+    if cfg.rope == "mrope":
+        return pos[None].expand(3, batch, seq)
+    return pos
 
 
 def cos_sin_for(cfg: ModelConfig, positions: torch.Tensor, head_dim: int | None = None):
-    """positions [B,S] -> cos, sin [B,S,1,D/2]; None without rope."""
+    """positions [B,S] (rope) or [3,B,S] (M-RoPE) -> cos, sin [B,S,1,D/2];
+    None without rope."""
     hd = head_dim if head_dim is not None else cfg.resolved_head_dim
     if cfg.rope == "none":
         return None

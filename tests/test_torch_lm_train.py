@@ -374,7 +374,7 @@ def test_train_cli_prints_the_reference_lines(ref, tmp_path, capsys):
     losses = [float(re.search(r"loss=(\S+)", ln).group(1)) for ln in out[1:4]]
     assert all(np.isfinite(losses))
     with pytest.raises(KeyError, match="not ported yet"):
-        train.main(["--arch", "qwen2-vl-2b-smoke", "--device", "cpu"])
+        train.main(["--arch", "xlstm-125m-smoke", "--device", "cpu"])
 
 
 def test_forward_train_mode_matches_between_attention_impls(rng):

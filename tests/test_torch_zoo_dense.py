@@ -82,7 +82,16 @@ def _params(ref, arch, seed=0):
 
 
 def test_configs_are_the_reference_copies(ref):
-    assert list_configs() == ["h2o-danube-3-4b", "qwen2.5-14b", "starcoder2-15b"]
+    assert list_configs() == [
+        "deepseek-v2-lite-16b",
+        "h2o-danube-3-4b",
+        "moonshot-v1-16b-a3b",
+        "musicgen-medium",
+        "qwen2-vl-2b",
+        "qwen2.5-14b",
+        "qwen3-moe-235b-a22b",
+        "starcoder2-15b",
+    ]
     for arch in ARCHS:
         for name in (arch, arch + "-smoke"):
             got, want = get_config(name), ref.get_config(name)
@@ -103,7 +112,7 @@ def test_forward_matches_reference(ref, rng, arch):
     )
     want = ref.model.logits_fn(rcfg, rparams, h_ref)
     tt, pt = torch.from_numpy(toks), torch.from_numpy(pos.copy())
-    h, _ = forward(cfg, params, tt, pt, mode="train")
+    h, _, _ = forward(cfg, params, tt, pt, mode="train")
     np.testing.assert_allclose(
         _np(logits_fn(cfg, params, h)), _np(want), atol=ATOL, rtol=0
     )
