@@ -100,10 +100,12 @@ non-zero exit code and no result line:
    their plain versions on the card at the serving path's shapes (of
    h2o-danube-3-4b, and the prefills of every other zoo_main arch:
    head_dim 128 for qwen2.5-14b, starcoder2-15b, qwen2-vl-2b (12/2),
-   qwen3-moe (64/4), moonshot (16/16) and deepseek-v2-lite's dense prefix
-   layer (16/16 at S = 480), musicgen-medium at 24/24 of 64; rmsnorm also
-   at qwen's d 5120, at qwen2-vl's 1536, moonshot's 2048 and qwen3-moe's
-   4096, prefill and decode, and at danube's train step [2048, 3840]) and at
+   qwen3-moe (64/4), moonshot (16/16), deepseek-v2-lite's dense prefix
+   layer (16/16 at S = 480) and jamba's attention layer (64/8),
+   musicgen-medium at 24/24 of 64; rmsnorm also
+   at qwen's d 5120, at qwen2-vl's 1536, moonshot's 2048, qwen3-moe's
+   4096, jamba's 8192 and xlstm's 768, prefill and decode, and at
+   danube's train step [2048, 3840]) and at
    ragged / windowed / softcapped / odd-head-dim ones, each attention case
    on the route it must take (tensor cores for bf16 with D % 8 == 0, the
    scalar kernel otherwise), timed like phase 3 beside one PyTorch library
@@ -123,16 +125,20 @@ non-zero exit code and no result line:
    h2o-danube-3-4b, qwen2.5-14b, starcoder2-15b, qwen2-vl-2b (M-RoPE,
    embeds in), musicgen-medium (embeds in, LayerNorm),
    qwen3-moe-235b-a22b (MoE; cut to 8 of its 94 layers),
-   moonshot-v1-16b-a3b (MoE with shared experts, a dense prefix layer)
-   and deepseek-v2-lite-16b (MLA, MoE, the dense prefix; prompt cut to
-   480) in turn, each in bfloat16, random weights drawn on the card from
-   seed 0, batch 4, prompt 1000, 32 greedy steps, freed before the next;
-   launches read around the prefill and decode alone
-   (``flash_attention`` once an attention layer, all on the tensor-core
-   route: 24, 48, 40, 28, 48, 8, 48, 1; ``rmsnorm`` (2L + 1) x 33, all on
-   the ``cta`` route: 1617 for danube, 3201 for qwen and moonshot, 1881
-   for qwen2-vl, 561 for qwen3-moe, 1815 for deepseek, none for
-   starcoder2's and musicgen's LayerNorm), then decode logits at 4
+   moonshot-v1-16b-a3b (MoE with shared experts, a dense prefix layer),
+   deepseek-v2-lite-16b (MLA, MoE, the dense prefix; prompt cut to
+   480), jamba-1.5-large-398b (Mamba, MoE; cut to its first 4 of 72
+   layers: (mamba, moe), (mamba, dense), (mamba, moe), (attn, dense))
+   and xlstm-125m (mLSTM and sLSTM, no FFN; full depth) in turn, each in
+   bfloat16, random weights drawn on the card from seed 0, batch 4,
+   prompt 1000, 32 greedy steps, freed before the next; launches read
+   around the prefill and decode alone (``flash_attention`` once an
+   attention layer, all on the tensor-core route: 24, 48, 40, 28, 48, 8,
+   48, 1, 1, 0; ``rmsnorm`` a norm per mixer, per FFN and the final one,
+   x 33, all on the ``cta`` route: 1617 for danube, 3201 for qwen and
+   moonshot, 1881 for qwen2-vl, 561 for qwen3-moe, 1815 for deepseek,
+   297 for jamba, 429 for xlstm, none for starcoder2's and musicgen's
+   LayerNorm), then decode logits at 4
    positions against the teacher-forced ``forward`` on the card (an MoE
    arch: on a second generation at capacity factor 16, where no pair is
    dropped; the timed one runs at the published 1.25 and prints the
@@ -167,7 +173,10 @@ non-zero exit code and no result line:
    1e-5 relative, every gradient leaf within 1e-4 of its largest
    magnitude and non-zero on the card, the routers' included; an embeds
    config's unused token table excepted), one ``train_step`` each way,
-   one at ``microbatches=2``; C 2L + 1 times a forward, D never.
+   one at ``microbatches=2``; C a norm per mixer, per FFN and the final
+   one a forward (2L + 1 where every block has an FFN), D never; also
+   jamba-1.5-large-398b-smoke (Mamba, MoE) and xlstm-125m-smoke (mLSTM,
+   sLSTM).
 19. lm_train_main — ``python -m repro_torch.launch.train`` for
    h2o-danube-3-4b at full width and depth in bfloat16 with float32
    moments, batch 2, seq 1024, 4 steps: finite losses, ``gnorm > 0``
@@ -211,7 +220,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
-from repro_torch.configs.base import ATTN, FFN_MOE, get_config  # noqa: E402
+from repro_torch.configs.base import (  # noqa: E402
+    ATTN,
+    FFN_MOE,
+    FFN_NONE,
+    get_config,
+)
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.core.experiment import ExperimentHooks  # noqa: E402
 from repro_torch.experiments import __main__ as experiments_cli  # noqa: E402
@@ -276,10 +290,12 @@ ZOO_ARCHS = (
     "qwen3-moe-235b-a22b",
     "moonshot-v1-16b-a3b",
     "deepseek-v2-lite-16b",
+    "jamba-1.5-large-398b",
+    "xlstm-125m",
 )
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
 # zoo_main's cuts (launch/profile_serve.py): deepseek-v2-lite at prompt
-# 480, qwen3-moe at 8 of its 94 layers
+# 480, qwen3-moe at 8 of its 94 layers, jamba-1.5-large at 4 of its 72
 ZOO_PROMPTS, ZOO_LAYERS = profile_serve.PROMPTS, profile_serve.LAYERS
 # zoo_window: danube's window handoff, a prompt past 4096 and no multiple of it
 WINDOW_PROMPT, WINDOW_GEN = 4100, 8
@@ -289,7 +305,13 @@ ZOO_F32_LAYERS = {
     "qwen3-moe-235b-a22b": 2,
     "moonshot-v1-16b-a3b": 6,
     "deepseek-v2-lite-16b": 6,
+    "jamba-1.5-large-398b": 2,
 }
+# and its prompt where capacity factor 16's buffers need a shorter one:
+# jamba's 2 float32 layers hold 48.7 GB; at prompt 256 the forward's
+# T = 4 x 288 tokens give C = 2304 rows an expert, three [16, 2304, 24576]
+# float32 buffers of 3.6 GB at once (at prompt 1000, 13 GB each)
+ZOO_F32_PROMPTS = {"jamba-1.5-large-398b": 256}
 # lm_train_main: launch.train at full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
 # the reference CI's experiments smoke (.github/workflows/ci.yml)
@@ -319,6 +341,10 @@ EXTRA_FIELDS = (
     "moonshot_v1_16b_a3b_prefill",
     "moonshot_v1_16b_a3b_decode",
     "deepseek_v2_lite_16b_prefill",
+    "jamba_15_large_398b_prefill",
+    "jamba_15_large_398b_decode",
+    "xlstm_125m_prefill",
+    "xlstm_125m_decode",
     "train",
     "backward",
     "launches_by_path",
@@ -346,6 +372,13 @@ def require(cond: bool, msg: str) -> None:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def norms_per_forward(cfg) -> int:
+    """C launches of one forward of an RMSNorm config: a norm before every
+    mixer, one before every FFN (xLSTM's blocks have none) and the final
+    norm."""
+    return sum(1 + (ffn != FFN_NONE) for _, ffn in cfg.layer_pattern) + 1
 
 
 def sector_bytes(base: int, offsets) -> int:
@@ -1391,10 +1424,17 @@ def check_rmsnorm(dev) -> dict:
     dq = get_config("qwen2.5-14b").d_model
     bf, f32 = torch.bfloat16, torch.float32
     # the serving shapes of the other RMSNorm widths: qwen2-vl d 1536,
-    # moonshot's (and deepseek's) 2048, qwen3-moe's 4096
+    # moonshot's (and deepseek's) 2048, qwen3-moe's 4096, jamba's 8192 and
+    # xlstm's 768
     new_widths = [
         (_key(arch), get_config(arch).d_model)
-        for arch in ("qwen2-vl-2b", "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b")
+        for arch in (
+            "qwen2-vl-2b",
+            "moonshot-v1-16b-a3b",
+            "qwen3-moe-235b-a22b",
+            "jamba-1.5-large-398b",
+            "xlstm-125m",
+        )
     ]
     cases = (
         ("prefill", ZOO_BATCH * ZOO_PROMPT, d, bf, "cta", 0, 2e-2),
@@ -1543,15 +1583,16 @@ def check_flash_attention(dev) -> dict:
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     w = cfg.sliding_window
     bf, f32 = torch.bfloat16, torch.float32
-    # the prefills of the other zoo_main archs (no window): the two 15 B
-    # configs, qwen2-vl (12/2), musicgen (24/24 of 64), qwen3-moe (64/4),
-    # moonshot (MHA 16/16) and deepseek's dense prefix layer (16/16 at its
-    # prompt of 480)
+    # the prefills of the other zoo_main archs that attend (no window): the
+    # two 15 B configs, qwen2-vl (12/2), musicgen (24/24 of 64), qwen3-moe
+    # (64/4), moonshot (MHA 16/16), deepseek's dense prefix layer (16/16 at
+    # its prompt of 480) and jamba's attention layer (64/8); xlstm has none
     prefills = tuple(
         (f"{_key(arch)}_prefill", ZOO_BATCH, ZOO_PROMPTS.get(arch, ZOO_PROMPT),
          c.n_heads, c.n_kv_heads, c.resolved_head_dim, bf, None, 0.0, 3e-2)
         for arch in ZOO_ARCHS[1:]
         for c in (get_config(arch),)
+        if any(mixer == ATTN for mixer, _ in c.layer_pattern)
     )
     cases = (
         ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, d, bf, w, 0.0, 3e-2),
@@ -1864,13 +1905,18 @@ def lm_train_batch(cfg, rng) -> dict[str, torch.Tensor]:
 def lm_train_configs() -> list:
     """``lm_train_chunk``'s configs: a narrow danube (2 kv heads, window 64,
     as zoo_chunk), deepseek-v2-lite's reduced config (MLA, MoE with a
-    shared expert, the dense prefix layer) and qwen2-vl-2b's (embeds in,
-    M-RoPE, positions [3, B, S] split by the microbatches)."""
+    shared expert, the dense prefix layer), qwen2-vl-2b's (embeds in,
+    M-RoPE, positions [3, B, S] split by the microbatches), jamba's
+    (Mamba with MoE and dense FFNs, attention without rope: its chunked
+    scan checkpointed 2 chunks of 48) and xlstm's (mLSTM checkpointed
+    alike, sLSTM 96 sequential steps, blocks without an FFN)."""
     danube = replace(get_config(ZOO_ARCH).reduced(), n_kv_heads=2, sliding_window=64)
     return [
         (danube, f"{danube.name}, n_kv_heads=2, sliding_window=64, float32"),
         (get_config("deepseek-v2-lite-16b-smoke"), "float32"),
         (get_config("qwen2-vl-2b-smoke"), "float32"),
+        (get_config("jamba-1.5-large-398b-smoke"), "float32"),
+        (get_config("xlstm-125m-smoke"), "float32"),
     ]
 
 
@@ -1884,8 +1930,8 @@ def phase_lm_train_chunk(dev) -> dict[str, int]:
     cannot see through would leave the norms and the attention
     projections without one; the routers' gradients come through the
     gates): every leaf but an embeds config's unused token table; C
-    launched 2L + 1 times a forward (k times that with k microbatches), D
-    never."""
+    launched :func:`norms_per_forward` times a forward (2L + 1 where
+    every block has an FFN; k times that with k microbatches), D never."""
     rng = np.random.default_rng(6)
     reset_launches()
     rows = []
@@ -1987,7 +2033,7 @@ def lm_train_chunk_one(dev, cfg, label, batch) -> dict:
         "grad_max_rel_err": leaf_err,
         "zero_grad_leaves_on_card": zero_leaves,
         "unreached_leaves": unreached,
-        "rmsnorm_per_forward": 2 * cfg.n_layers + 1,
+        "rmsnorm_per_forward": norms_per_forward(cfg),
         "loss_fn_launches_cpu_gpu": [moved_c, moved_g],
         "train_step": {
             k: {kk: v for kk, v in step.items() if kk != "params"}
@@ -2030,7 +2076,7 @@ def phase_lm_train_main(dev) -> dict[str, int]:
         if m
     ]
     done = re.fullmatch(r"(\d+) steps in (\S+)s \((\d+) tok/s\)", lines[-1])
-    want_rms = (2 * cfg.n_layers + 1) * TRAIN_STEPS
+    want_rms = norms_per_forward(cfg) * TRAIN_STEPS
     steps_s = float(done.group(2)) if done else float("nan")
     emit(
         {
@@ -2248,12 +2294,13 @@ def moe_decode_check(model, params, prompt, at) -> dict:
 
 def moe_float32_check(dev, arch: str, prompt_len: int) -> dict:
     """:func:`moe_decode_check` in float32 at full width, depth cut to
-    ``ZOO_F32_LAYERS`` (to fit the card), capacity factor 16, every decode
-    step: the replayed forward within 1e-4 of the largest logit
-    (zoo_chunk's float32 tolerance)."""
-    cfg = get_config(arch)
+    ``ZOO_F32_LAYERS`` (to fit the card; jamba's pattern cut with it by
+    ``serve.cut_depth``), capacity factor 16, every decode step: the
+    replayed forward within 1e-4 of the largest logit (zoo_chunk's
+    float32 tolerance)."""
+    cfg = serve.cut_depth(get_config(arch), ZOO_F32_LAYERS[arch])
     no_drop = replace(cfg.moe, capacity_factor=16.0)
-    cfg = replace(cfg, n_layers=ZOO_F32_LAYERS[arch], dtype="float32", moe=no_drop)
+    cfg = replace(cfg, dtype="float32", moe=no_drop)
     model = Model(cfg, dev)
     params = model.init_params(0)
     tok = serve.prompt_tokens(cfg.vocab_size, ZOO_BATCH, prompt_len, 0)
@@ -2262,7 +2309,13 @@ def moe_float32_check(dev, arch: str, prompt_len: int) -> dict:
     del model, params, prompt
     gc.collect()
     torch.cuda.empty_cache()
-    return {"n_layers": cfg.n_layers, "capacity_factor": 16.0, **check, "tol": 1e-4}
+    return {
+        "n_layers": cfg.n_layers,
+        "prompt": prompt_len,
+        "capacity_factor": 16.0,
+        **check,
+        "tol": 1e-4,
+    }
 
 
 def decode_vs_forward(model, params, prompt, out, at) -> tuple[float, float, float]:
@@ -2291,8 +2344,8 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
     positions against the teacher-forced forward on the card; the model
     is freed before the next one is drawn.  D launches once an attention
     layer at prefill (MLA layers attend through ``chunked_attention``),
-    all on the tensor-core route; C (2L + 1) x 33 times, all on the
-    ``cta`` route, for an RMSNorm config, never for a LayerNorm one
+    all on the tensor-core route; C :func:`norms_per_forward` x 33 times,
+    all on the ``cta`` route, for an RMSNorm config, never for a LayerNorm one
     (starcoder2-15b, musicgen-medium).  An MoE config's timed generation
     runs at its published capacity factor 1.25, where pairs are dropped
     (counted at prefill and at decode).  Its decode check runs where no
@@ -2365,6 +2418,8 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
     cuts = []
     if n_layers is not None:
         cuts.append(f"depth {n_layers} of {get_config(arch).n_layers} layers")
+        if cfg.pattern != get_config(arch).pattern:
+            cuts.append(f"pattern cut to its first {len(cfg.pattern)}: {cfg.pattern}")
     if prompt_len != ZOO_PROMPT:
         cuts.append(
             f"prompt {prompt_len} (chunked_attention's S: <= 512 or a multiple of 1024)"
@@ -2403,7 +2458,7 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
     gc.collect()
     torch.cuda.empty_cache()
     if n_moe:
-        f32 = moe_float32_check(dev, arch, prompt_len)
+        f32 = moe_float32_check(dev, arch, ZOO_F32_PROMPTS.get(arch, prompt_len))
         emit({"phase": "zoo_main_float32", "arch": arch, **f32})
         require(
             f32["max_abs_err"] <= f32["tol"] * f32["max_abs_logit"],
@@ -2420,7 +2475,7 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
         by_route["flash_attention"] == {"wgmma": n_attn, "scalar": 0},
         f"{arch}: flash_attention routes {by_route}: every prefill layer on wgmma",
     )
-    want_rms = (2 * cfg.n_layers + 1) * (ZOO_GEN + 1) if cfg.norm == "rmsnorm" else 0
+    want_rms = norms_per_forward(cfg) * (ZOO_GEN + 1) if cfg.norm == "rmsnorm" else 0
     require(
         launches["rmsnorm"] == want_rms,
         f"{arch}: rmsnorm launched {launches['rmsnorm']} times, not {want_rms}",
@@ -2490,7 +2545,7 @@ def phase_zoo_window(dev) -> dict[str, int]:
     del model, params, prompt, out, hidden, want, got, toks
     gc.collect()
     torch.cuda.empty_cache()
-    want_rms = (2 * cfg.n_layers + 1) * (WINDOW_GEN + 1)
+    want_rms = norms_per_forward(cfg) * (WINDOW_GEN + 1)
     require(
         launches["flash_attention"] == cfg.n_layers and launches["rmsnorm"] == want_rms,
         f"zoo window: launches {launches}",

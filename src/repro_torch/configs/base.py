@@ -7,8 +7,8 @@ nothing of ``repro``).  Every architecture gets a module in
 the published hyper-parameters and registers it under its id.
 ``reduced()`` derives the CPU-smoke variant (2 layers, d_model<=512,
 <=4 experts) from the same config, so the CPU tests run the code path of
-the full-width run.  The port registers only the architectures whose
-blocks it has ported (see :data:`ASSIGNED`).
+the full-width run.  The port registers every architecture the
+reference assigns (:data:`ASSIGNED`).
 """
 
 from __future__ import annotations
@@ -203,12 +203,6 @@ def get_config(name: str) -> ModelConfig:
         return get_config(name[: -len("-smoke")]).reduced()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in ASSIGNED:
-        raise KeyError(
-            f"{name} is not ported yet: its Mamba and xLSTM blocks "
-            "(models/ssm.py) come with ROADMAP queue 1 item 3.6; only "
-            f"{', '.join(sorted(_REGISTRY))} runs in repro_torch so far"
-        )
     raise KeyError(f"unknown config {name!r}")
 
 
@@ -219,8 +213,7 @@ def list_configs() -> list[str]:
 
 _LOADED = False
 
-# the reference's assigned architectures; the port registers the ones
-# whose blocks it has ported (all but the Mamba and xLSTM ones)
+# the reference's assigned architectures, all registered
 ASSIGNED = (
     "h2o-danube-3-4b",
     "jamba-1.5-large-398b",
@@ -244,6 +237,8 @@ def _ensure_loaded() -> None:
 
     for mod in (
         "h2o_danube3",
+        "jamba15_large",
+        "xlstm125m",
         "musicgen_medium",
         "qwen25_14b",
         "moonshot_16b",

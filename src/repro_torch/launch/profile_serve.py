@@ -7,7 +7,7 @@ Profiles the run ``chip_smoke.py``'s ``zoo_main`` drives: ``--arch``
 bfloat16, random weights from seed 0, batch 4, prompt 1000, 32 greedy
 steps (``repro_torch.launch.serve.generate``), with zoo_main's cuts:
 deepseek-v2-lite-16b at prompt 480, qwen3-moe-235b-a22b at 8 of its 94
-layers.  One
+layers, jamba-1.5-large-398b at 4 of its 72.  One
 warm-up generation, one plain generation for the wall times, then the
 prefill and the decode loop each under ``torch.profiler`` (CPU + CUDA
 activities).  Prints one JSON object with, for the prefill and the
@@ -34,9 +34,11 @@ ARCH, BATCH, PROMPT, GEN = "h2o-danube-3-4b", 4, 1000, 32
 # zoo_main's cuts.  deepseek's MLA prefill attends through
 # chunked_attention, whose S must be <= 512 or a multiple of 1024 (480 +
 # 32 = 512 tokens in all); qwen3-moe's 94 layers hold about 470 GB of
-# bf16 weights, 8 of them about 42 GB (widths untouched)
+# bf16 weights, 8 of them about 42 GB; jamba-1.5-large's 72 about 797 GB,
+# its first 4 (the first half of one 8-layer Jamba block: every block
+# kind) about 46 GB (widths untouched)
 PROMPTS = {"deepseek-v2-lite-16b": 480}
-LAYERS = {"qwen3-moe-235b-a22b": 8}
+LAYERS = {"qwen3-moe-235b-a22b": 8, "jamba-1.5-large-398b": 4}
 
 
 def profile_serve(arch: str = ARCH) -> dict:

@@ -32,7 +32,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models.model import Model
 
 
@@ -128,6 +128,17 @@ def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Gene
     return Generation(torch.cat(tokens, 1), stacked, prefill_s, decode_s)
 
 
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` at ``n_layers`` layers, widths untouched.  Where fewer
+    layers are left past the dense prefix than the pattern's period
+    (jamba's 8), the pattern is cut to its first entries, so the layers
+    kept are the first ones of the full model."""
+    body = n_layers - cfg.first_k_dense
+    if body < len(cfg.pattern):
+        return replace(cfg, n_layers=n_layers, pattern=cfg.pattern[:body])
+    return replace(cfg, n_layers=n_layers)
+
+
 def setup(
     arch: str,
     batch: int,
@@ -140,10 +151,12 @@ def setup(
     the device from ``seed``, the prompt from numpy's ``default_rng(seed)``
     (:func:`prompt_tokens`, or :func:`prompt_embeds` for an embeds
     config).  ``n_layers`` cuts the config's depth (a model too deep for
-    one card), widths untouched."""
+    one card) with :func:`cut_depth`: jamba at 4 layers keeps its
+    pattern's first 4 entries, (mamba, moe), (mamba, dense), (mamba,
+    moe), (attn, dense)."""
     cfg = get_config(arch)
     if n_layers is not None:
-        cfg = replace(cfg, n_layers=n_layers)
+        cfg = cut_depth(cfg, n_layers)
     model = Model(cfg, device)
     params = model.init_params(seed)
     if cfg.input_kind == "embeds":

@@ -1,27 +1,54 @@
 """Decoder block: a (mixer, ffn) pair from the config's pattern.
 
-The port of the reference's ``models/blocks.py`` for the GQA and MLA
-mixers and the dense and MoE FFNs.  Mamba, mLSTM and sLSTM wait for the
-zoo slice that ports ``models/ssm.py`` and raise ``NotImplementedError``
-here.
+The port of the reference's ``models/blocks.py``: the GQA, MLA, Mamba,
+mLSTM and sLSTM mixers, and the dense, MoE or no FFN.  A block without
+an FFN (xLSTM's, whose mixers carry their own projections) has no
+second norm either, as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, FFN_DENSE, FFN_MOE, MLA, ModelConfig
-from repro_torch.models import attention
+from repro_torch.configs.base import (
+    ATTN,
+    FFN_DENSE,
+    FFN_MOE,
+    FFN_NONE,
+    MAMBA,
+    MLA,
+    MLSTM,
+    SLSTM,
+    ModelConfig,
+)
+from repro_torch.models import attention, ssm
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.moe import moe_apply, moe_init
 
+_MIXER_INIT = {
+    ATTN: attention.gqa_init,
+    MLA: attention.mla_init,
+    MAMBA: ssm.mamba_init,
+    MLSTM: ssm.mlstm_init,
+    SLSTM: ssm.slstm_init,
+}
+# the recurrent mixers: their decode cache is a state of fixed size
+_STATE_INIT = {
+    MAMBA: ssm.mamba_state_init,
+    MLSTM: ssm.mlstm_state_init,
+    SLSTM: ssm.slstm_state_init,
+}
+_RECURRENT_APPLY = {
+    MAMBA: ssm.mamba_apply,
+    MLSTM: ssm.mlstm_apply,
+    SLSTM: ssm.slstm_apply,
+}
+FFNS = (FFN_DENSE, FFN_MOE, FFN_NONE)
+
 
 def _check_kinds(mixer: str, ffn: str) -> None:
-    if mixer not in (ATTN, MLA) or ffn not in (FFN_DENSE, FFN_MOE):
-        raise NotImplementedError(
-            f"block ({mixer}, {ffn}) is not ported yet: Mamba, mLSTM and sLSTM "
-            "(models/ssm.py) come with ROADMAP queue 1 item 3.6"
-        )
+    if mixer not in _MIXER_INIT or ffn not in FFNS:
+        raise ValueError(f"unknown block kind ({mixer}, {ffn})")
 
 
 def block_init(
@@ -33,12 +60,15 @@ def block_init(
 ) -> dict:
     _check_kinds(mixer, ffn)
     dev = generator.device
-    mixer_init = attention.gqa_init if mixer == ATTN else attention.mla_init
-    p = {"norm1": norm_init(cfg, cfg.d_model, dev), "mixer": mixer_init(cfg, generator)}
-    p["norm2"] = norm_init(cfg, cfg.d_model, dev)
+    p = {
+        "norm1": norm_init(cfg, cfg.d_model, dev),
+        "mixer": _MIXER_INIT[mixer](cfg, generator),
+    }
     if ffn == FFN_DENSE:
+        p["norm2"] = norm_init(cfg, cfg.d_model, dev)
         p["ffn"] = mlp_init(cfg, cfg.d_model, d_ff or cfg.d_ff, generator)
-    else:
+    elif ffn == FFN_MOE:
+        p["norm2"] = norm_init(cfg, cfg.d_model, dev)
         p["ffn"] = moe_init(cfg, generator)
     return p
 
@@ -46,9 +76,14 @@ def block_init(
 def block_cache_init(
     cfg: ModelConfig, mixer: str, batch: int, cache_len: int, dtype, device
 ) -> dict[str, torch.Tensor]:
+    """The mixer's decode cache: an attention's kv cache of ``cache_len``
+    slots, a recurrent mixer's state (no length)."""
     _check_kinds(mixer, FFN_DENSE)
-    cache_init = attention.gqa_cache_init if mixer == ATTN else attention.mla_cache_init
-    return cache_init(cfg, batch, cache_len, dtype, device)
+    if mixer == ATTN:
+        return attention.gqa_cache_init(cfg, batch, cache_len, dtype, device)
+    if mixer == MLA:
+        return attention.mla_cache_init(cfg, batch, cache_len, dtype, device)
+    return _STATE_INIT[mixer](cfg, batch, dtype, device)
 
 
 def block_apply(
@@ -64,7 +99,10 @@ def block_apply(
     attn_impl: str = "kernel",
 ):
     """Returns (x, new_cache, aux): ``aux`` is the MoE router's loss (a
-    float32 scalar), None for a dense FFN.  ``attn_impl``: see
+    float32 scalar), None for a dense FFN or none.  ``new_cache``: an
+    attention mixer's cache as :func:`attention.gqa_apply` returns it
+    (decode writes it in place), a recurrent mixer's new state (new
+    tensors; the caller keeps it).  ``attn_impl``: see
     :func:`attention.gqa_apply` (MLA always attends through
     ``chunked_attention``)."""
     _check_kinds(mixer, ffn)
@@ -79,11 +117,17 @@ def block_apply(
             cache=cache,
             attn_impl=attn_impl,
         )
-    else:
+    elif mixer == MLA:
         y, new_cache = attention.mla_apply(
             cfg, p["mixer"], h, mode=mode, positions=positions, cache=cache
         )
+    else:
+        y, new_cache = _RECURRENT_APPLY[mixer](
+            cfg, p["mixer"], h, mode=mode, state=cache
+        )
     x = x + y
+    if ffn == FFN_NONE:
+        return x, new_cache, None
     h = norm_apply(cfg, p["norm2"], x)
     if ffn == FFN_DENSE:
         return x + mlp_apply(cfg, p["ffn"], h), new_cache, None

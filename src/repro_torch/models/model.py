@@ -108,7 +108,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
     dense FFN of ``first_k_dense_d_ff``) as ``prefix/l{i}``, then the
     groups.  Each stacked ``[G, ...]`` leaf is allocated once and group
     ``g`` is drawn into slice ``[g]``, groups in order, so the peak holds
-    the params and one group more (not twice the params)."""
+    the params and one group more (not twice the params); a single group
+    (jamba cut to 4 layers) is its own ``[1, ...]`` view."""
     params: dict[str, Any] = {
         "embed": embed_init(cfg, generator),
         "final_norm": norm_init(cfg, cfg.d_model, generator.device),
@@ -125,6 +126,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
             f"b{j}": block_init(cfg, mixer, ffn, generator)
             for j, (mixer, ffn) in enumerate(cfg.pattern)
         }
+        if cfg.n_groups == 1:  # a [1, ...] view: no second copy of the params
+            groups = _tree_map(lambda t: t[None], one)
+            break
         if groups is None:
             groups = _stacked_empty(one, cfg.n_groups)
         _put(groups, one, g)
@@ -141,8 +145,8 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict[str, Any]:
     """Empty decode caches for ``seq_len`` tokens (ring-buffer length for
-    SWA models): the prefix's per layer, the groups' stacked ``[G, ...]``
-    like the params."""
+    SWA models; a recurrent mixer's state has no length): the prefix's
+    per layer, the groups' stacked ``[G, ...]`` like the params."""
     dtype = torch_dtype(cfg.dtype)
     clen = cache_len_for(cfg, seq_len)
     caches: dict[str, Any] = {}
@@ -180,10 +184,12 @@ def forward(
 
     Returns (hidden [B,S,D], aux, caches): ``aux`` is the sum of the MoE
     layers' router losses (a float32 scalar, 0 without MoE); the caches
-    are, in prefill mode, the ones to hand to decode, in decode mode
-    ``caches`` written in place, in train mode (the teacher-forced
-    forward) None.  ``attn_impl``: ``"kernel"`` (serving) or
-    ``"chunked"`` (training; see ``attention.gqa_apply``)."""
+    are, in prefill mode, the ones to hand to decode (kv caches and
+    recurrent states, stacked per group), in decode mode ``caches``
+    written in place (a recurrent mixer's new state copied into its
+    group's slice), in train mode (the teacher-forced forward) None.
+    ``attn_impl``: ``"kernel"`` (serving) or ``"chunked"`` (training; see
+    ``attention.gqa_apply``)."""
     if inputs.dtype in (torch.int32, torch.int64):
         x = embed_apply(params["embed"], inputs)
     else:
@@ -207,6 +213,9 @@ def forward(
             x, nc, a = block_apply(
                 cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, cache=c, **kw
             )
+            if mode == "decode" and nc is not c:
+                # a recurrent mixer's next state, into the caches in place
+                _put(caches["groups"][f"b{j}"], nc, g)
             in_groups[f"b{j}"].append(nc)
             if a is not None:
                 aux = aux + a

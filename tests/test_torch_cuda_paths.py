@@ -37,6 +37,12 @@ imports JAX, so the tests run where the card is.
   output that autograd cannot see through would cut the norms' and the
   attention projections' gradients to zero), C launched ``2L + 1``
   times a forward, D never; and D refusing a gradient on the card.
+* the zoo's Mamba path: jamba-1.5-large-398b's reduced float32 config
+  (Mamba with MoE and dense FFNs, one attention layer without rope),
+  the teacher-forced forward, a prefill and 4 decode steps on the card
+  against the CPU from one init within 1e-4; C launched once a mixer,
+  once an FFN and once for the final norm each forward, D once a
+  forward (its one attention layer, on the scalar float32 route).
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
@@ -60,7 +66,13 @@ from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
-from repro_torch.models.model import Model, make_loss_fn  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    Model,
+    forward,
+    logits_fn,
+    make_loss_fn,
+)
 from repro_torch.optim.adamw import leaves, tree_leaves  # noqa: E402
 from repro_torch.rl.fleet import FleetSteps, unpack_stats  # noqa: E402
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
@@ -391,3 +403,40 @@ def test_flash_attention_refuses_a_gradient_on_card(cuda):
     with torch.no_grad():
         assert flash_attention(q.clone().requires_grad_(), k, k).shape == q.shape
     assert flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_jamba_forward_card_matches_cpu(cuda):
+    cfg = get_config("jamba-1.5-large-398b-smoke")
+    params = Model(cfg, "cpu").init_params(0)
+    rng = np.random.default_rng(2)
+    b, s, steps = 2, 48, 4
+    toks = rng.integers(0, cfg.vocab_size, (b, s + steps))
+    toks = torch.tensor(toks, dtype=torch.int32)
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+    norms = len(cfg.layer_pattern) * 2 + 1  # every jamba block has an FFN
+    out = {}
+    for dev in ("cpu", cuda):
+        model, live = Model(cfg, dev), _to(params, dev)
+        t = toks.to(dev)
+        before = rmsnorm.launches, flash_attention.launches
+        with torch.no_grad():
+            hidden = forward(cfg, live, t[:, :s], pos.to(dev), mode="train")[0]
+            moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
+            logits = [logits_fn(cfg, live, hidden)]
+            last, pre = model.prefill_step(live, {"tokens": t[:, :s]})
+            caches = serve.load_prefill(model.init_caches(b, s + steps), pre)
+            logits.append(last[:, None])
+            for i in range(steps):
+                step = {
+                    "tokens": t[:, s + i : s + i + 1],
+                    "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev),
+                }
+                lg, caches = model.serve_step(live, caches, step)
+                logits.append(lg[:, None])
+        out[str(dev)] = (torch.cat(logits, 1).float().cpu(), moved)
+    (cpu, moved_c), (card, moved_g) = out["cpu"], out["cuda"]
+    assert moved_c == (0, 0) and moved_g == (norms, 1)
+    assert bool(torch.isfinite(card).all())
+    assert float((card - cpu).abs().max()) <= 1e-4
+

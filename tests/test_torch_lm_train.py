@@ -373,8 +373,17 @@ def test_train_cli_prints_the_reference_lines(ref, tmp_path, capsys):
     # the losses are the port's own init's (no bits of the reference's)
     losses = [float(re.search(r"loss=(\S+)", ln).group(1)) for ln in out[1:4]]
     assert all(np.isfinite(losses))
-    with pytest.raises(KeyError, match="not ported yet"):
-        train.main(["--arch", "xlstm-125m-smoke", "--device", "cpu"])
+    # xlstm (mLSTM and sLSTM blocks) trains through the same CLI
+    argv = ["--arch", "xlstm-125m-smoke", "--steps", "2", "--batch", "2"]
+    argv += ["--seq", "32"]
+    assert train.main([*argv, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    ref.train.main(argv)
+    ref_out = capsys.readouterr().out.splitlines()
+    assert out[0] == ref_out[0] and out[0].startswith("xlstm-125m-smoke: ")
+    for lines in (out, ref_out):
+        assert [re.fullmatch(step, ln) is not None for ln in lines[1:3]] == [True] * 2
+        assert re.fullmatch(r"2 steps in \d+\.\d+s \(\d+ tok/s\)", lines[3])
 
 
 def test_forward_train_mode_matches_between_attention_impls(rng):

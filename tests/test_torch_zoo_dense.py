@@ -85,12 +85,14 @@ def test_configs_are_the_reference_copies(ref):
     assert list_configs() == [
         "deepseek-v2-lite-16b",
         "h2o-danube-3-4b",
+        "jamba-1.5-large-398b",
         "moonshot-v1-16b-a3b",
         "musicgen-medium",
         "qwen2-vl-2b",
         "qwen2.5-14b",
         "qwen3-moe-235b-a22b",
         "starcoder2-15b",
+        "xlstm-125m",
     ]
     for arch in ARCHS:
         for name in (arch, arch + "-smoke"):

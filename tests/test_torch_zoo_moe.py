@@ -26,7 +26,12 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
-from repro_torch.configs.base import get_config, list_configs, param_count  # noqa: E402
+from repro_torch.configs.base import (  # noqa: E402
+    ASSIGNED,
+    get_config,
+    list_configs,
+    param_count,
+)
 from repro_torch.convert import (  # noqa: E402
     zoo_params_from_numpy,
     zoo_params_to_numpy,
@@ -122,9 +127,15 @@ def test_configs_are_the_reference_copies(ref):
 
 
 def test_mamba_and_xlstm_configs_still_raise():
+    """The port registers every assigned config: the Mamba and xLSTM ones
+    and their smoke variants resolve (tests/test_torch_zoo_ssm.py holds
+    them to the reference); only an unknown name raises."""
+    assert list_configs() == sorted(ASSIGNED)
     for name in ("jamba-1.5-large-398b", "xlstm-125m"):
-        with pytest.raises(KeyError, match="item 3.6"):
-            get_config(name)
+        assert get_config(name).name == name
+        assert get_config(name + "-smoke").name == name + "-smoke"
+    with pytest.raises(KeyError, match="unknown"):
+        get_config("mamba-2-780m")
 
 
 # -- M-RoPE ------------------------------------------------------------------------
