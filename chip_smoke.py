@@ -187,15 +187,31 @@ non-zero exit code and no result line:
    prompt of 4100 tokens (past the window, no multiple of it), 8 greedy
    steps, each step's logits against the teacher-forced forward at 3e-2
    of the largest logit; D 24, C 49 x 9.
+21. examples (after zoo_window) — the four ``examples/torch_*.py`` on the
+   card, steps cut and widths never: ``torch_train_lm_125m`` (xlstm-125m
+   at full width and depth, batch 4, seq 256, 3 steps, its checkpoint in
+   a temporary directory: finite losses, ``gnorm > 0``, C 13 x 3, D
+   never), ``torch_quickstart`` (the zoo, two agents through a hub, D's
+   scalar float32 route against its plain version within 2e-5: one
+   scalar launch), ``torch_adfll_deployment --fast`` and
+   ``torch_federated_lm`` at its steps (the per-style loss table);
+   A = B over the phase, D exactly the quickstart's one scalar launch.
+22. planner — ``launch/dryrun.py::run_pair`` at one card on ``meta``:
+   lm_train_main's step and every zoo_main arch's serving, each
+   estimate (params, optimizer, gradients, caches, saved activations)
+   beside the peak measured above; the resident part must not exceed
+   it; the planned FLOPs of danube's step over its CUDA-event time as
+   a share of 989 TFLOP/s.  No kernel launches.
 
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
 paths (main, baselines, sweep, topology, population, serve,
-table2_sweep, observatory, cli) and the stepwise path, ``rmsnorm`` and
-``flash_attention`` on the zoo's (lm_train_chunk, lm_train_main,
-zoo_main for each arch and zoo_window): every entry carries ``launches_by_path`` and
-``launches`` is its sum.
+table2_sweep, observatory, cli, examples) and the stepwise path,
+``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
+lm_train_main, zoo_main for each arch, zoo_window and examples); the
+planner path launches none.  Every entry carries ``launches_by_path``
+and ``launches`` is its sum.
 """
 
 from __future__ import annotations
@@ -203,8 +219,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -224,6 +242,7 @@ from repro_torch.configs.base import (  # noqa: E402
     ATTN,
     FFN_MOE,
     FFN_NONE,
+    InputShape,
     get_config,
 )
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
@@ -247,8 +266,10 @@ from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather_plain,
 )
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
-from repro_torch.launch import profile_serve, serve  # noqa: E402
+from repro_torch.launch import dryrun, profile_serve, serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_local_mesh  # noqa: E402
+from repro_torch.models import model as model_module  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     Model,
@@ -314,6 +335,12 @@ ZOO_F32_LAYERS = {
 ZOO_F32_PROMPTS = {"jamba-1.5-large-398b": 256}
 # lm_train_main: launch.train at full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
+# examples: examples/torch_train_lm_125m.py (xlstm-125m at full width and
+# depth) for a few steps at the example's batch and sequence
+EXAMPLE_ARCH = "xlstm-125m"
+EXAMPLE_BATCH, EXAMPLE_SEQ, EXAMPLE_STEPS = 4, 256, 3
+# quickstart's attention call: float32 [1, 128, 4|2, 32], D's scalar route
+QUICKSTART_ATTENTION = (1, 128, 4, 2, 32)
 # the reference CI's experiments smoke (.github/workflows/ci.yml)
 CLI_SCENARIOS = ("churn_addition_fig4", "gossip_hetero")
 ROOT = Path(__file__).resolve().parent
@@ -358,6 +385,8 @@ EXTRA_FIELDS = (
     "window",
     "library_causal_ms",
     "library_causal_device_ms",
+    "xlstm_125m_train",
+    "quickstart_scalar",
 )
 
 
@@ -1409,7 +1438,8 @@ def check_rmsnorm(dev) -> dict:
     """The prefill [B*S, d] and decode [B, d] calls of the zoo main path
     (the ``cta`` route) for h2o-danube-3-4b (d 3840) and qwen2.5-14b
     (d 5120: 640 vectors a row, the 256-thread plan at prefill too), the
-    danube train step's forward [B*S, d] at batch 2, seq 1024, float32
+    danube train step's forward [B*S, d] at batch 2, seq 1024, and
+    xlstm-125m's (the train_lm_125m example's) at batch 4, seq 256, float32
     rows, many and few 16 KB rows (the reference's largest, d = 8192
     bf16), and the ``masked`` route: rows of 1001 elements, whose width is
     no multiple of 16 bytes, rows over 16 KB, and an x 2 bytes off a
@@ -1422,6 +1452,7 @@ def check_rmsnorm(dev) -> dict:
     rng = np.random.default_rng(3)
     d = get_config(ZOO_ARCH).d_model
     dq = get_config("qwen2.5-14b").d_model
+    dx = get_config(EXAMPLE_ARCH).d_model
     bf, f32 = torch.bfloat16, torch.float32
     # the serving shapes of the other RMSNorm widths: qwen2-vl d 1536,
     # moonshot's (and deepseek's) 2048, qwen3-moe's 4096, jamba's 8192 and
@@ -1447,6 +1478,7 @@ def check_rmsnorm(dev) -> dict:
             for mode, n in (("prefill", ZOO_BATCH * ZOO_PROMPT), ("decode", ZOO_BATCH))
         ),
         ("train", TRAIN_BATCH * TRAIN_SEQ, d, bf, "cta", 0, 2e-2),
+        ("xlstm_125m_train", EXAMPLE_BATCH * EXAMPLE_SEQ, dx, bf, "cta", 0, 2e-2),
         ("many_f32", 1500, 1000, f32, "cta", 0, 1e-5),
         ("many_16k", 1024, 8192, bf, "cta", 0, 2e-2),
         ("one_f32", 1, d, f32, "cta", 0, 1e-5),
@@ -1571,8 +1603,10 @@ def attention_bound(b, s, hq, hkv, d, dtype, window) -> tuple[float, str]:
 
 def check_flash_attention(dev) -> dict:
     """The zoo main path's prefill shape, a 4608-token one with the 4096
-    window live, a float32 one with a softcap, and the edges of the
-    tensor-core route: a single tile, tails at S = 1000 and 130, GQA
+    window live, the quickstart example's float32 [1, 128, 4|2, 32] call
+    (the scalar route; timed beside SDPA), a float32 one with a softcap,
+    and the edges of the tensor-core route: a single tile, tails at S =
+    1000 and 130, GQA
     groups 1, 4 and 8, a window that cuts inside a tile, a bf16 softcap,
     D = 40 (one zero-padded half) and D = 36 (the scalar route).  v has a
     different spread for every key, so a key taken in the wrong order
@@ -1598,6 +1632,7 @@ def check_flash_attention(dev) -> dict:
         ("main", ZOO_BATCH, ZOO_PROMPT, hq, hkv, d, bf, w, 0.0, 3e-2),
         *prefills,
         ("window", 1, 4608, hq, hkv, d, bf, w, 0.0, 3e-2),
+        ("quickstart_scalar", *QUICKSTART_ATTENTION, f32, None, 0.0, 2e-5),
         ("softcap", 2, 333, 8, 2, d, f32, None, 30.0, 2e-5),
         ("tile", 1, 64, 1, 1, 64, bf, None, 0.0, 3e-2),
         ("group1", 2, 1000, 8, 8, d, bf, None, 0.0, 3e-2),
@@ -1636,7 +1671,8 @@ def check_flash_attention(dev) -> dict:
             f"flash_attention {name} {[b, s, nq, nkv, hd]} {dtype}: max|d|={err}",
         )
         worst = max(worst, err)
-        if name not in ("main", "window") and not name.endswith("_prefill"):
+        timed_case = name in ("main", "window", "quickstart_scalar")
+        if not timed_case and not name.endswith("_prefill"):
             continue
         bound, by = attention_bound(b, s, nq, nkv, hd, dtype, window)
         # SDPA's boolean mask: True = attend (causal, inside the window)
@@ -2044,13 +2080,57 @@ def lm_train_chunk_one(dev, cfg, label, batch) -> dict:
     }
 
 
-def phase_lm_train_main(dev) -> dict[str, int]:
+@contextmanager
+def timed_train_steps():
+    """CUDA-event times (ms) of every train step of the models built inside:
+    ``Model`` makes its step with ``models/model.py::make_train_step``,
+    wrapped here to record an event before and after each call (and wait
+    for the second: the step's device time, its idle gaps included)."""
+    times: list[float] = []
+    inner = model_module.make_train_step
+
+    def make(*args, **kw):
+        step = inner(*args, **kw)
+
+        def timed(state, batch):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            return out
+
+        return timed
+
+    model_module.make_train_step = make
+    try:
+        yield times
+    finally:
+        model_module.make_train_step = inner
+
+
+def train_lines(lines: list[str]) -> tuple[list, re.Match | None]:
+    """``launch.train``'s printed ``(step, loss, gnorm)`` lines and its last
+    ``N steps in Xs (Y tok/s)`` line."""
+    step_line = re.compile(r"step +(\d+) loss=(\S+) gnorm=(\S+)")
+    steps = [
+        (int(m.group(1)), float(m.group(2)), float(m.group(3)))
+        for m in map(step_line.fullmatch, lines)
+        if m
+    ]
+    last = lines[-2] if lines and lines[-1].startswith("saved params") else lines[-1]
+    return steps, re.fullmatch(r"(\d+) steps in (\S+)s \((\d+) tok/s\)", last)
+
+
+def phase_lm_train_main(dev, measured: dict) -> dict[str, int]:
     """``python -m repro_torch.launch.train`` at full width and depth:
     h2o-danube-3-4b in bfloat16 with float32 moments (``opt_cfg_for``),
     batch 2, seq 1024, 4 steps, weights from seed 0.  Its printed lines are
     read back: every step's loss finite and ``gnorm > 0``; C launched
     (2L + 1) x steps times, D never; the steps' wall and tokens a second,
-    and the peak of device memory."""
+    each step's time by CUDA events, and the peak of device memory (kept
+    in ``measured`` for the planner phase)."""
     cfg = get_config(ZOO_ARCH)
     argv = ["--arch", ZOO_ARCH, "--steps", str(TRAIN_STEPS)]
     argv += ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
@@ -2060,7 +2140,7 @@ def phase_lm_train_main(dev) -> dict[str, int]:
     reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), timed_train_steps() as step_ms:
         rc = train_cli.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -2069,14 +2149,13 @@ def phase_lm_train_main(dev) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     lines = buf.getvalue().splitlines()
-    step_line = re.compile(r"step +(\d+) loss=(\S+) gnorm=(\S+)")
-    steps = [
-        (int(m.group(1)), float(m.group(2)), float(m.group(3)))
-        for m in map(step_line.fullmatch, lines)
-        if m
-    ]
-    done = re.fullmatch(r"(\d+) steps in (\S+)s \((\d+) tok/s\)", lines[-1])
+    steps, done = train_lines(lines)
     want_rms = norms_per_forward(cfg) * TRAIN_STEPS
+    # the steps after the first (which also allocates the moments' use)
+    measured["lm_train_main"] = {
+        "peak_gb": peak_gb,
+        "step_ms": float(np.median(step_ms[1:])) if len(step_ms) > 1 else float("nan"),
+    }
     steps_s = float(done.group(2)) if done else float("nan")
     emit(
         {
@@ -2090,6 +2169,7 @@ def phase_lm_train_main(dev) -> dict[str, int]:
             # the driver's own clock over its steps, the first included
             "step_s": steps_s / TRAIN_STEPS,
             "tok_per_s": int(done.group(3)) if done else None,
+            "step_ms_cuda_events": step_ms,
             "peak_gb": peak_gb,
             "launches": launches,
             "launches_by_route": {"rmsnorm": dict(rmsnorm.launches_by_route)},
@@ -2338,7 +2418,9 @@ def decode_vs_forward(model, params, prompt, out, at) -> tuple[float, float, flo
     return err, scale, float((got.argmax(-1) == want.argmax(-1)).float().mean())
 
 
-def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
+def phase_zoo_main(
+    dev, arch: str, measured: dict
+) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     """The serving CLI's path at full width for ``arch`` (prompt and depth
     as ``ZOO_PROMPTS``/``ZOO_LAYERS`` cut them), then decode logits at 4
     positions against the teacher-forced forward on the card; the model
@@ -2356,7 +2438,9 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
     round the router's input differently, and where that breaks a top-k
     near-tie otherwise an expert changes, which moves the logits past
     the tolerance below (the free forward's difference and its routing
-    flips are printed).  Then :func:`moe_float32_check`.
+    flips are printed).  Then :func:`moe_float32_check`.  The timed
+    generation's peak of device memory is kept in ``measured`` (the
+    planner phase sets its estimate beside it).
 
     Tolerance: the bf16 3e-2 of tests/test_kernels.py, relative to the
     largest logit.  The two paths round differently at every bf16 product
@@ -2388,6 +2472,7 @@ def phase_zoo_main(dev, arch: str) -> tuple[dict[str, int], dict[str, dict[str, 
         "rmsnorm": dict(rmsnorm.launches_by_route),
     }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    measured[f"zoo_main:{arch}"] = {"peak_gb": peak_gb}
     finite = bool(torch.isfinite(out.logits).all())
     prefill_s, decode_s = out.prefill_s, out.decode_s
     sample_ids = out.tokens[0, :8].tolist()
@@ -2557,6 +2642,228 @@ def phase_zoo_window(dev) -> dict[str, int]:
     return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
 
 
+def load_example(name: str):
+    """``main`` of ``examples/<name>.py``, loaded from its file."""
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def _delta(before: dict[str, int]) -> dict[str, int]:
+    return {k: n - before[k] for k, n in read_launches().items()}
+
+
+def run_example(name: str, argv: list[str]):
+    """``examples/<name>.py``'s ``main(argv)`` with its stdout captured:
+    (what it returns, its lines, the kernel launches it made, its wall)."""
+    before = read_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = load_example(name)(argv)
+    torch.cuda.synchronize()
+    return out, buf.getvalue().splitlines(), _delta(before), time.perf_counter() - t0
+
+
+def phase_examples(dev) -> tuple[dict[str, int], dict[str, int]]:
+    """The four ``examples/torch_*.py`` on the card, their steps cut and
+    their widths never, launches read around the phase and each example:
+
+    - ``torch_train_lm_125m``: xlstm-125m at full width and depth (bf16
+      params, f32 moments), batch 4, seq 256, 3 steps, its checkpoint
+      written under a temporary directory: every loss finite, ``gnorm >
+      0``, C 13 a forward (a norm a mixer and the final one; nothing
+      recomputes a forward) x steps, D never; tok/s, each step's CUDA-event
+      time and the peak of device memory;
+    - ``torch_quickstart``: the zoo section (qwen3-moe smoke, one train and
+      one decode step), two DQN agents sharing an ERB and a weight
+      snapshot through a hub, and D's scalar route on float32 [1, 128,
+      4|2, 32] against its plain version (2e-5): one scalar launch;
+    - ``torch_adfll_deployment --fast``: ``paper_fig2`` and the Table 1
+      rows; every mean finite;
+    - ``torch_federated_lm`` at its 25 steps a round: three heterogeneous
+      agents (dense, MoE, xLSTM smoke configs) through two hubs; every
+      loss and the per-style table finite.
+
+    Over the phase A = B (one each a stacked step), D exactly the
+    quickstart's one scalar launch.  Returns the fleet kernels' and the
+    zoo kernels' launches."""
+    cfg = get_config(EXAMPLE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "xlstm125m_params.npz")
+        argv = ["--steps", str(EXAMPLE_STEPS), "--batch", str(EXAMPLE_BATCH)]
+        argv += ["--seq", str(EXAMPLE_SEQ), "--ckpt", ckpt]
+        with timed_train_steps() as step_ms:
+            ran = run_example("torch_train_lm_125m", argv)
+        rc, lines, train_launches, train_s = ran
+        saved = os.path.getsize(ckpt) if os.path.exists(ckpt) else 0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps, done = train_lines(lines)
+    want_rms = norms_per_forward(cfg) * EXAMPLE_STEPS
+    train = {
+        "stdout": lines,
+        "steps": steps,
+        "wall_s": train_s,
+        "tok_per_s": int(done.group(3)) if done else None,
+        "step_ms_cuda_events": step_ms,
+        "peak_gb": peak_gb,
+        "checkpoint_bytes": saved,
+        "launches": train_launches,
+    }
+    require(rc == 0 and done is not None and saved > 0, f"train_lm_125m: {lines}")
+    require(
+        [i for i, _, _ in steps] == list(range(EXAMPLE_STEPS))
+        and all(np.isfinite(loss) and gnorm > 0 for _, loss, gnorm in steps),
+        f"train_lm_125m: losses and grad norms {steps}",
+    )
+    require(
+        train_launches["rmsnorm"] == want_rms
+        and train_launches["flash_attention"] == 0,
+        f"train_lm_125m: launches {train_launches}, want rmsnorm {want_rms}, no D",
+    )
+
+    scalar_before = flash_attention.launches_by_route["scalar"]
+    quick, q_lines, q_launches, q_s = run_example("torch_quickstart", [])
+    scalar = flash_attention.launches_by_route["scalar"] - scalar_before
+    q = quick["kernels"]
+    quickstart = {
+        "stdout": q_lines,
+        "wall_s": q_s,
+        "zoo": {k: quick["zoo"][k] for k in ("loss", "aux")},
+        "adfll": quick["adfll"],
+        "kernels": q,
+        "launches": q_launches,
+    }
+    require(
+        np.isfinite([quick["zoo"]["loss"], *quick["adfll"].values()]).all()
+        and bool(torch.isfinite(quick["zoo"]["logits"]).all()),
+        f"quickstart: {quickstart}",
+    )
+    require(
+        q["scalar_launches"] == scalar == 1 and q["err"] <= 2e-5,
+        f"quickstart: D's scalar route {q}, {scalar} scalar launches",
+    )
+
+    deploy, d_lines, d_launches, d_s = run_example("torch_adfll_deployment", ["--fast"])
+    deployment = {"stdout": d_lines, "wall_s": d_s, **deploy, "launches": d_launches}
+    require(
+        all(np.isfinite(m) for m in deploy["means"].values())
+        and len(deploy["means"]) >= 7,
+        f"adfll_deployment: {deploy}",
+    )
+
+    fed, f_lines, f_launches, f_s = run_example("torch_federated_lm", [])
+    federated = {"stdout": f_lines, "wall_s": f_s, **fed, "launches": f_launches}
+    require(
+        np.isfinite(fed["losses"]).all() and np.isfinite(fed["table"]).all(),
+        f"federated_lm: {fed}",
+    )
+
+    launches = read_launches()
+    by_route = dict(flash_attention.launches_by_route)
+    emit(
+        {
+            "phase": "examples",
+            "cuts": "steps only (widths never): train_lm_125m 3 steps; "
+            "adfll_deployment --fast",
+            "train_lm_125m": train,
+            "quickstart": quickstart,
+            "adfll_deployment": deployment,
+            "federated_lm": federated,
+            "launches": launches,
+            "flash_attention_by_route": by_route,
+        }
+    )
+    require(
+        launches["replay_gather"] == launches["fused_td"] > 0,
+        f"examples: fleet launches {launches}",
+    )
+    require(
+        by_route == {"wgmma": 0, "scalar": 1},
+        f"examples: D's launches by route {by_route}, want the quickstart's one",
+    )
+    fleet = {k: launches[k] for k in FLEET_KERNELS}
+    return fleet, {k: launches[k] for k in ("rmsnorm", "flash_attention")}
+
+
+def planner_row(path: str, plan: dict, measured_gb: float) -> dict:
+    mem = plan["memory_estimate"]
+    return {
+        "path": path,
+        "measured_peak_gb": measured_gb,
+        "estimate_gb": mem["total_bytes"] / 1e9,
+        "resident_gb": mem["resident_bytes"] / 1e9,
+        "params_gb": mem["params_bytes"] / 1e9,
+        "opt_gb": mem["opt_bytes"] / 1e9,
+        "grad_gb": mem["grad_bytes"] / 1e9,
+        "cache_gb": mem["cache_bytes"] / 1e9,
+        "act_gb": mem["act_bytes"] / 1e9,
+        "flops_global": plan["flops_global"],
+        "roofline": plan["roofline"],
+    }
+
+
+def phase_planner(dev, measured: dict) -> dict[str, int]:
+    """The H100 planner (``launch/dryrun.py::run_pair``, on ``meta``
+    tensors, no card) at one card (``make_local_mesh``) for this run's own
+    paths, each estimate beside the peak measured above: lm_train_main's
+    step (h2o-danube-3-4b, batch 2, seq 1024) and zoo_main's serving of
+    every arch (batch 4, its prompt and 32 steps: the decode step with
+    the caches of prompt + 32 tokens, at the depth zoo_main cut).  The
+    resident part of each estimate (params, optimizer, caches) must not
+    exceed the measured peak.  Then the planned FLOPs of danube's step
+    over its CUDA-event time, as a share of the H100's 989 TFLOP/s.
+    The planner launches no kernel."""
+    reset_launches()
+    t0 = time.perf_counter()
+    local = make_local_mesh()
+    shape = InputShape("lm_train_main", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cfg = get_config(ZOO_ARCH)
+    plan = dryrun.run_pair(cfg, shape, mesh=local, print_analyses=False)
+    train = measured["lm_train_main"]
+    rows = [planner_row("lm_train_main", plan, train["peak_gb"])]
+    flops_per_s = plan["flops_global"] / (train["step_ms"] / 1e3)
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch)
+        if arch in ZOO_LAYERS:
+            cfg = serve.cut_depth(cfg, ZOO_LAYERS[arch])
+        prompt = ZOO_PROMPTS.get(arch, ZOO_PROMPT)
+        shape = InputShape("zoo_main", prompt + ZOO_GEN, ZOO_BATCH, "decode")
+        plan = dryrun.run_pair(cfg, shape, mesh=local, print_analyses=False)
+        peak = measured[f"zoo_main:{arch}"]["peak_gb"]
+        rows.append(planner_row(f"zoo_main:{arch}", plan, peak))
+    launches = read_launches()
+    emit(
+        {
+            "phase": "planner",
+            "basis": dryrun.BASIS,
+            "mesh": local,
+            "rows": rows,
+            "lm_train_main_step_ms": train["step_ms"],
+            "lm_train_main_flops_per_s": flops_per_s,
+            "lm_train_main_share_of_989_tflops": flops_per_s / PEAK_FLOPS_BF16,
+            "wall_s": time.perf_counter() - t0,
+            "launches": launches,
+        }
+    )
+    require(all(n == 0 for n in launches.values()), f"planner launched {launches}")
+    for row in rows:
+        require(
+            row["resident_gb"] <= row["measured_peak_gb"],
+            f"planner {row['path']}: resident {row['resident_gb']} GB past the "
+            f"measured peak {row['measured_peak_gb']} GB",
+        )
+    return {"rmsnorm": 0, "flash_attention": 0}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -2580,18 +2887,22 @@ def main() -> int:
     by_path["table2_sweep"] = phase_sweep(dev, "paper_table2_hub_failure")
     by_path["observatory"] = phase_observatory(dev)
     by_path["cli"] = phase_cli(dev)
-    launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)
     phase_zoo_chunk(dev)
     # the zoo's paths, C and D launches read around each alone
+    measured: dict = {}  # peaks and step times the planner is set beside
     zoo_paths = {"lm_train_chunk": phase_lm_train_chunk(dev)}
-    zoo_paths["lm_train_main"] = phase_lm_train_main(dev)
+    zoo_paths["lm_train_main"] = phase_lm_train_main(dev, measured)
     by_route = None
     for arch in ZOO_ARCHS:
-        zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch)
+        zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch, measured)
         by_route = by_route or routes  # danube's: the zoo's reference path
     zoo_paths["zoo_window"] = phase_zoo_window(dev)
+    by_path["examples"], zoo_paths["examples"] = phase_examples(dev)
+    zoo_paths["planner"] = phase_planner(dev, measured)
+    by_path["planner"] = {k: 0 for k in FLEET_KERNELS}
+    launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
     for name in ("rmsnorm", "flash_attention"):
         launches[name] = sum(p[name] for p in zoo_paths.values())
         results[name]["launches_by_path"] = {p: n[name] for p, n in zoo_paths.items()}

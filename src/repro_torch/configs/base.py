@@ -1,5 +1,6 @@
-"""Config system of the model zoo: architecture configs, the registry
-and the analytic parameter count.
+"""Config system of the model zoo: architecture configs, the input
+shapes the planner sizes, the registry and the analytic parameter
+count.
 
 A copy of the reference's ``repro/configs/base.py`` (the port imports
 nothing of ``repro``).  Every architecture gets a module in
@@ -185,6 +186,24 @@ class ModelConfig:
             dtype="float32",
         )
 
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 # ---------------------------------------------------------------------------
 # Registry

@@ -27,9 +27,11 @@ Enabled telemetry is observe-only: it brings the fleet observatory
 (per-agent learning dynamics from the fleet's stats chunk, version
 vectors and propagation latencies, health incidents in
 ``Report.extra``) and the round, push, availability, churn and hub
-spans and counters, and changes no number of the run.  What the port
-does not run yet raises ``NotImplementedError`` naming the slice that
-brings it: multi-device fleet sharding (the multi-GPU slice).
+spans and counters, and changes no number of the run.  ``fleet_devices``
+(and ``devices`` of :class:`CentralAggregationSystem`) resolve through
+``models/sharding.py::make_fleet_mesh``: with at most one card that is
+no mesh, and the run is the single-device one, as in the reference; a
+mesh of several cards raises ``NotImplementedError`` (ROADMAP item 4).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from repro_torch.core.plane import CompressedWeightPlane, WeightPlane, staleness
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
 from repro_torch.observatory import Observatory
+from repro_torch.models.sharding import make_fleet_mesh
 from repro_torch.population.compile import compile_onto
 from repro_torch.population.spec import PopulationSpec
 from repro_torch.rl.agent import DQNAgent
@@ -90,13 +93,6 @@ def evaluate_on_tasks(
         errs = [agent.evaluate(env_for(t, p, cfg), n_episodes=n_episodes) for p in pats]
         out[t.name] = float(np.mean(errs))
     return out
-
-
-def _unsupported(sys_cfg: ADFLLConfig) -> str | None:
-    """What of ``sys_cfg`` the port cannot run yet, or None."""
-    if sys_cfg.fleet_devices != 0:
-        return "fleet_devices != 0 (the multi-GPU fleet-sharding slice)"
-    return None
 
 
 def _make_weight_plane(cfg: ADFLLConfig) -> WeightPlane:
@@ -134,9 +130,10 @@ class ADFLLSystem:
         telemetry: Telemetry | None = None,
         device: str | torch.device | None = None,
     ):
-        missing = _unsupported(sys_cfg)
-        if missing is not None:
-            raise NotImplementedError(f"repro_torch does not run {missing} yet")
+        if sys_cfg.fleet_devices:
+            # None on a host with at most one card (the single-device path,
+            # as in the reference); raises for a mesh of several
+            make_fleet_mesh(sys_cfg.fleet_devices)
         if sys_cfg.engine not in ("fleet", "fleet-eager", "stepwise"):
             raise ValueError(f"unknown engine: {sys_cfg.engine!r}")
         if sys_cfg.task_curriculum not in ("roundrobin", "blocked", "shuffled"):
@@ -765,11 +762,8 @@ class CentralAggregationSystem:
         devices: int = 0,
         device: str | torch.device | None = None,
     ):
-        if devices != 0:
-            raise NotImplementedError(
-                "repro_torch does not run devices != 0 (the multi-GPU "
-                "fleet-sharding slice) yet"
-            )
+        if devices:
+            make_fleet_mesh(devices)  # None on one card; raises for several
         self.dqn_cfg = dqn_cfg
         self.tasks = list(tasks)
         self.patients = list(patients)

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.experiments --list
     PYTHONPATH=src python -m repro_torch.experiments --scenario paper_fig2 \
         [--fast] [--seed N] [--engine {fleet,fleet-eager,stepwise}] [--device cpu] \
+        [--devices N | --mesh] \
         [--trace out.jsonl] [--dashboard out.html]
     PYTHONPATH=src python -m repro_torch.experiments \
         --scenario churn_addition_fig4 --scenario gossip_hetero \
@@ -15,8 +16,10 @@ repro.experiments``.  ``--scenario`` repeats; ``--json`` writes the
 scenario).  ``--trace`` and ``--dashboard`` turn telemetry on
 (observe-only) and write each run's trace and observatory dashboard;
 with several scenarios the scenario's name goes before the extension.
-The reference's ``--devices``/``--mesh`` (a multi-device fleet) are not
-ported.
+``--devices N``/``--mesh`` set the scenario's ``fleet_devices`` as the
+reference's flags do; with at most one visible card that is the
+single-device run (``models/sharding.py::make_fleet_mesh``), and a mesh
+of several cards is not run yet (ROADMAP item 4).
 """
 
 from __future__ import annotations
@@ -66,6 +69,22 @@ def main(argv=None) -> int:
         help="torch device to run on (default: cuda; 'cpu' runs on the CPU)",
     )
     ap.add_argument(
+        "--devices",
+        type=int,
+        default=None,
+        metavar="N",
+        help=(
+            "shard the fleet's agent axis across up to N local CUDA devices "
+            "(-1 = all; rounded down to a power of two); with at most one "
+            "card this is the single-device run"
+        ),
+    )
+    ap.add_argument(
+        "--mesh",
+        action="store_true",
+        help="shorthand for --devices -1 (every local device)",
+    )
+    ap.add_argument(
         "--json",
         default=None,
         metavar="OUT",
@@ -109,6 +128,9 @@ def main(argv=None) -> int:
         spec = resolve(name, fast=args.fast, seed=args.seed)
         if args.engine is not None:
             spec = replace(spec, sys=replace(spec.sys, engine=args.engine))
+        devices = -1 if args.mesh and args.devices is None else args.devices
+        if devices is not None:
+            spec = replace(spec, sys=replace(spec.sys, fleet_devices=devices))
         trace_path = _per_scenario(args.trace, name, len(args.scenario))
         dashboard_path = _per_scenario(args.dashboard, name, len(args.scenario))
         report = run(

@@ -218,8 +218,10 @@ def load() -> ctypes.CDLL:
 
 def device_index(kernel: str, *tensors) -> int:
     """The CUDA device index of ``tensors`` when all lie on one card, -1
-    when all lie on the CPU; raise when they lie on different devices or
-    on another kind of device (a wrapper never falls back from one)."""
+    when all lie on the CPU or all on ``meta`` (the planner's shapes
+    without data: a wrapper then runs its plain version, as on the CPU);
+    raise when they lie on different devices or on another kind of
+    device (a wrapper never falls back from one)."""
     first = tensors[0]
     if first.is_cuda:
         index = first.get_device()
@@ -231,7 +233,7 @@ def device_index(kernel: str, *tensors) -> int:
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"{kernel} operands are on different devices")
-    if dev.type != "cpu":
+    if dev.type not in ("cpu", "meta"):
         raise ValueError(f"{kernel}: unsupported device {dev}")
     return -1
 

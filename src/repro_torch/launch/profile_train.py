@@ -1,11 +1,15 @@
 """Where the model zoo's train step spends its time on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch xlstm-125m --batch 4 --seq 256
 
 The step ``chip_smoke.py``'s ``lm_train_main`` drives
 (``python -m repro_torch.launch.train``): h2o-danube-3-4b at full width
 and depth in bfloat16 with float32 moments (``opt_cfg_for``), random
-weights from seed 0, batch 2, seq 1024, the reference's token stream.
+weights from seed 0, batch 2, seq 1024, the reference's token stream;
+or, with ``--arch``/``--batch``/``--seq``, another (``examples/
+torch_train_lm_125m.py``'s: xlstm-125m, batch 4, seq 256).
 One warm-up step, ``--steps`` plain steps timed one by one (host clock
 around a synchronised step), then one step under ``torch.profiler``
 (CPU + CUDA activities), then the same for the loss's forward and
@@ -44,11 +48,13 @@ def _timed(fn) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
-def profile_train(steps: int) -> dict:
-    cfg = get_config(ARCH)
-    model = Model(cfg, None, opt_cfg_for(cfg))
+def profile_train(
+    steps: int, arch: str = ARCH, batch_size: int = BATCH, seq: int = SEQ
+) -> dict:
+    cfg = get_config(arch)
+    model = Model(cfg, None, opt_cfg=opt_cfg_for(cfg))
     state = model.init_train_state(0)
-    stream = token_batches(TokenStreamConfig(cfg.vocab_size, SEQ, BATCH, seed=0))
+    stream = token_batches(TokenStreamConfig(cfg.vocab_size, seq, batch_size, seed=0))
 
     def batch():
         raw = next(stream)
@@ -83,14 +89,14 @@ def profile_train(steps: int) -> dict:
     update = device_summary(prof, upd_wall)
     total, _ = param_count(cfg)
     return {
-        "arch": ARCH,
-        "batch": BATCH,
-        "seq": SEQ,
+        "arch": arch,
+        "batch": batch_size,
+        "seq": seq,
         "opt_dtype": model.opt_cfg.opt_dtype,
         "step_walls_s": walls,
         "loss": float(metrics["loss"]),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "model_tflop_per_step": 6 * total * BATCH * SEQ / 1e12,
+        "model_tflop_per_step": 6 * total * batch_size * seq / 1e12,
         "step": step,
         "forward_backward": fwd_bwd,
         "adamw_update": update,
@@ -100,8 +106,11 @@ def profile_train(steps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile_train")
     ap.add_argument("--steps", type=int, default=3, help="unprofiled steps timed")
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--seq", type=int, default=SEQ)
     args = ap.parse_args(argv)
-    result = profile_train(args.steps)
+    result = profile_train(args.steps, args.arch, args.batch, args.seq)
     result["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(result))
     return 0

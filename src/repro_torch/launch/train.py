@@ -51,7 +51,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    model = Model(cfg, args.device, opt_cfg_for(cfg))
+    model = Model(cfg, args.device, opt_cfg=opt_cfg_for(cfg))
     dev = model.device
     state = model.init_train_state(args.seed)
     n_params = sum(x.numel() for x in tree_leaves(state["params"]))

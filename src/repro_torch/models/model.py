@@ -5,9 +5,10 @@ The port of the reference's ``models/model.py``.  The parameter layout is
 the reference's: the per-group leaves are stacked on a leading ``[G, ...]``
 axis, so converting reference params is a dtype change, and ``forward``
 loops over the groups in Python where the reference scans.  There is no
-mesh or sharding policy: one card holds the whole model.  Of the
-reference's ``ShardingPolicy`` the train step keeps the knobs that change
-what is computed or held (``loss_chunk``, ``microbatches``); per-layer
+mesh: one card holds the whole model.  Of the
+reference's ``ShardingPolicy`` (``models/sharding.py``) the train step
+keeps the knobs that change what is computed or held (``loss_chunk``,
+``microbatches``), which :class:`Model` reads from its policy; per-layer
 rematerialisation and the mesh's gather hoisting change no number and are
 left out.  Training attends through ``chunked_attention``
 (``attn_impl="chunked"``), as the reference trains through its XLA path;
@@ -33,6 +34,7 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed_apply,
 )
+from repro_torch.models.sharding import ShardingPolicy
 from repro_torch.optim.adamw import (
     AdamWConfig,
     tree_adamw_init,
@@ -109,7 +111,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
     groups.  Each stacked ``[G, ...]`` leaf is allocated once and group
     ``g`` is drawn into slice ``[g]``, groups in order, so the peak holds
     the params and one group more (not twice the params); a single group
-    (jamba cut to 4 layers) is its own ``[1, ...]`` view."""
+    (jamba cut to 4 layers) is its own ``[1, ...]`` view; a config with no
+    group (the planner's walk of the layers outside them) gets ``{}``."""
     params: dict[str, Any] = {
         "embed": embed_init(cfg, generator),
         "final_norm": norm_init(cfg, cfg.d_model, generator.device),
@@ -133,7 +136,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
             groups = _stacked_empty(one, cfg.n_groups)
         _put(groups, one, g)
         del one
-    params["groups"] = groups
+    params["groups"] = groups if groups is not None else {}
     return params
 
 
@@ -221,7 +224,7 @@ def forward(
                 aux = aux + a
     x = norm_apply(cfg, params["final_norm"], x)
     if mode == "prefill":
-        handed["groups"] = {k: _stack(v) for k, v in in_groups.items()}
+        handed["groups"] = {k: _stack(v) for k, v in in_groups.items() if v}
         return x, aux, handed
     return x, aux, caches
 
@@ -418,20 +421,33 @@ def make_serve_step(cfg: ModelConfig):
 
 
 class Model:
-    """The functional API bound to a config, an optimizer config and a
-    device (``None`` = the CUDA card; raises without one)."""
+    """The functional API bound to a config, a device (``None`` = the CUDA
+    card; raises without one), a sharding policy and an optimizer config.
+    Of the policy the loss reads ``loss_chunk`` and the train step
+    ``loss_chunk`` and ``microbatches``; ``remat`` is not read: the port does
+    not rematerialise per layer (ROADMAP queue 1 item 3.2); it checkpoints
+    the attention's query chunks, the cross entropy's chunks and the
+    recurrences' chunks."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         device: str | torch.device | None = None,
+        *,
+        policy: ShardingPolicy = ShardingPolicy(),
         opt_cfg: AdamWConfig = AdamWConfig(),
     ):
         self.cfg = cfg
+        self.policy = policy
         self.opt_cfg = opt_cfg
         self.device = resolve_device(device)
-        self.loss_fn = make_loss_fn(cfg)
-        self.train_step = make_train_step(cfg, opt_cfg)
+        self.loss_fn = make_loss_fn(cfg, loss_chunk=policy.loss_chunk)
+        self.train_step = make_train_step(
+            cfg,
+            opt_cfg,
+            loss_chunk=policy.loss_chunk,
+            microbatches=policy.microbatches,
+        )
         self.prefill_step = make_prefill_step(cfg)
         self.serve_step = make_serve_step(cfg)
 
@@ -448,8 +464,14 @@ class Model:
         return init_caches(self.cfg, batch, seq_len, self.device)
 
 
+def build_model(cfg: ModelConfig, **kw) -> Model:
+    """``Model(cfg, **kw)``, the reference's entry point."""
+    return Model(cfg, **kw)
+
+
 __all__ = [
     "Model",
+    "build_model",
     "cache_len_for",
     "chunked_xent",
     "forward",

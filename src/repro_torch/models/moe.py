@@ -52,6 +52,14 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(1, int(-(-m.top_k * n_tokens * m.capacity_factor // m.n_experts)))
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of ``0..n-1`` occurs in ``idx`` (int64 ``[n]``): a
+    scatter-add of ones, as the reference's ``.at[idx].add(1)``, with a
+    shape known before the data (the planner runs it on ``meta``)."""
+    flat = idx.reshape(-1)
+    return flat.new_zeros(n).scatter_add_(0, flat, torch.ones_like(flat))
+
+
 def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
     """x_flat [T, D] -> gates [T, k] (x's dtype), eidx [T, k], aux (f32):
     softmax in float32, top-k, gates renormalised, Switch's load-balance
@@ -61,7 +69,7 @@ def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
     gates, eidx = torch.topk(probs, m.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     pe = probs.mean(0)
-    counts = torch.bincount(eidx.reshape(-1), minlength=m.n_experts)
+    counts = _counts(eidx, m.n_experts)
     fe = counts.to(F32) * (1.0 / (x_flat.shape[0] * m.top_k))
     aux = m.n_experts * torch.sum(fe * pe)
     return gates.to(x_flat.dtype), eidx, aux
@@ -72,7 +80,7 @@ def _dispatch_indices(eidx: torch.Tensor, n_experts: int, cap: int):
     ranked in pair order (a stable sort); ``keep = slot < cap``."""
     e_flat = eidx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
-    counts = torch.bincount(e_flat, minlength=n_experts)
+    counts = _counts(e_flat, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(e_flat.numel(), device=e_flat.device) - starts[e_flat[order]]
     slot = torch.empty_like(rank)

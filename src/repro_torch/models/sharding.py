@@ -1,0 +1,253 @@
+"""Sharding policy: logical -> mesh rules for params, optimizer state and
+caches, over a mesh *shape*.
+
+The port of the reference's ``models/sharding.py``.  The rules are its
+rules (2-D parameter sharding: tensor parallelism over ``model`` plus
+FSDP over ``fsdp_axes``; a dimension that does not divide its axes falls
+back to replication), applied to a mesh shape, an ordered ``{axis name:
+size}`` dict (``launch/mesh.py``), so they need no device: the H100
+planner (``launch/dryrun.py``) reads them to size each leaf per card.  A
+``PartitionSpec`` is a plain tuple with one entry per dimension: ``None``,
+an axis name, or a tuple of axis names.
+
+The fleet's mesh (:func:`make_fleet_mesh`) keeps the reference's rule:
+``None`` when at most one device would join, and every caller then runs
+the single-device path.  Executing on a mesh of several cards
+(``hoist_constrain``, ``act_spec``, ``constrain`` and ``FleetSharding``
+in the reference) waits for ROADMAP item 4, the multi-GPU fleet axis.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import math
+from dataclasses import dataclass
+
+import torch
+
+FSDP = "__fsdp__"  # placeholder resolved to policy.fsdp_axes
+MODEL = "model"
+HEADQ = "__headq__"  # model axis iff cfg.n_heads divides it (else replicate)
+HEADKV = "__headkv__"  # model axis iff cfg.n_kv_heads divides it
+FLEET = "fleet"  # the stacked agent axis of the fleet engine
+
+
+@dataclass(frozen=True)
+class ShardingPolicy:
+    """The reference's policy, field for field.  What a run on one card
+    reads of it: ``loss_chunk`` and ``microbatches`` (the train step's
+    ``chunked_xent`` chunk and gradient accumulation).  ``q_chunk`` and
+    ``kv_chunk`` are carried as in the reference, whose model does not
+    read them either (its attention runs at their defaults, 512 and
+    1024).  ``remat`` (per-layer rematerialisation) and
+    ``hoist_dense_gathers`` are planning fields here: the port's train
+    step does not rematerialise per layer (ROADMAP queue 1 item 3.2) and
+    gathers nothing on one card."""
+
+    batch_axes: tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    fsdp_axes: tuple[str, ...] = ("data",)
+    seq_shard: bool = True  # sequence-parallel activations at boundaries
+    remat: bool = True  # per-layer-group activation checkpointing
+    tensor_parallel: bool = True  # False: model axis carries batch (pure DP)
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    loss_chunk: int = 2048
+    microbatches: int = 1  # gradient accumulation (memory knob)
+    hoist_dense_gathers: bool = False
+
+
+# (pattern, per-dim template). First match wins. Templates use mesh-axis
+# names or FSDP; dims beyond the template are replicated.
+_RULES = [
+    ("embed/tok", (MODEL, FSDP)),
+    ("embed/head/w", (FSDP, MODEL)),
+    ("*/wq/w", (FSDP, HEADQ)),
+    ("*/wk/w", (FSDP, HEADKV)),
+    ("*/wv/w", (FSDP, HEADKV)),
+    ("*/wq/b", (HEADQ,)),
+    ("*/wk/b", (HEADKV,)),
+    ("*/wv/b", (HEADKV,)),
+    ("*/wo/w", (HEADQ, FSDP)),
+    ("*/wo/b", (None,)),
+    ("*/wi/w", (FSDP, MODEL)),
+    ("*/wg/w", (FSDP, MODEL)),
+    ("*/wi/b", (MODEL,)),
+    ("*/router", (None, None)),
+    ("*/w1", (MODEL, FSDP, None)),
+    ("*/w3", (MODEL, FSDP, None)),
+    ("*/w2", (MODEL, None, FSDP)),
+    ("*/in_proj/w", (FSDP, MODEL)),
+    ("*/conv_w", (MODEL, None)),
+    ("*/conv_b", (MODEL,)),
+    ("*/x_proj/w", (MODEL, None)),
+    ("*/dt_proj/w", (None, MODEL)),
+    ("*/dt_proj/b", (MODEL,)),
+    ("*/a_log", (MODEL, None)),
+    ("*/d_skip", (MODEL,)),
+    ("*/out_proj/w", (MODEL, FSDP)),
+    ("*/w_if/w", (MODEL, None)),
+    ("*/w_x/w", (FSDP, MODEL)),
+    ("*/w_x/b", (MODEL,)),
+    ("*/r_h", (None, MODEL, None, None)),
+    ("*/ffn_up/w", (FSDP, MODEL)),
+    ("*/ffn_down/w", (MODEL, FSDP)),
+    ("*/w_dkv/w", (FSDP, None)),
+    ("*/w_krope/w", (FSDP, None)),
+    ("*/w_uk/w", (None, HEADQ)),
+    ("*/w_uv/w", (None, HEADQ)),
+    ("*/w_dq/w", (FSDP, None)),
+    ("*/w_uq/w", (None, HEADQ)),
+]
+
+
+def axis_size(mesh_shape: dict[str, int], axes) -> int:
+    """The number of devices ``axes`` (None, a name or a tuple) span."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    return math.prod(mesh_shape[a] for a in axes)
+
+
+def leaf_pspec(
+    path: str, shape, mesh_shape: dict[str, int], policy: ShardingPolicy, cfg=None
+) -> tuple:
+    """path: 'groups/b0/mixer/wq/w'. Leading 'groups/*' gets a stacked dim."""
+    stacked = path.startswith("groups/")
+    core_shape = shape[1:] if stacked else shape
+    template = None
+    for pat, tpl in _RULES:
+        if fnmatch.fnmatch(path, pat):
+            template = tpl
+            break
+    msize = mesh_shape[policy.model_axis]
+    dims = []
+    used: set = set()
+    for i, size in enumerate(core_shape):
+        ax = template[i] if template and i < len(template) else None
+        if not policy.tensor_parallel and ax in (MODEL, HEADQ, HEADKV):
+            ax = FSDP  # pure-DP: weights FSDP-shard, never TP
+        if ax == FSDP:
+            ax = (
+                policy.fsdp_axes
+                if len(policy.fsdp_axes) > 1
+                else (policy.fsdp_axes[0] if policy.fsdp_axes else None)
+            )
+        elif ax == HEADQ:
+            ok = cfg is None or cfg.n_heads % msize == 0
+            ax = policy.model_axis if ok else None
+        elif ax == HEADKV:
+            ok = cfg is None or cfg.n_kv_heads % msize == 0
+            ax = policy.model_axis if ok else None
+        if ax is not None and size % axis_size(mesh_shape, ax) != 0:
+            ax = None
+        # a mesh axis may appear at most once per spec
+        flat = (ax,) if (ax is None or isinstance(ax, str)) else tuple(ax)
+        if ax is not None and any(a in used for a in flat):
+            ax = None
+        else:
+            used.update(a for a in flat if a)
+        dims.append(ax)
+    if stacked:
+        dims = [None] + dims
+    return tuple(dims)
+
+
+def _map_with_path(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a nested dict of tensors, ``path`` the keys
+    joined by '/' (the reference's pytree path of a dict)."""
+    if isinstance(tree, dict):
+        return {
+            k: _map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+            for k, v in tree.items()
+        }
+    return fn(prefix, tree)
+
+
+def tree_pspecs(tree, mesh_shape: dict[str, int], policy: ShardingPolicy, cfg=None):
+    """Nested dict of specs mirroring ``tree`` (of tensors)."""
+    return _map_with_path(
+        lambda path, leaf: leaf_pspec(path, tuple(leaf.shape), mesh_shape, policy, cfg),
+        tree,
+    )
+
+
+def cache_pspec(
+    path: str, shape, mesh_shape: dict[str, int], policy: ShardingPolicy
+) -> tuple:
+    """KV-cache / recurrent-state sharding.
+
+    [B, S, H, D] k/v: batch->data; heads->model if divisible, else seq->model.
+    latent/state tensors: batch->data, widest divisible dim->model.
+    """
+    batch = tuple(a for a in policy.batch_axes if a in mesh_shape)
+    b_ax = batch if len(batch) > 1 else (batch[0] if batch else None)
+    msize = mesh_shape[policy.model_axis]
+    name = path.rsplit("/", 1)[-1]
+    stacked = path.startswith("groups/")
+    core = shape[1:] if stacked else shape
+    if shape and core and core[0] % axis_size(mesh_shape, b_ax or ()) != 0:
+        b_ax = None
+    dims = [b_ax] + [None] * (len(core) - 1)
+    if name in ("k", "v"):
+        if core[2] % msize == 0:
+            dims[2] = policy.model_axis
+        elif core[1] % msize == 0:
+            dims[1] = policy.model_axis
+    elif name in ("ckv", "krope", "kpos"):
+        if name != "kpos" and len(core) > 2 and core[1] % msize == 0:
+            dims[1] = policy.model_axis
+    elif name in ("ssm", "conv", "c", "n", "m", "h"):
+        # shard the channel/head dim over model when divisible
+        for i in range(1, len(core)):
+            if core[i] % msize == 0 and core[i] >= msize:
+                dims[i] = policy.model_axis
+                break
+    if stacked:
+        dims = [None] + dims
+    return tuple(dims)
+
+
+def cache_shardings(tree, mesh_shape: dict[str, int], policy: ShardingPolicy):
+    """Nested dict of :func:`cache_pspec` specs mirroring a cache ``tree``."""
+    return _map_with_path(
+        lambda path, leaf: cache_pspec(path, tuple(leaf.shape), mesh_shape, policy),
+        tree,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fleet-axis mesh
+# ---------------------------------------------------------------------------
+def make_fleet_mesh(n_devices: int | None = None, *, axis: str = FLEET):
+    """The reference's fleet mesh rule over the visible CUDA devices.
+
+    ``n_devices`` caps how many join (``None``/``-1`` = all of them).
+    Returns ``None`` when at most one device would join, and callers then
+    stay on the single-device path (so, as in the reference, the call is
+    safe on any host with at most one card).  A mesh of several cards
+    (the count rounded down to a power of two) is not run yet: ROADMAP
+    item 4."""
+    count = torch.cuda.device_count()
+    n = count if n_devices is None or n_devices < 0 else n_devices
+    n = min(n, count)
+    if n <= 1:
+        return None
+    n = 1 << (n.bit_length() - 1)  # pow2 floor
+    raise NotImplementedError(
+        f"a {axis!r} mesh of {n} CUDA devices: the multi-GPU fleet axis is "
+        "ROADMAP item 4 and not ported yet"
+    )
+
+
+__all__ = [
+    "FLEET",
+    "ShardingPolicy",
+    "axis_size",
+    "cache_pspec",
+    "cache_shardings",
+    "leaf_pspec",
+    "make_fleet_mesh",
+    "tree_pspecs",
+]

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.adfll_dqn import DQNConfig
 from repro_torch.core.federated import env_for
+from repro_torch.models.sharding import make_fleet_mesh
 from repro_torch.rl.agent import DQNAgent
 from repro_torch.rl.fleet import FleetEngine, collect_fleet
 from repro_torch.rl.synth import paper_eight_tasks, patient_split
@@ -97,11 +98,8 @@ def build_session(
     reaches the fleet and the service and brings the observatory, as in
     ``ADFLLSystem`` (observe-only: the same results request by
     request)."""
-    if devices != 0:
-        raise NotImplementedError(
-            "repro_torch does not run devices != 0 (the multi-GPU "
-            "fleet-sharding slice) yet"
-        )
+    if devices:
+        make_fleet_mesh(devices)  # None on one card; raises for several
     engine = FleetEngine(cfg, device=device)
     if telemetry is not None:
         engine.telemetry = telemetry

@@ -43,6 +43,10 @@ imports JAX, so the tests run where the card is.
   against the CPU from one init within 1e-4; C launched once a mixer,
   once an FFN and once for the final norm each forward, D once a
   forward (its one attention layer, on the scalar float32 route).
+* the examples' paths: D's scalar route at the quickstart's float32
+  ``[1, 128, 4|2, 32]`` (one launch, 2e-5 of the plain version), and
+  xlstm-125m's train step at full width and depth (every leaf's
+  gradient non-zero, a finite loss, C 13 launches a forward, D none).
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
@@ -440,3 +444,46 @@ def test_jamba_forward_card_matches_cpu(cuda):
     assert bool(torch.isfinite(card).all())
     assert float((card - cpu).abs().max()) <= 1e-4
 
+
+
+@pytest.mark.cuda
+def test_flash_attention_scalar_route_quickstart_shape_on_card(cuda):
+    """The quickstart's float32 ``[1, 128, 4|2, 32]`` call: one launch, on
+    the scalar route, within 2e-5 of the plain version."""
+    from repro_torch.kernels.flash_attention import attention_plain
+
+    rng = np.random.default_rng(0)
+    q, k, v = (
+        torch.tensor(rng.standard_normal((1, 128, h, 32)), device=cuda).float()
+        for h in (4, 2, 2)
+    )
+    before = dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v)
+    moved = {r: n - before[r] for r, n in flash_attention.launches_by_route.items()}
+    assert moved == {"scalar": 1, "wgmma": 0}
+    assert float((out - attention_plain(q, k, v)).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_xlstm_125m_train_step_on_card(cuda):
+    """xlstm-125m at full width and depth on the card (bf16 params, f32
+    moments), batch 2, seq 64: every leaf's loss gradient non-zero, then
+    one train step: a finite loss, a non-zero gradient norm, C 13
+    launches a forward (a norm a mixer and the final one), D none."""
+    from repro_torch.launch.specs import opt_cfg_for
+    from repro_torch.models.model import value_and_grad
+
+    cfg = get_config("xlstm-125m")
+    model = Model(cfg, cuda, opt_cfg=opt_cfg_for(cfg))
+    state = model.init_train_state(0)
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 65)), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _, _, grads = value_and_grad(model.loss_fn, state["params"], batch)
+    assert all(bool((g != 0).any()) for g in tree_leaves(grads))
+    before = rmsnorm.launches, flash_attention.launches
+    state, metrics = model.train_step(state, batch)
+    torch.cuda.synchronize()
+    moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
+    assert moved == (len(cfg.layer_pattern) + 1, 0)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0

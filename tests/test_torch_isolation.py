@@ -2,6 +2,7 @@
 package, and its entry points run on the CUDA card unless asked for the
 CPU — without a card they raise instead of falling back."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -23,9 +24,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 # the framework-free copies are scanned like the rest
 assert {"repro_torch.telemetry.trace", "repro_torch.observatory.learning"} <= set(names)
 assert {"repro_torch.launch.train", "repro_torch.checkpoint.ckpt"} <= set(names)
+assert {"repro_torch.models.sharding", "repro_torch.launch.dryrun"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+for ex in ("quickstart", "adfll_deployment", "federated_lm", "train_lm_125m"):
+    spec = importlib.util.spec_from_file_location(ex, f"examples/torch_{ex}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
@@ -48,9 +54,11 @@ def test_port_imports_no_jax_and_no_reference():
     ).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
     # every module of the port was imported: the zoo's, the experiments',
-    # the sweeps', the telemetry's, the observatory's and the LM training
-    # slice's (data, checkpoint, launch.train) too
-    assert n_modules >= 88
+    # the sweeps', the telemetry's, the observatory's, the LM training
+    # slice's (data, checkpoint, launch.train) and the planner's
+    # (models.sharding, launch.mesh, launch.analysis, launch.dryrun) too;
+    # and the four examples/torch_*.py
+    assert n_modules >= 92
     assert bad == "[]"
 
 
@@ -78,6 +86,13 @@ def test_entry_points_default_to_cuda():
     from repro_torch.sweeps import SweepSpec, SweepVariant, run_sweep
     from repro_torch.sweeps.__main__ import main as sweeps_main
 
+    def example(name):
+        path = ROOT / "examples" / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.main
+
     cfg = DQNConfig(box_size=(4, 4, 4), conv_features=(2,), hidden=(8,))
     tasks = paper_eight_tasks()
     for make in (
@@ -99,6 +114,10 @@ def test_entry_points_default_to_cuda():
         lambda: run("serve_localization", fast=True),
         lambda: build_session(cfg, n_agents=1, traffic=TrafficSpec(n_requests=2)),
         lambda: LocalizationService(cfg, params={"fc0": {"b": torch.zeros(1, 6)}}),
+        lambda: example("quickstart")([]),
+        lambda: example("adfll_deployment")(["--fast"]),
+        lambda: example("federated_lm")(["--steps", "1"]),
+        lambda: example("train_lm_125m")(["--arch", "xlstm-125m-smoke"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

@@ -175,18 +175,28 @@ def test_replay_gather_rejects_bad_operands(rng):
         replay_gather(buf.t(), idx, w)  # not contiguous
 
 
+def other_device(*shape):
+    """What ``lib.device_index`` reads of a tensor on a device that is
+    neither the CPU, ``meta`` nor CUDA (none exists in a CPU build)."""
+    return SimpleNamespace(is_cuda=False, device=torch.device("xpu"), shape=shape)
+
+
 def test_replay_gather_never_falls_back_off_the_cpu(rng):
-    """Operands on two devices are refused; a device that is neither the
-    CPU nor CUDA raises instead of taking the plain version."""
+    """Operands on two devices are refused; ``meta`` operands (the
+    planner's shapes, no data) take the plain version like the CPU's; a
+    device that is neither the CPU, ``meta`` nor CUDA raises instead of
+    taking the plain version."""
     buf, idx, w = _t(*_gather_inputs(rng, 16, 8, 4))
     with pytest.raises(ValueError, match="different devices"):
         replay_gather(buf.to("meta"), idx, w)
     with pytest.raises(ValueError, match="different devices"):
         replay_gather(buf, idx, w.to("meta"))
     before = replay_gather.launches
-    with pytest.raises(ValueError, match="unsupported device"):
-        replay_gather(*(t.to("meta") for t in (buf, idx, w)))
+    out = replay_gather(*(t.to("meta") for t in (buf, idx, w)))
+    assert out.device.type == "meta" and out.shape == (4, 8)
     assert replay_gather.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        lib.device_index("replay_gather", other_device(16, 8), other_device(4))
 
 
 # the shapes of tests/test_kernels.py, block_b = 32 as there
@@ -271,9 +281,11 @@ def test_fused_td_rejects_bad_operands(rng):
     with pytest.raises(ValueError, match="different devices"):
         fused_td(q, q_next, rows.to("meta"), TD_COLS, 0.9)
     before = fused_td.launches
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_td(q.to("meta"), q_next.to("meta"), rows.to("meta"), TD_COLS, 0.9)
+    out = fused_td(q.to("meta"), q_next.to("meta"), rows.to("meta"), TD_COLS, 0.9)
+    assert out.grad_q.device.type == "meta" and out.grad_q.shape == q.shape
     assert fused_td.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        lib.device_index("fused_td", other_device(*q.shape), other_device(*q.shape))
 
 
 # (N, B, A): the fleet's step, a ragged batch, one agent with one action

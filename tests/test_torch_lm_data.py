@@ -145,6 +145,6 @@ def test_opt_cfg_for_is_the_reference_rule():
     big = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=400)
     assert opt_cfg_for(big).opt_dtype == "bfloat16"
     cfg = get_config("h2o-danube-3-4b-smoke")
-    state = Model(cfg, "cpu", opt_cfg_for(big)).init_train_state(0)
+    state = Model(cfg, "cpu", opt_cfg=opt_cfg_for(big)).init_train_state(0)
     assert state["opt"]["m"]["embed"]["tok"].dtype == torch.bfloat16
     assert state["params"]["embed"]["tok"].dtype == torch.float32

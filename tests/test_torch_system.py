@@ -94,12 +94,17 @@ def test_system_matches_reference():
             assert abs(ev[label][task] - ev_ref[label][task]) <= 1e-4
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     cfg = DQNConfig(**DQN_KW)
+    # at most one card: fleet_devices resolve to no mesh and the run is the
+    # single-device one (the reference's rule); several cards are not
+    # ported yet
+    sharded = ADFLLConfig(**SYS_KW, fleet_devices=2)
+    ADFLLSystem(sharded, cfg, paper_eight_tasks(), TRAIN_P, device="cpu")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ADFLLSystem(
-            ADFLLConfig(**SYS_KW, fleet_devices=2), cfg, paper_eight_tasks(), TRAIN_P
-        )
+        ADFLLSystem(sharded, cfg, paper_eight_tasks(), TRAIN_P, device="cpu")
+    monkeypatch.undo()
     port = ADFLLSystem(
         ADFLLConfig(**SYS_KW), cfg, paper_eight_tasks(), TRAIN_P, device="cpu"
     )

@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
+from repro_torch.kernels import lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
     check_tma_operands,
@@ -106,13 +107,18 @@ def test_rmsnorm_rejects_bad_operands(rng):
 
 
 def test_rmsnorm_never_falls_back_off_the_cpu(rng):
+    """Mixed devices are refused; ``meta`` (the planner's shapes) takes the
+    plain version like the CPU; any other device that is not CUDA raises."""
     x = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
     with pytest.raises(ValueError, match="different devices"):
         rmsnorm(x.to("meta"), torch.ones(8), EPS)
     before = dict(rmsnorm.launches_by_route)
-    with pytest.raises(ValueError, match="unsupported device"):
-        rmsnorm(x.to("meta"), torch.ones(8, device="meta"), EPS)
+    out = rmsnorm(x.to("meta"), torch.ones(8, device="meta"), EPS)
+    assert out.device.type == "meta" and out.shape == x.shape
     assert rmsnorm.launches_by_route == before
+    other = SimpleNamespace(is_cuda=False, device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lib.device_index("rmsnorm", other, other)
 
 
 # rows of d * elem bytes: 16-byte multiples up to 16 KB are held in
