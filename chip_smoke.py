@@ -202,11 +202,29 @@ non-zero exit code and no result line:
    beside the peak measured above; the resident part must not exceed
    it; the planned FLOPs of danube's step over its CUDA-event time as
    a share of 989 TFLOP/s.  No kernel launches.
+23. fleet_mesh (run after serve, before table2_sweep) — the fleet axis on
+   a device mesh: every visible card (``make_fleet_mesh(-1)``) where
+   there are several; with one card ``make_fleet_mesh(-1)`` must give no
+   mesh and the mesh is ``FleetMesh((cuda:0,) * 4)``, which runs every
+   part of the sharded path on the one card (not copies between cards,
+   nor overlap across them).  ``paper_fig2 --fast`` at ``DQNConfig()``
+   through ``ADFLLSystem`` with ``make_fleet_mesh`` giving that mesh for
+   this run alone: the main phase's round records but the loss, each
+   round's loss within 1e-5, every slot's params after the first flush
+   within 1e-6, ``mean_dist_err`` within 1e-4; A and B launched once per
+   shard with jobs per stacked step (``n_shard_steps``: 3 x 80 for its 3
+   agents on 4 shards, one of them idle); training and
+   evaluation walls and a stacked step's device time and operations
+   beside the unsharded run's.  flash_crowd's widest stacked step (N =
+   183, 4 steps) whole and over 2 and 4 same-card shards (device time a
+   step; numbers, not a claim).  Phase 12 (b)'s batched session on the
+   mesh: every request's voxel, ticks and version those of the
+   unsharded session, A = B = 20 x 4 shard steps.
 
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": ...}``.  ``replay_gather`` and ``fused_td`` run on the fleet
-paths (main, baselines, sweep, topology, population, serve,
+paths (main, baselines, sweep, topology, population, serve, fleet_mesh,
 table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
 lm_train_main, zoo_main for each arch, zoo_window and examples); the
@@ -247,6 +265,7 @@ from repro_torch.configs.base import (  # noqa: E402
 )
 from repro_torch.core.erb import flat_columns, flat_width  # noqa: E402
 from repro_torch.core.experiment import ExperimentHooks  # noqa: E402
+from repro_torch.core import federated  # noqa: E402
 from repro_torch.experiments import __main__ as experiments_cli  # noqa: E402
 from repro_torch.experiments.profile import _profile_steps  # noqa: E402
 from repro_torch.experiments.registry import get_scenario  # noqa: E402
@@ -279,6 +298,7 @@ from repro_torch.models.model import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.models.rope import positions_for  # noqa: E402
+from repro_torch.models.sharding import FleetMesh, make_fleet_mesh  # noqa: E402
 from repro_torch.optim.adamw import (  # noqa: E402
     AdamWConfig,
     leaves,
@@ -293,6 +313,7 @@ from repro_torch.rl.fleet import (  # noqa: E402
     tree_map,
 )
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
+from repro_torch.serve import driver as serve_driver  # noqa: E402
 from repro_torch.telemetry import Telemetry, load_trace, write_trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -714,12 +735,34 @@ def read_launches() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def timed_run(spec, dev, hooks=(), telemetry=None) -> tuple:
+def record_flushes(engine, out: dict) -> None:
+    """Fill ``out["params"]`` with a host copy of every resident slot's
+    params right after ``engine``'s first flush, and ``out["flush_s"]``
+    with the host wall of every flush call (each ends in the flush's one
+    host sync), the copy left out."""
+    flush = engine.flush
+    out["flush_s"] = 0.0
+
+    def recording():
+        t0 = time.perf_counter()
+        flush()
+        out["flush_s"] += time.perf_counter() - t0
+        if "params" not in out and engine.n_flushes:
+            out["params"] = tree_map(lambda t: t.cpu(), engine.state.params)
+
+    engine.flush = recording
+
+
+def timed_run(spec, dev, hooks=(), telemetry=None, flushes=None) -> tuple:
     """Build ``spec`` on ``dev``, run it with the launches read around
     the run alone, then evaluate it.  The evaluation probes a churn or
     hub-failure scenario fires during the run count to ``eval_s``, not
-    to ``run_s``."""
+    to ``run_s``.  With a dict ``flushes``, the params after the
+    engine's first flush are copied into it (one copy a run) and the
+    flushes' wall summed (:func:`record_flushes`)."""
     system = build(spec, hooks=hooks, device=dev, telemetry=telemetry)
+    if flushes is not None:
+        record_flushes(system.engine, flushes)
     probe_s = 0.0
     evaluate = system.evaluate
 
@@ -746,7 +789,8 @@ def timed_run(spec, dev, hooks=(), telemetry=None) -> tuple:
 
 def phase_main(dev) -> dict:
     spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
-    system, report, launches, run_s, eval_s = timed_run(spec, dev)
+    flushes: dict = {}
+    system, report, launches, run_s, eval_s = timed_run(spec, dev, flushes=flushes)
     engine = system.engine
     emit(
         {
@@ -784,6 +828,13 @@ def phase_main(dev) -> dict:
         "n_rounds": report.n_rounds,
         "agent_steps": engine.n_steps_trained,
         "stacked_steps": engine.n_chunk_steps,
+        # what the fleet_mesh phase holds its sharded run to
+        "reference": {
+            "report": report,
+            "flushes": flushes,
+            "run_s": run_s,
+            "eval_s": eval_s,
+        },
     }
 
 
@@ -1027,19 +1078,11 @@ def phase_main_card_vs_cpu(dev) -> None:
     spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
     side = []
     for d in (dev, torch.device("cpu")):
-        system = build(spec, device=d)
-        engine, first = system.engine, {}
-        flush = engine.flush
-
-        def recording(engine=engine, first=first, flush=flush):
-            flush()
-            if not first and engine.n_flushes:
-                first.update(tree_map(lambda t: t.cpu(), engine.state.params))
-
-        engine.flush = recording
+        system, flushes = build(spec, device=d), {}
+        record_flushes(system.engine, flushes)
         report = system.run()
         evaluate_into(report, system, spec)
-        side.append((report, first))
+        side.append((report, flushes["params"]))
     (card, card_first), (cpu, cpu_first) = side
     diffs = [
         abs(a.loss - b.loss) for a, b in zip(card.history, cpu.history, strict=True)
@@ -1207,10 +1250,11 @@ def phase_population(dev) -> dict[str, int]:
     return total
 
 
-def serve_batching_run(dev, max_batch: int, telemetry=None) -> dict:
+def serve_batching_run(dev, max_batch: int, telemetry=None, devices: int = 0) -> dict:
     """Phase 12 (b): one train-while-serve session at ``DQNConfig()``, 4
     agents, 128 requests in 2 waves around one round of 20 steps (with
-    ``telemetry``, observed: phase 12 (d))."""
+    ``telemetry``, observed: phase 12 (d); with ``devices``, on the fleet
+    mesh ``make_fleet_mesh`` gives: phase 23)."""
     traffic = TrafficSpec(
         n_requests=128,
         max_batch=max_batch,
@@ -1219,7 +1263,13 @@ def serve_batching_run(dev, max_batch: int, telemetry=None) -> dict:
         seed=0,
     )
     session = build_session(
-        DQNConfig(), n_agents=4, traffic=traffic, seed=0, telemetry=telemetry, device=dev
+        DQNConfig(),
+        n_agents=4,
+        traffic=traffic,
+        seed=0,
+        telemetry=telemetry,
+        devices=devices,
+        device=dev,
     )
     reset_launches()
     t0 = time.perf_counter()
@@ -1251,6 +1301,7 @@ def serve_batching_run(dev, max_batch: int, telemetry=None) -> dict:
             "service_ticks_per_request": s["n_ticks"] / s["n_requests"],
             "buckets_dispatched": sorted(set(report.batch_sizes)),
             "stacked_steps": session.engine.n_chunk_steps,
+            "shard_steps": session.engine.n_shard_steps,
             "launches": launches,
         },
         "per_request": [
@@ -1295,9 +1346,11 @@ def check_act_steps(dev) -> dict:
     }
 
 
-def phase_serve(dev) -> dict[str, int]:
+def phase_serve(dev) -> tuple[dict[str, int], list]:
     """The serving plane at full width: the scenario, batched against
-    single serving of one session, and the act program alone."""
+    single serving of one session, and the act program alone.  Returns
+    the launches and the batched session's requests (the fleet_mesh
+    phase's reference)."""
     t_phase = time.perf_counter()
     total = dict.fromkeys(FLEET_KERNELS, 0)
     # (a) the scenario through the port's runner
@@ -1425,6 +1478,169 @@ def phase_serve(dev) -> dict[str, int]:
     require(act["card_vs_cpu_max_abs_dq"] <= 1e-4, f"serve act: card vs CPU {act}")
     require(act["batched_vs_alone_actions_equal"], f"serve act: batched vs alone {act}")
     emit({"phase": "serve_wall", "seconds": time.perf_counter() - t_phase})
+    return total, batched["per_request"]
+
+
+# the fleet_mesh phase's tolerances, sharded against unsharded on the card:
+# a shard's stacked step convolves fewer agents in one grouped convolution,
+# which may sum in another order
+MESH_LOSS_TOL = 1e-5  # each round's loss
+MESH_PARAMS_TOL = 1e-6  # every slot's params after the first flush
+MESH_ERR_TOL = 1e-4  # mean_dist_err (voxels)
+CROWD_AGENTS = 183  # flash_crowd's widest flush (PERF.md section 5)
+
+
+@contextmanager
+def fleet_mesh_given(module, mesh):
+    """``module.make_fleet_mesh`` hands out ``mesh`` inside the block."""
+    saved = module.make_fleet_mesh
+    module.make_fleet_mesh = lambda *args, **kw: mesh
+    try:
+        yield
+    finally:
+        module.make_fleet_mesh = saved
+
+
+def _meta(report) -> list:
+    """Every round record's fields but the loss."""
+    return [(*r[:6], *r[7:]) for r in _records(report)]
+
+
+def _step_numbers(step: dict) -> dict:
+    return {k: v for k, v in step.items() if k != "top"}
+
+
+def phase_fleet_mesh(dev, main_ref: dict, serve_ref: list) -> dict[str, int]:
+    """The fleet axis on a device mesh: ``paper_fig2 --fast`` at
+    ``DQNConfig()`` through ``ADFLLSystem`` sharded over the mesh, held
+    to the main phase's unsharded run; one stacked step whole and split
+    over same-card shards, at N = 4 and at flash_crowd's N = 183; the
+    serving session of phase 12 (b) on the mesh, held to the batched
+    one request by request.  With one visible card ``make_fleet_mesh(-1)``
+    must give no mesh, and the mesh is cuda:0 four times."""
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    auto = make_fleet_mesh(-1)
+    if auto is None:
+        mesh = FleetMesh((torch.device("cuda", 0),) * 4)
+        used = "FleetMesh((cuda:0,) * 4)"
+    else:
+        mesh, used = auto, "make_fleet_mesh(-1)"
+    emit(
+        {
+            "phase": "fleet_mesh_device",
+            "visible_cards": n_cards,
+            "make_fleet_mesh(-1)": auto and [str(d) for d in auto.devices],
+            "mesh": [str(d) for d in mesh.devices],
+            "used": used,
+        }
+    )
+    require(
+        (auto is None) == (n_cards == 1),
+        f"fleet_mesh: make_fleet_mesh(-1) gave {auto} with {n_cards} cards",
+    )
+    total = dict.fromkeys(FLEET_KERNELS, 0)
+
+    # (a) the main path sharded
+    spec = replace(get_scenario("paper_fig2"), dqn=DQNConfig()).fast()
+    spec = replace(spec, sys=replace(spec.sys, fleet_devices=mesh.size))
+    n_agents = spec.sys.n_agents
+    flushes: dict = {}
+    with fleet_mesh_given(federated, mesh):
+        system, report, launches, run_s, eval_s = timed_run(spec, dev, flushes=flushes)
+    engine = system.engine
+    ref, ref_flushes = main_ref["report"], main_ref["flushes"]
+    loss_diff = max(
+        abs(a.loss - b.loss) for a, b in zip(report.history, ref.history, strict=True)
+    )
+    p_err = max(
+        float((a[:n_agents] - b[:n_agents]).abs().max())
+        for a, b in zip(
+            leaves(flushes["params"]), leaves(ref_flushes["params"]), strict=True
+        )
+    )
+    err_diff = abs(report.mean_dist_err - ref.mean_dist_err)
+    # shards with agents: the others hold dead rows and launch nothing
+    n_shards = min(n_agents, mesh.size)
+    step = {
+        "whole": _profile_steps(spec.dqn, n_agents, 4, repeats=3),
+        "sharded": _profile_steps(spec.dqn, n_agents, 4, repeats=3, shards=n_shards),
+    }
+    emit(
+        {
+            "phase": "fleet_mesh",
+            "scenario": "paper_fig2 --fast, dqn=DQNConfig(), fleet_devices="
+            f"{mesh.size} on {used}",
+            "cuts": "none",
+            "capacity": engine.capacity,
+            "records_equal_but_loss": _meta(report) == _meta(ref),
+            "max_round_loss_diff": loss_diff,
+            "params_max_abs_err_after_first_flush": p_err,
+            "mean_dist_err": [report.mean_dist_err, ref.mean_dist_err],
+            "mean_dist_err_diff": err_diff,
+            "run_s": [run_s, main_ref["run_s"]],
+            "flush_s": [flushes["flush_s"], ref_flushes["flush_s"]],
+            "eval_s": [eval_s, main_ref["eval_s"]],
+            "stacked_steps": engine.n_chunk_steps,
+            "shard_steps": engine.n_shard_steps,
+            "flushes": engine.n_flushes,
+            "launches": launches,
+            "step_sharded": _step_numbers(step["sharded"]),
+            "step_whole": _step_numbers(step["whole"]),
+        }
+    )
+    capacity = max(1 << (n_agents - 1).bit_length(), mesh.size)
+    require(
+        engine.mesh is mesh and engine.capacity == capacity,
+        f"fleet_mesh: engine mesh {engine.mesh}, capacity {engine.capacity}",
+    )
+    require(_meta(report) == _meta(ref), "fleet_mesh: the round records differ")
+    require(loss_diff <= MESH_LOSS_TOL, f"fleet_mesh: losses differ by {loss_diff}")
+    require(p_err <= MESH_PARAMS_TOL, f"fleet_mesh: params differ by {p_err}")
+    require(err_diff <= MESH_ERR_TOL, f"fleet_mesh: errors differ by {err_diff}")
+    for k in FLEET_KERNELS:
+        require(
+            launches[k] == engine.n_shard_steps > engine.n_chunk_steps > 0,
+            f"fleet_mesh: {k} launched {launches[k]} times for "
+            f"{engine.n_shard_steps} shard steps",
+        )
+        total[k] += launches[k]
+
+    # (b) flash_crowd's widest stacked step, whole and over same-card shards
+    crowd = {
+        n: _step_numbers(
+            _profile_steps(DQNConfig(), CROWD_AGENTS, 4, repeats=3, shards=n)
+        )
+        for n in (1, 2, 4)
+    }
+    emit({"phase": "fleet_mesh_crowd_step", "agents": CROWD_AGENTS, "by_shards": crowd})
+
+    # (c) the serving session on the mesh
+    with fleet_mesh_given(serve_driver, mesh):
+        served = serve_batching_run(dev, 16, devices=mesh.size)
+    differ = [
+        i
+        for i, (x, y) in enumerate(zip(serve_ref, served["per_request"], strict=True))
+        if x != y
+    ]
+    summary = served["summary"]
+    emit(
+        {
+            "phase": "fleet_mesh_serve",
+            "session": "as serve_batching's batched run, on the mesh",
+            "sharded": summary,
+            "requests_differing_from_unsharded": differ,
+        }
+    )
+    require(not differ, f"fleet_mesh serve: requests {differ} differ from unsharded")
+    for k in FLEET_KERNELS:
+        require(
+            summary["launches"][k] == summary["shard_steps"] == 20 * min(4, mesh.size),
+            f"fleet_mesh serve: {k} launched {summary['launches'][k]} times for "
+            f"{summary['shard_steps']} shard steps",
+        )
+        total[k] += summary["launches"][k]
+    emit({"phase": "fleet_mesh_wall", "seconds": time.perf_counter() - t_phase})
     return total
 
 
@@ -2875,6 +3091,7 @@ def main() -> int:
     }
     phase_chunk(dev)
     main = phase_main(dev)
+    main_ref = main.pop("reference")
     by_path = {"main": {k: main["launches"][k] for k in FLEET_KERNELS}}
     by_path.update(phase_baselines(dev))
     by_path["sweep"] = phase_sweep(dev)
@@ -2883,7 +3100,8 @@ def main() -> int:
     by_path["stepwise"] = phase_stepwise(dev, fleet)
     phase_main_card_vs_cpu(dev)
     by_path["population"] = phase_population(dev)
-    by_path["serve"] = phase_serve(dev)
+    by_path["serve"], serve_ref = phase_serve(dev)
+    by_path["fleet_mesh"] = phase_fleet_mesh(dev, main_ref, serve_ref)
     by_path["table2_sweep"] = phase_sweep(dev, "paper_table2_hub_failure")
     by_path["observatory"] = phase_observatory(dev)
     by_path["cli"] = phase_cli(dev)

@@ -29,9 +29,13 @@ vectors and propagation latencies, health incidents in
 ``Report.extra``) and the round, push, availability, churn and hub
 spans and counters, and changes no number of the run.  ``fleet_devices``
 (and ``devices`` of :class:`CentralAggregationSystem`) resolve through
-``models/sharding.py::make_fleet_mesh``: with at most one card that is
-no mesh, and the run is the single-device one, as in the reference; a
-mesh of several cards raises ``NotImplementedError`` (ROADMAP item 4).
+``models/sharding.py::make_fleet_mesh`` over the devices the system's
+``device`` names, as in the reference: on a host with several visible
+cards the fleet engine shards its agents across them (slot ``i`` on card
+``i % n``); with at most one card, or on the CPU, there is no mesh and
+the run is the single-device one.  Reductions across agents (FedAvg's
+mean, the weight plane's mixing) bring their operands to one device
+first.
 """
 
 from __future__ import annotations
@@ -130,10 +134,6 @@ class ADFLLSystem:
         telemetry: Telemetry | None = None,
         device: str | torch.device | None = None,
     ):
-        if sys_cfg.fleet_devices:
-            # None on a host with at most one card (the single-device path,
-            # as in the reference); raises for a mesh of several
-            make_fleet_mesh(sys_cfg.fleet_devices)
         if sys_cfg.engine not in ("fleet", "fleet-eager", "stepwise"):
             raise ValueError(f"unknown engine: {sys_cfg.engine!r}")
         if sys_cfg.task_curriculum not in ("roundrobin", "blocked", "shuffled"):
@@ -174,8 +174,13 @@ class ADFLLSystem:
             )
             self.network.gossip.telemetry = self.telemetry
         self.device = resolve_device(device)
+        mesh = (
+            make_fleet_mesh(sys_cfg.fleet_devices, device=self.device)
+            if sys_cfg.fleet_devices
+            else None
+        )
         self.engine: FleetEngine | None = (
-            FleetEngine(dqn_cfg, device=self.device)
+            FleetEngine(dqn_cfg, device=self.device, mesh=mesh)
             if sys_cfg.engine.startswith("fleet")
             else None
         )
@@ -745,7 +750,8 @@ class CentralAggregationSystem:
     synchronous rounds and returns a :class:`Report`; ``evaluate()``
     reports the shared post-aggregation model under the ``"FedAvg"``
     label (after a sync round every agent holds identical parameters).
-    The cohort shares one fleet engine on ``device`` (``None`` = CUDA).
+    The cohort shares one fleet engine on ``device`` (``None`` = CUDA),
+    sharded over ``make_fleet_mesh(devices)`` where that is a mesh.
     """
 
     def __init__(
@@ -762,8 +768,6 @@ class CentralAggregationSystem:
         devices: int = 0,
         device: str | torch.device | None = None,
     ):
-        if devices:
-            make_fleet_mesh(devices)  # None on one card; raises for several
         self.dqn_cfg = dqn_cfg
         self.tasks = list(tasks)
         self.patients = list(patients)
@@ -771,7 +775,9 @@ class CentralAggregationSystem:
         self.steps = steps
         self.erb_capacity = erb_capacity
         self.seed = seed
-        self.engine = FleetEngine(dqn_cfg, device=device)  # one stacked cohort
+        mesh = make_fleet_mesh(devices, device=device) if devices else None
+        # one stacked cohort
+        self.engine = FleetEngine(dqn_cfg, device=device, mesh=mesh)
         self.agents = [
             DQNAgent(i, dqn_cfg, seed=seed + i, engine=self.engine)
             for i in range(n_agents)
@@ -816,9 +822,12 @@ class CentralAggregationSystem:
             agent._submit_steps(steps, erb, ())
             agent.personal_erbs.append(erb)
         # synchronous central aggregation (the bottleneck ADFLL removes):
-        # every agent's params are read before any are written
+        # every agent's params are read before any are written, and meet
+        # on the engine's first device (a mesh holds them on several)
+        home = self.engine.device
         mean_params = tree_map(
-            lambda *xs: sum(xs) / len(xs), *[a.params for a in agents]
+            lambda *xs: sum(x.to(home) for x in xs) / len(xs),
+            *[a.params for a in agents],
         )
         for a in agents:
             a.params = mean_params

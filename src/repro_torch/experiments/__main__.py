@@ -17,9 +17,12 @@ scenario).  ``--trace`` and ``--dashboard`` turn telemetry on
 (observe-only) and write each run's trace and observatory dashboard;
 with several scenarios the scenario's name goes before the extension.
 ``--devices N``/``--mesh`` set the scenario's ``fleet_devices`` as the
-reference's flags do; with at most one visible card that is the
-single-device run (``models/sharding.py::make_fleet_mesh``), and a mesh
-of several cards is not run yet (ROADMAP item 4).
+reference's flags do: the fleet engine shards its agents across up to N
+visible cards (``models/sharding.py::make_fleet_mesh``), and with at most
+one card, or with ``--device cpu``, the run is the single-device one.
+Either way the records are those of a run without the flag (losses
+within float32 rounding: each shard's stacked step sums over fewer
+agents).
 """
 
 from __future__ import annotations
@@ -74,9 +77,9 @@ def main(argv=None) -> int:
         default=None,
         metavar="N",
         help=(
-            "shard the fleet's agent axis across up to N local CUDA devices "
+            "shard the fleet's agent axis across up to N visible CUDA cards "
             "(-1 = all; rounded down to a power of two); with at most one "
-            "card this is the single-device run"
+            "card, or on the CPU, this is the single-device run"
         ),
     )
     ap.add_argument(

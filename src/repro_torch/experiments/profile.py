@@ -98,11 +98,16 @@ def _profile_steps(
     *,
     stats: bool = False,
     repeats: int = 10,
+    shards: int = 1,
 ) -> dict:
     """Stacked train steps alone: ``k_steps`` steps of ``n_agents`` agents
     on a random pool of valid rows, after one warm-up chunk; the median
     unprofiled wall of ``repeats`` chunks.  ``stats`` profiles the
-    observatory's chunk (``train_chunk_stats``) instead."""
+    observatory's chunk (``train_chunk_stats``) instead.  ``shards`` > 1
+    splits the agents as a fleet mesh of that many entries on this one
+    card does (agent i in shard i % shards): one chunk per shard on its
+    rows and its slice of the indices, the outputs concatenated on the
+    card, as a sharded ``FleetEngine`` flush runs them."""
     rng = np.random.default_rng(0)
     steps = FleetSteps(cfg, "cuda")
     slots = [steps.init_slot(seed) for seed in range(n_agents)]
@@ -116,13 +121,27 @@ def _profile_steps(
         rng.integers(0, rows, (k_steps, n_agents, cfg.batch_size)).astype(np.int32)
     ).cuda()
     chunk = steps.train_chunk_stats if stats else steps.train_chunk
-    _timed(lambda: chunk(state, pool, idx))  # warm-up
-    plain = [_timed(lambda: chunk(state, pool, idx))[1] for _ in range(repeats)]
+    parts = [
+        (
+            state.map(lambda x, j=j: x[j::shards].contiguous()),
+            idx[:, j::shards].contiguous(),
+        )
+        for j in range(shards)
+    ]
+
+    def run():
+        if shards == 1:
+            return chunk(state, pool, idx)
+        return torch.cat([chunk(s, pool, i)[1] for s, i in parts], 1)
+
+    _timed(run)  # warm-up
+    plain = [_timed(run)[1] for _ in range(repeats)]
     with profile(activities=ACTIVITIES) as prof:
-        _, wall_s = _timed(lambda: chunk(state, pool, idx))
+        _, wall_s = _timed(run)
     dev = device_summary(prof, wall_s)
     return {
         "agents": n_agents,
+        "shards": shards,
         "steps": k_steps,
         "stats": stats,
         "plain_wall_ms_per_step": statistics.median(plain) / k_steps * 1e3,

@@ -10,11 +10,13 @@ planner (``launch/dryrun.py``) reads them to size each leaf per card.  A
 ``PartitionSpec`` is a plain tuple with one entry per dimension: ``None``,
 an axis name, or a tuple of axis names.
 
-The fleet's mesh (:func:`make_fleet_mesh`) keeps the reference's rule:
-``None`` when at most one device would join, and every caller then runs
-the single-device path.  Executing on a mesh of several cards
-(``hoist_constrain``, ``act_spec``, ``constrain`` and ``FleetSharding``
-in the reference) waits for ROADMAP item 4, the multi-GPU fleet axis.
+The fleet's mesh (:class:`FleetMesh`, :func:`make_fleet_mesh`) keeps the
+reference's rule: ``None`` when at most one device would join, and every
+caller then runs the single-device path; otherwise a 1-D mesh whose
+devices each hold a shard of the fleet engine's stacked agent axis
+(:class:`FleetSharding` says which).  The zoo's in-model constraints
+(``hoist_constrain``, ``act_spec``, ``constrain`` in the reference) are
+not ported: they only run under a multi-card mesh of the model's own.
 """
 
 from __future__ import annotations
@@ -220,29 +222,136 @@ def cache_shardings(tree, mesh_shape: dict[str, int], policy: ShardingPolicy):
 # ---------------------------------------------------------------------------
 # Fleet-axis mesh
 # ---------------------------------------------------------------------------
-def make_fleet_mesh(n_devices: int | None = None, *, axis: str = FLEET):
-    """The reference's fleet mesh rule over the visible CUDA devices.
+@dataclass(frozen=True)
+class FleetMesh:
+    """A 1-D device mesh for the fleet's stacked agent axis: the
+    counterpart of the reference's 1-D ``jax.sharding.Mesh``.
 
-    ``n_devices`` caps how many join (``None``/``-1`` = all of them).
-    Returns ``None`` when at most one device would join, and callers then
-    stay on the single-device path (so, as in the reference, the call is
-    safe on any host with at most one card).  A mesh of several cards
-    (the count rounded down to a power of two) is not run yet: ROADMAP
-    item 4."""
-    count = torch.cuda.device_count()
+    ``devices`` holds one entry per shard and may repeat a device: a
+    mesh of ``(torch.device("cpu"),) * 8`` or ``(cuda:0,) * 4`` runs
+    every part of the sharded path (the partition of slots, per-shard
+    launches, gathers and scatters) on one device, which is how the
+    tests and ``chip_smoke.py`` run it without several cards.  The size
+    is a power of two, so the engine's pow2 capacities always divide
+    it, and every device is of one type.  :func:`make_fleet_mesh` never
+    builds a mesh of one device; the fleet engine keeps one internally
+    for its single-device path."""
+
+    devices: tuple[torch.device, ...]
+    axis: str = FLEET
+
+    def __post_init__(self):
+        devices = tuple(torch.device(d) for d in self.devices)
+        object.__setattr__(self, "devices", devices)
+        n = len(devices)
+        if n == 0 or n & (n - 1):
+            raise ValueError(f"fleet mesh size must be a power of two, not {n}")
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"a fleet mesh holds one type of device, not {devices}")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_fleet_mesh(
+    n_devices: int | None = None,
+    *,
+    axis: str = FLEET,
+    device: str | torch.device | None = None,
+) -> FleetMesh | None:
+    """A 1-D mesh of the devices that ``device`` names, for the fleet's
+    stacked agent axis: the reference's rule over them.
+
+    ``device`` is the caller's device (``None`` = CUDA, as everywhere in
+    the port): ``cuda`` names every visible card, ``cuda:i`` only card
+    i, and ``cpu`` no card, so a CPU caller never gets a mesh.
+    ``n_devices`` caps how many join (``None``/``-1`` = all of them);
+    the count is rounded down to a power of two.  Returns ``None`` when
+    at most one device would join, and callers then stay on the
+    single-device path, so the call is safe on any host.  Nothing is
+    allocated on the cards."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        count = 0
+    elif dev.index is not None:
+        count = 1
+    else:
+        count = torch.cuda.device_count()
     n = count if n_devices is None or n_devices < 0 else n_devices
     n = min(n, count)
     if n <= 1:
         return None
     n = 1 << (n.bit_length() - 1)  # pow2 floor
-    raise NotImplementedError(
-        f"a {axis!r} mesh of {n} CUDA devices: the multi-GPU fleet axis is "
-        "ROADMAP item 4 and not ported yet"
-    )
+    return FleetMesh(tuple(torch.device("cuda", i) for i in range(n)), axis)
+
+
+@dataclass(frozen=True)
+class FleetSharding:
+    """Where each slot of the fleet engine's stacked agent axis lives on
+    a :class:`FleetMesh`: slot ``i`` is row ``i // n`` of shard
+    ``i % n``, held by ``mesh.devices[i % n]``.
+
+    The reference shards its capacity in contiguous blocks (``P(axis)``),
+    so a slot's device there depends on the capacity and moves when the
+    resident axis grows.  Round-robin placement gives each slot one
+    device for its whole life: growth appends rows to every shard and
+    moves no slot, so an agent's evaluation, its ERB copies and the
+    serving snapshot never follow a moved slot.  The per-slot numbers
+    are the same either way: no computation crosses slots."""
+
+    mesh: FleetMesh
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return self.mesh.devices
+
+    def shard_of(self, slot: int) -> int:
+        return slot % self.mesh.size
+
+    def row_of(self, slot: int) -> int:
+        return slot // self.mesh.size
+
+    def device_of(self, slot: int) -> torch.device:
+        return self.mesh.devices[slot % self.mesh.size]
+
+    def groups(self, slots) -> list[tuple[int, list[int], list[int]]]:
+        """``(shard, positions, rows)`` for each shard that holds some of
+        ``slots``, in shard order: ``positions`` index ``slots``, and
+        ``rows`` are those slots' rows within the shard, in the same
+        order."""
+        n = self.mesh.size
+        by: dict[int, tuple[list[int], list[int]]] = {}
+        for pos, slot in enumerate(slots):
+            positions, rows = by.setdefault(slot % n, ([], []))
+            positions.append(pos)
+            rows.append(slot // n)
+        return [(j, *by[j]) for j in sorted(by)]
+
+    def take(self, x: torch.Tensor, shard: int) -> torch.Tensor:
+        """Shard ``shard``'s ``[capacity // n, ...]`` rows of a stacked
+        ``[capacity, ...]`` tensor in slot order, on its device."""
+        n = self.mesh.size
+        dev = self.mesh.devices[shard]
+        return x.to(dev) if n == 1 else x[shard::n].to(dev).contiguous()
+
+    def gather(self, parts) -> torch.Tensor:
+        """The inverse of :meth:`take`: every shard's rows interleaved
+        back into slot order, on the mesh's first device."""
+        if len(parts) == 1:
+            return parts[0]
+        home = self.mesh.devices[0]
+        return torch.stack([p.to(home) for p in parts], 1).flatten(0, 1)
 
 
 __all__ = [
     "FLEET",
+    "FleetMesh",
+    "FleetSharding",
     "ShardingPolicy",
     "axis_size",
     "cache_pspec",

@@ -29,7 +29,7 @@ the slot through the engine.
 from __future__ import annotations
 
 from collections.abc import Sequence
-from dataclasses import dataclass
+from dataclasses import InitVar, dataclass
 
 import numpy as np
 import torch
@@ -51,7 +51,10 @@ class DQNAgent:
     passes one so the whole fleet trains in batched flushes) or of a
     private single-slot engine built on ``device`` (``None`` = CUDA).
     The stepwise backend always builds its own; ``n_picks_gathered``
-    counts the ``replay_gather`` launches its steps made.
+    counts the ``replay_gather`` launches its steps made.  After
+    construction ``agent.device`` is the device of the agent's slot, read
+    from the engine (on a mesh, the slot's shard's device): evaluation
+    and the stepwise ERB copies run there.
     """
 
     agent_id: int
@@ -60,18 +63,17 @@ class DQNAgent:
     speed: float = 1.0  # relative hardware speed (sim time)
     backend: str = "fleet"
     engine: FleetEngine | None = None
-    device: str | torch.device | None = None
+    device: InitVar[str | torch.device | None] = None
 
-    def __post_init__(self):
+    def __post_init__(self, device):
         if self.backend not in ("fleet", "stepwise"):
             raise ValueError(f"unknown backend: {self.backend!r}")
         if self.backend == "stepwise" and self.engine is not None:
             raise ValueError("the stepwise backend keeps its own state: no engine")
         if self.engine is None:
-            self.engine = FleetEngine(self.cfg, device=self.device)
+            self.engine = FleetEngine(self.cfg, device=device)
         elif self.engine.cfg != self.cfg:
             raise ValueError("shared FleetEngine built for a different config")
-        self.device = self.engine.device
         self.slot = self.engine.add_slot(self.seed)
         self.rng = np.random.default_rng(abs(self.seed + 1000 * self.agent_id))
         self.step_count = 0
@@ -288,3 +290,8 @@ class DQNAgent:
             if done.all():
                 break
         return float(env.dist(locs).mean())
+
+
+# the slot's device, read from the engine on every use (a property set
+# after the dataclass is built, so ``device`` stays an init argument)
+DQNAgent.device = property(lambda self: self.engine.slot_device(self.slot))

@@ -23,26 +23,41 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   params-finite flag into one tensor, so the flush still makes one
   host transfer.
 * :class:`CollectSteps` / :func:`collect_fleet` — the collection phase:
-  one stacked q-value forward per environment step for a cohort, with
-  epsilon-greedy sampling on the host consuming each agent's own rng in
-  the reference order.
+  one stacked q-value forward per environment step for a cohort (one
+  per shard on a mesh), with epsilon-greedy sampling on the host
+  consuming each agent's own rng in the reference order.
 * :class:`FleetEngine` — the host-side orchestrator: slots in a pow2
   capacity with inert dead rows, a lazy job queue, flush-on-read, the
-  ``(erb_id, version)``-keyed LRU device cache of flattened ERBs with a
-  byte budget, the resident fast path, and futures that resolve in
-  submission order.  :meth:`FleetEngine.train_step` is the stepwise
-  backend's one-step dispatch on the same state and cache.  With an
-  observatory attached, flushes run the stats chunk and drain it into
-  the observatory at the flush's one host sync; with enabled telemetry
-  they record the flush span and counters.
+  ``(erb_id, version)``-keyed LRU cache of flattened ERBs on each device
+  with a byte budget per device, the resident fast path, and futures
+  that resolve in submission order.  :meth:`FleetEngine.train_step` is
+  the stepwise backend's one-step dispatch on the same state and cache.
+  With an observatory attached, flushes run the stats chunk and drain it
+  into the observatory at the flush's one host sync; with enabled
+  telemetry they record the flush span and counters.
 * :class:`ActSteps` / :func:`make_act_steps` — the serving plane's
   batched greedy-act program: each request gathers its own parameter
   row and the batch runs as one stacked forward.
 
+Fleet-axis sharding: given a 1-D device mesh
+(:func:`repro_torch.models.sharding.make_fleet_mesh`, or a
+:class:`~repro_torch.models.sharding.FleetMesh` built by hand), the
+engine partitions the stacked agent axis across the mesh's devices, slot
+``i`` on ``devices[i % n]`` (:class:`~repro_torch.models.sharding.FleetSharding`).
+Each shard is a :class:`FleetState` of its own on its device.  A flush
+runs the single-device chunk once per shard that has jobs, on that
+shard's rows, that device's copy of the replay pool (the reference's
+replicated pool) and the shard's slice of the index tensor: per stacked
+step, ``replay_gather`` and ``fused_td`` launch once per such shard, on
+its device.  Nothing crosses shards inside a chunk, as in the reference.
+The shards' losses (and statistics) meet on the mesh's first device and
+come to the host in one copy.  A mesh may repeat a device, which runs
+every part of this path on one card (or on the CPU); copies between
+cards and overlap across them need a host with several.
+
 State updates are functional (new tensors, never writes into the
 resident ones), so a tensor handed out by ``get_params`` or
-``stacked_params`` stays a valid snapshot.  Waiting for a later slice
-of the port: mesh sharding of the agent axis.
+``stacked_params`` stays a valid snapshot.
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ from repro_torch.core.erb import ERB, erb_add, erb_flatten, flat_columns, flat_w
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_td import td_loss
 from repro_torch.kernels.replay_gather import replay_gather
+from repro_torch.models.sharding import FleetMesh, FleetSharding
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
 from repro_torch.rl.dqn import dqn_apply_stacked, dqn_init
 from repro_torch.telemetry import NULL
@@ -270,14 +286,16 @@ class CollectSteps:
 
 def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
     """Collect one round of experience for a cohort of fleet agents:
-    one stacked q-value forward per environment step for the cohort.
+    one stacked q-value forward per environment step for the cohort, or
+    on a mesh one per shard that holds cohort agents, on its device.
 
     ``agents[i]`` rolls ``n_episodes`` episodes in ``envs[i]``, appending
     transitions to ``erbs[i]``.  Every epsilon-greedy draw
     (``start_locs``, action integers, exploration coins) comes from that
     agent's own ``np.random.Generator`` in the reference's order; agents
     whose episodes all finish early stop consuming their rng and stop
-    writing their ERB.
+    writing their ERB.  The shards' q-values meet on the engine's first
+    device and come to the host in one copy a step.
     """
     if not agents:
         return
@@ -285,40 +303,60 @@ def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
     cfg = agents[0].cfg
     steps = CollectSteps(cfg)
     n = len(agents)
-    stacked = engine.slot_params([a.slot for a in agents])
+    parts = engine.slot_params([a.slot for a in agents])
     box = cfg.box_size
     b = n_episodes
     locs = np.stack([env.start_locs(b, a.rng) for a, env in zip(agents, envs)])
     alive = np.ones((n, b), bool)
-    obs_buf = np.zeros((n, b, *box), np.float32)
-    loc_buf = np.zeros((n, b, 3), np.float32)
+    # each part's host staging; lane[i] = (part, row in it) of agent i
+    bufs = [
+        (
+            np.zeros((len(pos), b, *box), np.float32),
+            np.zeros((len(pos), b, 3), np.float32),
+        )
+        for _, pos, _ in parts
+    ]
+    lane = {}
+    offset = 0
+    for p, (_, pos, _) in enumerate(parts):
+        for r, i in enumerate(pos):
+            lane[i] = (p, r, offset + r)
+        offset += len(pos)
     for _ in range(cfg.max_episode_steps):
         live = [i for i in range(n) if alive[i].any()]
         if not live:
             break
         for i in live:
-            obs_buf[i] = envs[i].observe(locs[i])
-            loc_buf[i] = envs[i].norm_loc(locs[i])
-        q = steps.qvals(
-            stacked,
-            torch.from_numpy(obs_buf).to(engine.device),
-            torch.from_numpy(loc_buf).to(engine.device),
-        )
-        q = q.cpu().numpy()
+            p, r, _ = lane[i]
+            bufs[p][0][r] = envs[i].observe(locs[i])
+            bufs[p][1][r] = envs[i].norm_loc(locs[i])
+        qs = [
+            steps.qvals(
+                stacked, torch.from_numpy(obs).to(dev), torch.from_numpy(loc).to(dev)
+            )
+            for (dev, _, stacked), (obs, loc) in zip(parts, bufs)
+        ]
+        if len(qs) == 1:
+            q = qs[0].cpu().numpy()
+        else:
+            home = engine.device
+            q = torch.cat([x.to(home, non_blocking=True) for x in qs]).cpu().numpy()
         for i in live:
             agent, env, erb = agents[i], envs[i], erbs[i]
+            p, r, row = lane[i]
+            obs_i, loc_i = bufs[p][0][r], bufs[p][1][r]
             eps = agent.epsilon()
-            greedy = q[i].argmax(-1)
+            greedy = q[row].argmax(-1)
             rand = agent.rng.integers(0, cfg.n_actions, size=b)
             coin = agent.rng.random(b) < eps
             acts = np.where(coin, rand, greedy).astype(np.int32)
-            new, r, done = env.step(locs[i], acts)
+            new, rew, done = env.step(locs[i], acts)
             idx = np.where(alive[i])[0]
             batch = {
-                "obs": obs_buf[i][idx],
-                "loc": loc_buf[i][idx],
+                "obs": obs_i[idx],
+                "loc": loc_i[idx],
                 "action": acts[idx],
-                "reward": r[idx],
+                "reward": rew[idx],
                 "next_obs": env.observe(new[idx]),
                 "next_loc": env.norm_loc(new[idx]),
                 "done": done[idx].astype(np.float32),
@@ -452,28 +490,38 @@ ERB_CACHE_BYTES = 256 * 1024**2
 
 
 class FleetEngine:
-    """Host-side orchestrator of one stacked fleet on one device.
+    """Host-side orchestrator of one stacked fleet, on one device or
+    sharded over a device mesh.
 
     Slots are added per agent; training rounds are *submitted* as jobs
     (pure index plans — no data moves) and executed lazily: any read or
     write of a slot's state forces a flush, and a flush trains **all**
-    pending jobs in one stacked chunk per distinct K.  Futures resolve in
-    submission order, so deferred bookkeeping (round records) lands in
-    the same order as sequential execution.
+    pending jobs in one stacked chunk per distinct K (per shard on a
+    mesh).  Futures resolve in submission order, so deferred bookkeeping
+    (round records) lands in the same order as sequential execution.
 
-    The resident slot axis is padded to a pow2 ``capacity``: rows past
-    ``n_slots`` are *dead* — inert copies that are never read and get
-    overwritten when a slot is added, so growth does not force a flush
-    while capacity is spare.  A flush whose jobs cover every resident
-    row in order passes the resident state straight through the chunk
-    (no gather in, no scatter out); any other flush gathers the slots of
-    its jobs, and only those, and scatters them back.  Cohorts and flushes
-    are not padded: eager PyTorch compiles nothing per shape.
+    The resident slot axis is padded to a pow2 ``capacity`` (at least
+    the mesh's size): rows past ``n_slots`` are *dead* — inert copies
+    that are never read and get overwritten when a slot is added, so
+    growth does not force a flush while capacity is spare.  With a
+    ``mesh`` (:class:`~repro_torch.models.sharding.FleetMesh`), slot
+    ``i`` is row ``i // n`` of shard ``i % n`` on ``mesh.devices[i % n]``
+    (``self.sharding``), each shard a :class:`FleetState` on its device,
+    and ``device`` is the mesh's first device, where the publish
+    snapshot and the flush's host copy meet; a mesh of another device
+    type than ``device`` is refused.  Without one the engine holds one
+    shard on ``device``.  A shard whose flush jobs cover its rows in
+    order passes its resident state straight through the chunk (no
+    gather in, no scatter out); any other shard with jobs gathers the
+    rows of its jobs, and only those, and scatters them back.  Cohorts
+    and flushes are not padded: eager PyTorch compiles nothing per
+    shape.
 
-    ``n_chunk_steps`` counts stacked train steps: each launches the
-    ``replay_gather`` kernel once (the minibatch rows of every agent) and
-    the ``fused_td`` kernel once (the TD tail of every agent), with the
-    observatory on as well as off.
+    ``n_chunk_steps`` counts stacked train steps and ``n_shard_steps``
+    the per-shard steps they ran: each of those launches the
+    ``replay_gather`` kernel once (the minibatch rows of the shard's
+    agents) and the ``fused_td`` kernel once (their TD tail), with the
+    observatory on as well as off.  Without a mesh the two are equal.
 
     The owning system (``ADFLLSystem``, a serving session) replaces
     ``telemetry``, ``sim_clock`` and ``observatory`` after construction;
@@ -482,26 +530,71 @@ class FleetEngine:
     ``observatory.on_flush`` at the flush's one host sync.
     """
 
-    def __init__(self, cfg: DQNConfig, *, device: str | torch.device | None = None):
+    def __init__(
+        self,
+        cfg: DQNConfig,
+        *,
+        device: str | torch.device | None = None,
+        mesh: FleetMesh | None = None,
+    ):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
+        if mesh is not None and mesh.devices[0].type != dev.type:
+            raise ValueError(
+                f"a fleet mesh of {mesh.devices[0].type} devices for a "
+                f"{dev.type} caller"
+            )
+        self.mesh = mesh
+        self.sharding = FleetSharding(mesh if mesh is not None else FleetMesh((dev,)))
+        self.device = self.sharding.devices[0]
         self.steps = FleetSteps(cfg, self.device)
-        self.state: FleetState | None = None
+        self._shards: list[FleetState] | None = None
         self.n_slots = 0
-        self.capacity = 0  # resident rows (pow2; >= n_slots)
+        self.capacity = 0  # resident rows (pow2, >= mesh size; >= n_slots)
         self._pending: list[_Job] = []
         self._pending_slots: set = set()
-        self._erb_cache: OrderedDict[tuple[str, int], torch.Tensor] = OrderedDict()
-        self._erb_cache_nbytes = 0
+        # per device: (erb_id, version) -> flat ERB, LRU order; bytes held
+        self._erb_cache: dict[torch.device, OrderedDict] = {}
+        self._erb_cache_nbytes: dict[torch.device, int] = {}
         # flush statistics
         self.n_flushes = 0
         self.n_steps_trained = 0
         self.n_chunk_steps = 0
+        self.n_shard_steps = 0
         self.flush_sizes: list[int] = []
         # observability (observe-only)
         self.telemetry = NULL
         self.sim_clock: Callable[[], float] | None = None
         self.observatory = None
+
+    # -- resident state ---------------------------------------------------------
+    @property
+    def state(self) -> FleetState | None:
+        """Every resident row in slot order: the one shard itself without
+        a mesh, else the shards' rows gathered onto ``device`` (a copy)."""
+        if self._shards is None or len(self._shards) == 1:
+            return None if self._shards is None else self._shards[0]
+        gather = self.sharding.gather
+        return self._shards[0].map(lambda *xs: gather(xs), *self._shards[1:])
+
+    @state.setter
+    def state(self, value: FleetState) -> None:
+        take = self.sharding.take
+        self._shards = [
+            value.map(lambda x, j=j: take(x, j)) for j in range(self.sharding.size)
+        ]
+
+    def slot_device(self, slot: int) -> torch.device:
+        """The device that holds ``slot``'s state."""
+        return self.sharding.device_of(slot)
+
+    def _rows_per_shard(self) -> int:
+        return self.capacity // self.sharding.size
+
+    def _locate(self, slot: int) -> tuple[int, int, torch.device]:
+        sh = self.sharding
+        j = sh.shard_of(slot)
+        return j, sh.row_of(slot), sh.devices[j]
 
     # -- slots ---------------------------------------------------------------
     def add_slot(self, seed: int) -> int:
@@ -510,18 +603,27 @@ class FleetEngine:
         if slot < self.capacity:
             # reuse a dead row: live rows are untouched, so jobs already
             # queued for other slots keep batching (no flush)
-            at = torch.tensor([slot], device=self.device)
-            self.state = self.state.map(lambda s, v: s.index_copy(0, at, v), fresh)
+            j, row, dev = self._locate(slot)
+            at = torch.tensor([row], device=dev)
+            self._shards[j] = self._shards[j].map(
+                lambda s, v: s.index_copy(0, at, v.to(dev)), fresh
+            )
         else:
-            if self.state is not None:
+            if self._shards is not None:
                 self.flush()  # resident axis grows: retire pending jobs first
-            new_cap = _pow2(slot + 1)
-            # the dead tail holds copies of the fresh slot: inert rows
-            tail = fresh.map(lambda v: v.expand(new_cap - slot, *v.shape[1:]))
-            if self.state is None:
-                self.state = tail.map(torch.clone)
-            else:
-                self.state = self.state.map(lambda s, t: torch.cat([s, t]), tail)
+            new_cap = max(_pow2(slot + 1), self.sharding.size)
+            grow = (new_cap - self.capacity) // self.sharding.size
+            # every shard's new rows hold copies of the fresh slot: inert
+            # dead rows (the new slot is the first of shard 0's)
+            shards = []
+            for j, dev in enumerate(self.sharding.devices):
+                tail = fresh.map(lambda v, d=dev: v.to(d).expand(grow, *v.shape[1:]))
+                if self._shards is None:
+                    shards.append(tail.map(torch.clone))
+                else:
+                    grown = self._shards[j].map(lambda s, t: torch.cat([s, t]), tail)
+                    shards.append(grown)
+            self._shards = shards
             self.capacity = new_cap
         self.n_slots = slot + 1
         return slot
@@ -532,49 +634,67 @@ class FleetEngine:
         if slot in self._pending_slots:
             self.flush()
 
-    def _slot_tree(self, tree, slot: int):
-        return tree_map(lambda x: x[slot], tree)
+    def _slot_field(self, slot: int, field: str):
+        self.ensure_flushed(slot)
+        j, row, _ = self._locate(slot)
+        return tree_map(lambda x: x[row], getattr(self._shards[j], field))
 
     def get_params(self, slot: int) -> dict:
-        self.ensure_flushed(slot)
-        return self._slot_tree(self.state.params, slot)
+        return self._slot_field(slot, "params")
 
     def get_target(self, slot: int) -> dict:
-        self.ensure_flushed(slot)
-        return self._slot_tree(self.state.target, slot)
+        return self._slot_field(slot, "target")
+
+    def get_opt(self, slot: int) -> dict:
+        return self._slot_field(slot, "opt")
 
     def stacked_params(self) -> dict:
         """Flush-on-read snapshot of every live slot's params as one
-        stacked ``[n_slots, ...]`` tree: the serving plane's publish
-        path.  Every pending job trains first, so a snapshot never sees a
-        half-applied round; dead padding rows never leak (the slice stops
-        at ``n_slots``).  State updates are functional, so the snapshot
-        does not change when the engine trains on."""
+        stacked ``[n_slots, ...]`` tree on ``device``: the serving
+        plane's publish path (on a mesh, the one gather of the shards a
+        publish).  Every pending job trains first, so a snapshot never
+        sees a half-applied round; dead padding rows never leak (the
+        slice stops at ``n_slots``).  State updates are functional, so
+        the snapshot does not change when the engine trains on."""
         self.flush()
+        params = self.state.params
         if self.n_slots == self.capacity:
-            return self.state.params
-        return tree_map(lambda x: x[: self.n_slots], self.state.params)
+            return params
+        return tree_map(lambda x: x[: self.n_slots], params)
 
-    def slot_params(self, slots: Sequence[int]) -> dict:
-        """Stacked params of ``slots``, flushing only the touched slots'
-        pending work.  When the cohort covers every resident row in
-        order, the resident tensors are returned."""
+    def slot_params(
+        self, slots: Sequence[int]
+    ) -> list[tuple[torch.device, list[int], dict]]:
+        """Stacked params of ``slots`` per shard, flushing only the
+        touched slots' pending work: ``(device, positions, tree)`` for
+        each shard holding some of them, in shard order, ``positions``
+        indexing ``slots`` (one entry without a mesh).  A shard whose
+        rows the cohort covers in order hands out its resident
+        tensors."""
         for s in set(slots):
             self.ensure_flushed(s)
-        if list(slots) == list(range(self.capacity)):
-            return self.state.params
-        g = torch.tensor(list(slots), device=self.device)
-        return tree_map(lambda x: x.index_select(0, g), self.state.params)
+        rows_all = list(range(self._rows_per_shard()))
+        out = []
+        for j, positions, rows in self.sharding.groups(slots):
+            dev = self.sharding.devices[j]
+            params = self._shards[j].params
+            if rows != rows_all:
+                g = torch.tensor(rows, device=dev)
+                params = tree_map(lambda x: x.index_select(0, g), params)
+            out.append((dev, positions, params))
+        return out
 
     def _set_field(self, slot: int, field: str, value: dict) -> None:
         self.ensure_flushed(slot)
-        at = torch.tensor([slot], device=self.device)
+        j, row, dev = self._locate(slot)
+        at = torch.tensor([row], device=dev)
+        shard = self._shards[j]
         updated = tree_map(
-            lambda s, v: s.index_copy(0, at, v.to(s.device, s.dtype)[None]),
-            getattr(self.state, field),
+            lambda s, v: s.index_copy(0, at, v.to(dev, s.dtype)[None]),
+            getattr(shard, field),
             value,
         )
-        self.state = replace(self.state, **{field: updated})
+        self._shards[j] = replace(shard, **{field: updated})
 
     def set_params(self, slot: int, params: dict) -> None:
         self._set_field(slot, "params", params)
@@ -583,62 +703,67 @@ class FleetEngine:
         self._set_field(slot, "target", target)
 
     # -- replay pool ----------------------------------------------------------
-    def _flat_erb(self, erb: ERB) -> torch.Tensor:
-        """Device-resident [size, F] matrix of an ERB (LRU-cached; keyed
-        by (erb_id, version) so host-side ring appends invalidate; bounded
-        by entry count *and* total bytes)."""
+    def _flat_erb(self, erb: ERB, device: torch.device | None = None) -> torch.Tensor:
+        """The [size, F] matrix of an ERB on ``device`` (default: the
+        engine's first device).  LRU-cached per device, keyed by
+        (erb_id, version) so host-side ring appends invalidate, and
+        bounded on each device by entry count *and* total bytes: a pool
+        every shard reads costs its bytes on each device, as the
+        reference's replicated pool does."""
+        dev = self.device if device is None else device
+        cache = self._erb_cache.setdefault(dev, OrderedDict())
         key = (erb.meta.erb_id, erb.version)
-        hit = self._erb_cache.get(key)
+        hit = cache.get(key)
         if hit is not None:
-            self._erb_cache.move_to_end(key)
+            cache.move_to_end(key)
             self.telemetry.count("fleet.erb_cache.hits", 1)
             return hit
         self.telemetry.count("fleet.erb_cache.misses", 1)
-        flat = torch.from_numpy(erb_flatten(erb)).to(self.device)
-        self._erb_cache[key] = flat
-        self._erb_cache_nbytes += flat.numel() * flat.element_size()
-        while len(self._erb_cache) > 1 and (
-            len(self._erb_cache) > ERB_CACHE_SIZE
-            or self._erb_cache_nbytes > ERB_CACHE_BYTES
+        flat = torch.from_numpy(erb_flatten(erb)).to(dev)
+        cache[key] = flat
+        nbytes = self._erb_cache_nbytes.get(dev, 0) + flat.numel() * flat.element_size()
+        while len(cache) > 1 and (
+            len(cache) > ERB_CACHE_SIZE or nbytes > ERB_CACHE_BYTES
         ):
-            _, evicted = self._erb_cache.popitem(last=False)
-            self._erb_cache_nbytes -= evicted.numel() * evicted.element_size()
+            _, evicted = cache.popitem(last=False)
+            nbytes -= evicted.numel() * evicted.element_size()
             self.telemetry.count("fleet.erb_cache.evictions", 1)
+        self._erb_cache_nbytes[dev] = nbytes
         return flat
 
     # -- one step now (the stepwise backend) -----------------------------------
     def train_step(self, slot: int, plan) -> float:
-        """Train ``slot`` one step on ``plan`` now, in its own dispatch:
-        each of the plan's picks is gathered by ``replay_gather`` from its
-        ERB's device copy, the plan's shuffle is applied, and the slot
-        takes one stacked step at N = 1 (``fused_td`` for its TD tail).
-        Returns the step's loss (one host sync)."""
+        """Train ``slot`` one step on ``plan`` now, in its own dispatch on
+        the slot's device: each of the plan's picks is gathered by
+        ``replay_gather`` from its ERB's copy there, the plan's shuffle
+        is applied, and the slot takes one stacked step at N = 1
+        (``fused_td`` for its TD tail).  Returns the step's loss (one
+        host sync)."""
         self.ensure_flushed(slot)
+        j, row, dev = self._locate(slot)
         parts = []
         for erb, ridx in plan.picks:
-            flat = self._flat_erb(erb)
+            flat = self._flat_erb(erb, dev)
             ridx = np.asarray(ridx, np.int32)
             # the kernel does not bound-check: check on the host first
             if ridx.min() < 0 or ridx.max() >= flat.shape[0]:
                 raise IndexError(
                     f"replay row index out of range [0, {flat.shape[0]})"
                 )
-            idx = torch.from_numpy(ridx).to(self.device)
-            ones = torch.ones(len(ridx), dtype=torch.float32, device=self.device)
+            idx = torch.from_numpy(ridx).to(dev)
+            ones = torch.ones(len(ridx), dtype=torch.float32, device=dev)
             parts.append(replay_gather(flat, idx, ones))
-        perm = torch.from_numpy(np.asarray(plan.perm, np.int64)).to(self.device)
+        perm = torch.from_numpy(np.asarray(plan.perm, np.int64)).to(dev)
         rows = torch.cat(parts).index_select(0, perm)
-        at = torch.tensor([slot], device=self.device)
-        resident = self.capacity == 1
-        if resident:
-            sub = self.state
-        else:
-            sub = self.state.map(lambda x: x.index_select(0, at))
+        at = torch.tensor([row], device=dev)
+        shard = self._shards[j]
+        resident = self._rows_per_shard() == 1
+        sub = shard if resident else shard.map(lambda x: x.index_select(0, at))
         new, loss = self.steps.step(sub, rows[None])
         if resident:
-            self.state = new
+            self._shards[j] = new
         else:
-            self.state = self.state.map(lambda s, ns: s.index_copy(0, at, ns), new)
+            self._shards[j] = shard.map(lambda s, ns: s.index_copy(0, at, ns), new)
         self.n_steps_trained += 1
         return float(loss[0])
 
@@ -697,21 +822,18 @@ class FleetEngine:
         n_jobs = len(jobs)
         k_steps = jobs[0].n_steps
         batch = jobs[0].eidx.shape[1]
-        # one shared device pool: the union of every job's ERBs
+        # one pool, the union of every job's ERBs, copied to each device
+        # that trains some of the jobs
         offsets: dict[str, int] = {}
-        parts: list[torch.Tensor] = []
+        erbs: list[ERB] = []
         total = 0
         for job in jobs:
             for erb in job.erbs:
                 if erb.meta.erb_id not in offsets:
                     offsets[erb.meta.erb_id] = total
                     total += erb.size
-                    parts.append(self._flat_erb(erb))
-        pool = parts[0] if len(parts) == 1 else torch.cat(parts)
+                    erbs.append(erb)
         slots = [job.slot for job in jobs]
-        # resident fast path: the jobs cover every resident row in order,
-        # so the resident state IS the chunk operand
-        resident = slots == list(range(self.capacity))
         idx = np.empty((k_steps, n_jobs, batch), np.int32)
         for jpos, job in enumerate(jobs):
             base = np.array([offsets[e.meta.erb_id] for e in job.erbs], np.int32)
@@ -720,24 +842,47 @@ class FleetEngine:
         # here, on the host, before the transfer
         if idx.min() < 0 or idx.max() >= total:
             raise IndexError(f"replay row index out of range [0, {total})")
-        if resident:
-            sub = self.state
-        else:
-            g = torch.tensor(slots, device=self.device)
-            sub = self.state.map(lambda x: x.index_select(0, g))
-        idx_t = torch.from_numpy(idx).to(self.device)
         obs = self.observatory
-        if obs is None:
-            new, out = self.steps.train_chunk(sub, pool, idx_t)
-        else:
-            new, out = self.steps.train_chunk_stats(sub, pool, idx_t)
-        if resident:
-            self.state = new
-        else:
-            self.state = self.state.map(lambda s, ns: s.index_copy(0, g, ns), new)
+        chunk = self.steps.train_chunk if obs is None else self.steps.train_chunk_stats
+        rows_all = list(range(self._rows_per_shard()))
+        groups = self.sharding.groups(slots)
+        pools: dict[torch.device, torch.Tensor] = {}
+        outs = []
+        resident = True
+        for j, positions, rows in groups:
+            dev = self.sharding.devices[j]
+            pool = pools.get(dev)
+            if pool is None:
+                parts = [self._flat_erb(e, dev) for e in erbs]
+                pool = parts[0] if len(parts) == 1 else torch.cat(parts)
+                pools[dev] = pool
+            shard = self._shards[j]
+            # resident fast path: the shard's jobs cover its rows in
+            # order, so its resident state IS the chunk operand
+            whole = rows == rows_all
+            resident &= whole
+            if whole:
+                sub = shard
+            else:
+                g = torch.tensor(rows, device=dev)
+                sub = shard.map(lambda x: x.index_select(0, g))
+            idx_j = idx if len(groups) == 1 else np.ascontiguousarray(idx[:, positions])
+            new, out = chunk(sub, pool, torch.from_numpy(idx_j).to(dev))
+            if whole:
+                self._shards[j] = new
+            else:
+                self._shards[j] = shard.map(lambda s, ns: s.index_copy(0, g, ns), new)
+            outs.append(out)
         # the flush's one host sync: the losses, and with the observatory
-        # the statistics packed beside them
-        host = out.cpu().numpy()
+        # the statistics packed beside them, each shard's columns put
+        # back in job order
+        if len(outs) == 1:
+            host = outs[0].cpu().numpy()
+        else:
+            home = self.device
+            cols = torch.cat([o.to(home, non_blocking=True) for o in outs], 1)
+            order = np.argsort(np.concatenate([pos for _, pos, _ in groups]))
+            host = cols.cpu().numpy()[:, order]
         if obs is None:
             losses_np = host
         else:
@@ -748,6 +893,7 @@ class FleetEngine:
         self.n_flushes += 1
         self.n_steps_trained += n_jobs * k_steps
         self.n_chunk_steps += k_steps
+        self.n_shard_steps += k_steps * len(groups)
         self.flush_sizes.append(n_jobs)
         if tel.enabled:
             wall1 = tel.wall()
@@ -761,7 +907,7 @@ class FleetEngine:
                 k_steps=k_steps,
                 batch=batch,
                 pool_rows=total,
-                devices=1,
+                devices=self.sharding.size,
                 resident=resident,
             )
             if self.sim_clock is not None:

@@ -94,13 +94,15 @@ def build_session(
     device: str | torch.device | None = None,
 ) -> ServeSession:
     """Fleet + publisher + service on ``device`` (``None`` = the CUDA
-    card), params published once (version 0).  Enabled ``telemetry``
-    reaches the fleet and the service and brings the observatory, as in
-    ``ADFLLSystem`` (observe-only: the same results request by
-    request)."""
-    if devices:
-        make_fleet_mesh(devices)  # None on one card; raises for several
-    engine = FleetEngine(cfg, device=device)
+    card), params published once (version 0).  ``devices`` > 0 (or -1 =
+    all) shards the fleet axis across the cards ``device`` names
+    (:func:`repro_torch.models.sharding.make_fleet_mesh`; none with at
+    most one card); the service then serves each published snapshot from
+    the mesh's first card.  Enabled ``telemetry`` reaches the fleet and
+    the service and brings the observatory, as in ``ADFLLSystem``
+    (observe-only: the same results request by request)."""
+    mesh = make_fleet_mesh(devices, device=device) if devices else None
+    engine = FleetEngine(cfg, device=device, mesh=mesh)
     if telemetry is not None:
         engine.telemetry = telemetry
     agents = [

@@ -5,7 +5,9 @@ A :class:`ParamPublisher` sits between a *training*
 :class:`~repro_torch.serve.service.LocalizationService`. ``publish()``
 forces the engine's flush-on-read path (pending jobs train first, so a
 snapshot never observes a half-applied round) and stamps the stacked
-``[N, ...]`` parameter tree with a monotonically increasing version.
+``[N, ...]`` parameter tree with a monotonically increasing version.  On
+a sharded engine the snapshot is the shards' rows gathered onto the
+mesh's first device, once a publish, and the service serves from there.
 The service pulls ``latest`` between ticks and hot-swaps it into a free
 slot of its version ring; in-flight requests keep the version they were
 admitted on (FedAsync-style bounded staleness, applied to the inference

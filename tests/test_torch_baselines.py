@@ -268,16 +268,17 @@ def test_baseline_system_protocol_and_errors():
 
 
 def test_unported_options_and_spec_validation(monkeypatch):
-    # at most one card: devices resolve to no mesh and the single-device
-    # path runs, as in the reference; several cards are not ported yet
-    port_fed.CentralAggregationSystem(
-        2, CFG, paper_eight_tasks(), TRAIN_P, devices=2, device="cpu"
-    )
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_fed.CentralAggregationSystem(
+    # devices resolve over what the system's device names: a CPU cohort
+    # gets no mesh, whatever the cards, and runs the single-device
+    # engine, as in the reference; on the card the call names the cards
+    for count in (0, 2):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
+        fed = port_fed.CentralAggregationSystem(
             2, CFG, paper_eight_tasks(), TRAIN_P, devices=2, device="cpu"
         )
+        assert fed.engine.mesh is None and fed.engine.sharding.size == 1
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert port_fed.make_fleet_mesh(2, device="cuda").devices == cards
     monkeypatch.undo()
     serve = ScenarioSpec(name="s", system="serve", dqn=CFG)
     served = build(serve, device="cpu")

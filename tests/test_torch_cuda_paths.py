@@ -17,6 +17,9 @@ imports JAX, so the tests run where the card is.
   then the newest agent leaves; one ``replay_gather`` and one
   ``fused_td`` launch per stacked step, the CPU run's round metadata,
   round 0 within 1e-4.
+* the fleet axis on a mesh of ``cuda:0`` twice: one round of 4 slots
+  against the unsharded engine, params and losses within 1e-6, A and B
+  once per shard per stacked step.
 * serving: one train-while-serve session at ``max_batch=1`` and at
   ``max_batch=8`` on the card (identical seeds, so identical published
   versions): every request's final voxel, ticks and pinned version
@@ -64,7 +67,8 @@ from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.core.experiment import ChurnEvent, HubFailure  # noqa: E402
 from repro_torch.experiments import registry  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
-from repro_torch.core.erb import flat_columns  # noqa: E402
+from repro_torch.core.erb import TaskTag, erb_add, erb_init, flat_columns  # noqa: E402
+from repro_torch.core.replay import SelectiveReplaySampler  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
@@ -78,7 +82,8 @@ from repro_torch.models.model import (  # noqa: E402
     make_loss_fn,
 )
 from repro_torch.optim.adamw import leaves, tree_leaves  # noqa: E402
-from repro_torch.rl.fleet import FleetSteps, unpack_stats  # noqa: E402
+from repro_torch.models.sharding import FleetMesh  # noqa: E402
+from repro_torch.rl.fleet import FleetEngine, FleetSteps, unpack_stats  # noqa: E402
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
@@ -213,6 +218,57 @@ def test_batched_serving_matches_single_on_card(cuda):
     single, single_buckets, batched, batched_buckets = out
     assert single_buckets == {1} and max(batched_buckets) > 1
     assert single == batched and {v for *_, v in single} == {0, 1}
+
+
+@pytest.mark.cuda
+def test_sharded_engine_matches_unsharded_on_card(cuda):
+    """The fleet engine on a mesh of ``cuda:0`` twice against the
+    unsharded engine on the card, from the same init, after one round of
+    5 steps for 4 slots: params and losses within 1e-6; A and B launched
+    once per shard per stacked step, on that shard's operands."""
+    mesh = FleetMesh((torch.device("cuda", 0),) * 2)
+    engines = [
+        FleetEngine(TINY, device=cuda),
+        FleetEngine(TINY, device=cuda, mesh=mesh),
+    ]
+    rng = np.random.default_rng(0)
+    n = 128
+    erb = erb_init(n, TINY.box_size, task=TaskTag("t1", "axial", "HGG"))
+    erb_add(
+        erb,
+        {
+            "obs": rng.standard_normal((n, *TINY.box_size)).astype(np.float32),
+            "loc": rng.random((n, 3)).astype(np.float32),
+            "action": rng.integers(0, TINY.n_actions, n).astype(np.int32),
+            "reward": rng.standard_normal(n).astype(np.float32),
+            "next_obs": rng.standard_normal((n, *TINY.box_size)).astype(np.float32),
+            "next_loc": rng.random((n, 3)).astype(np.float32),
+            "done": (rng.random(n) < 0.1).astype(np.float32),
+        },
+    )
+    futures = []
+    for engine in engines:
+        for seed in range(4):
+            engine.add_slot(seed)
+        sampler = SelectiveReplaySampler()
+        jobs = []
+        for slot in range(4):
+            plan_rng = np.random.default_rng(10 + slot)
+            plans = [sampler.plan(plan_rng, TINY.batch_size, erb) for _ in range(5)]
+            jobs.append(engine.submit(slot, plans))
+        replay_gather.launches = fused_td.launches = 0
+        engine.flush()
+        torch.cuda.synchronize()
+        assert replay_gather.launches == fused_td.launches == engine.n_shard_steps
+        futures.append(jobs)
+    assert engines[1].n_shard_steps == 2 * engines[0].n_shard_steps == 10
+    for slot in range(4):
+        assert abs(futures[0][slot].loss - futures[1][slot].loss) <= 1e-6
+        assert engines[1].slot_device(slot) == torch.device("cuda", 0)
+        for a, b in zip(
+            leaves(engines[0].get_params(slot)), leaves(engines[1].get_params(slot))
+        ):
+            assert float((a - b).abs().max()) <= 1e-6
 
 
 def _td_inputs(rng, n, b, a, out_of_range, device):

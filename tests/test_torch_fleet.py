@@ -207,9 +207,11 @@ def test_erb_cache_keys_on_version_and_respects_byte_budget(monkeypatch):
     assert engine._flat_erb(erbs[0]) is first  # hit
     for e in erbs[1:]:
         engine._flat_erb(e)
-    assert len(engine._erb_cache) == 2  # the byte budget evicted the oldest
-    assert engine._erb_cache_nbytes == 2 * one
-    assert (erbs[0].meta.erb_id, erbs[0].version) not in engine._erb_cache
+    # one cache and one byte budget per device (here the engine's one)
+    cache = engine._erb_cache[engine.device]
+    assert len(cache) == 2  # the byte budget evicted the oldest
+    assert engine._erb_cache_nbytes[engine.device] == 2 * one
+    assert (erbs[0].meta.erb_id, erbs[0].version) not in cache
     stale = engine._flat_erb(erbs[1])
     # a host-side ring append (overwriting row 0) bumps the version
     erb_add(erbs[1], {k: v[:1] for k, v in erbs[2].data.items()})

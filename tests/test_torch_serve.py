@@ -22,6 +22,7 @@ torch.set_num_threads(1)
 
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.core.erb import TaskTag, erb_add, erb_init  # noqa: E402
+from repro_torch.models.sharding import make_fleet_mesh  # noqa: E402
 from repro_torch.optim.adamw import leaves  # noqa: E402
 from repro_torch.rl.agent import DQNAgent  # noqa: E402
 from repro_torch.rl.dqn import dqn_init  # noqa: E402
@@ -434,12 +435,17 @@ def test_run_session_serves_across_a_swap():
 
 def test_session_refuses_what_is_not_ported(monkeypatch):
     traffic = TrafficSpec(n_requests=4)
-    # at most one card: no mesh, the single-device session (the reference's
-    # rule); a mesh of several cards is not ported yet
-    build_session(CFG, n_agents=1, traffic=traffic, devices=2, device="cpu")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        build_session(CFG, n_agents=1, traffic=traffic, devices=2, device="cpu")
+    # devices resolve over what the session's device names: a CPU session
+    # gets no mesh, whatever the cards (the reference's rule); on the card
+    # the call names the cards
+    for count in (0, 2):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
+        session = build_session(
+            CFG, n_agents=1, traffic=traffic, devices=2, device="cpu"
+        )
+        assert session.engine.mesh is None and session.engine.sharding.size == 1
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert make_fleet_mesh(2, device="cuda").devices == cards
     monkeypatch.undo()
 
     # enabled telemetry is ported: the session's fleet gets the

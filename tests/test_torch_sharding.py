@@ -195,11 +195,15 @@ def test_make_fleet_mesh_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert sharding.make_fleet_mesh(-1) is None
     assert sharding.make_fleet_mesh(8) is None
-    # more than one card: the multi-GPU axis (ROADMAP item 4) is not run
+    # more than one card: a mesh of the cards, floored to a power of two;
+    # naming them touches no card (this torch has no CUDA to allocate on)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     assert sharding.make_fleet_mesh(1) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        sharding.make_fleet_mesh(-1)
+    mesh = sharding.make_fleet_mesh(-1)
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert mesh.size == 2 and mesh.axis == sharding.FLEET
+    # a CPU caller never gets one
+    assert sharding.make_fleet_mesh(-1, device="cpu") is None
 
 
 def test_cli_mesh_flags_give_the_single_device_records(tmp_path, capsys):

@@ -33,6 +33,7 @@ from repro_torch.core.federated import ADFLLSystem  # noqa: E402
 from repro_torch.experiments import __main__ as cli  # noqa: E402
 from repro_torch.experiments import registry  # noqa: E402
 from repro_torch.experiments.runner import run  # noqa: E402
+from repro_torch.models.sharding import make_fleet_mesh  # noqa: E402
 from repro_torch.rl.synth import paper_eight_tasks, patient_split  # noqa: E402
 
 # the tiny library config of .claude/skills/verify/SKILL.md
@@ -96,14 +97,17 @@ def test_system_matches_reference():
 
 def test_unported_options_raise(monkeypatch):
     cfg = DQNConfig(**DQN_KW)
-    # at most one card: fleet_devices resolve to no mesh and the run is the
-    # single-device one (the reference's rule); several cards are not
-    # ported yet
+    # fleet_devices resolve over the devices the system's device names: a
+    # CPU system gets no mesh, whatever the cards, and runs the
+    # single-device engine (the reference's rule); on the card the same
+    # call names the visible cards
     sharded = ADFLLConfig(**SYS_KW, fleet_devices=2)
-    ADFLLSystem(sharded, cfg, paper_eight_tasks(), TRAIN_P, device="cpu")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ADFLLSystem(sharded, cfg, paper_eight_tasks(), TRAIN_P, device="cpu")
+    for count in (0, 2):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
+        system = ADFLLSystem(sharded, cfg, paper_eight_tasks(), TRAIN_P, device="cpu")
+        assert system.engine.mesh is None and system.engine.sharding.size == 1
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert make_fleet_mesh(2, device="cuda").devices == cards
     monkeypatch.undo()
     port = ADFLLSystem(
         ADFLLConfig(**SYS_KW), cfg, paper_eight_tasks(), TRAIN_P, device="cpu"
