@@ -209,9 +209,10 @@ non-zero exit code and no result line:
    part of the sharded path on the one card (not copies between cards,
    nor overlap across them).  ``paper_fig2 --fast`` at ``DQNConfig()``
    through ``ADFLLSystem`` with ``make_fleet_mesh`` giving that mesh for
-   this run alone: the main phase's round records but the loss, each
-   round's loss within 1e-5, every slot's params after the first flush
-   within 1e-6, ``mean_dist_err`` within 1e-4; A and B launched once per
+   this run alone: the main phase's round records, each round's loss
+   and every slot's params after the first flush bit for bit (one agent
+   a shard trains as two lanes, so its convolution is the unsharded
+   one's grouped convolution), ``mean_dist_err`` within 1e-4; A and B launched once per
    shard with jobs per stacked step (``n_shard_steps``: 3 x 80 for its 3
    agents on 4 shards, one of them idle); training and
    evaluation walls and a stacked step's device time and operations
@@ -220,6 +221,23 @@ non-zero exit code and no result line:
    step; numbers, not a claim).  Phase 12 (b)'s batched session on the
    mesh: every request's voxel, ticks and version those of the
    unsharded session, A = B = 20 x 4 shard steps.
+24. moe_ep (after zoo_window) — expert-parallel MoE through a one-rank
+   NCCL group and its ``(data 1, model 1)`` ``DeviceMesh``
+   (``launch/mesh.py::one_rank_device_mesh``, torn down after the
+   phase).  (a) qwen3-moe-235b-a22b at full width and zoo_main's 8 of 94
+   layers through ``Model(mesh=)`` against the mesh-less model on the
+   same params: the prefill's last logits and 4 decode steps' logits
+   bit for bit (model 1 takes the local path, as in the reference); D
+   once an attention layer a prefill (two prefills: 16), C a norm per
+   mixer, per FFN and the final one, x 6 (102).  (b) the per-shard body
+   forced past ``moe_apply``'s routing at n_model = 1 on one layer at
+   full width (E 128, top-k 8, d_ff_expert 1536, bf16): train at T =
+   4000 (the all-to-all branch) and decode at T = 4 (the psum branch),
+   ``y`` and the router loss bit for bit the local path's; the layer's
+   time both ways and each NCCL collective's time and bytes (CUDA
+   events).  Ranks past one need cards this machine does not have: the
+   multi-rank proof is ``tests/test_torch_moe_ep.py``, over gloo on the
+   CPU.
 
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -227,7 +245,7 @@ reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 paths (main, baselines, sweep, topology, population, serve, fleet_mesh,
 table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
-lm_train_main, zoo_main for each arch, zoo_window and examples); the
+lm_train_main, zoo_main for each arch, zoo_window, moe_ep and examples); the
 planner path launches none.  Every entry carries ``launches_by_path``
 and ``launches`` is its sum.
 """
@@ -252,6 +270,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -287,7 +306,11 @@ from repro_torch.kernels.replay_gather import (  # noqa: E402
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.launch import dryrun, profile_serve, serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    PEAK_FLOPS_BF16,
+    make_local_mesh,
+    one_rank_device_mesh,
+)
 from repro_torch.models import model as model_module  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
@@ -339,6 +362,12 @@ ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
 # zoo_main's cuts (launch/profile_serve.py): deepseek-v2-lite at prompt
 # 480, qwen3-moe at 8 of its 94 layers, jamba-1.5-large at 4 of its 72
 ZOO_PROMPTS, ZOO_LAYERS = profile_serve.PROMPTS, profile_serve.LAYERS
+# moe_ep: qwen3-moe through Model(mesh=) on a one-rank (data, model) mesh,
+# (a) at zoo_main's depth and (b) one layer's per-shard body at these T
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_EP_GEN = 4
+MOE_EP_TOKENS = {"train": 4000, "decode": 4}
+MOE_EP_TOL = 0.0  # (b) against the local path: the same products, one rank
 # zoo_window: danube's window handoff, a prompt past 4096 and no multiple of it
 WINDOW_PROMPT, WINDOW_GEN = 4100, 8
 # zoo_main's float32 decode check of the MoE archs: full width, the depth
@@ -1481,11 +1510,14 @@ def phase_serve(dev) -> tuple[dict[str, int], list]:
     return total, batched["per_request"]
 
 
-# the fleet_mesh phase's tolerances, sharded against unsharded on the card:
-# a shard's stacked step convolves fewer agents in one grouped convolution,
-# which may sum in another order
-MESH_LOSS_TOL = 1e-5  # each round's loss
-MESH_PARAMS_TOL = 1e-6  # every slot's params after the first flush
+# the fleet_mesh phase's tolerances, sharded against unsharded on the card.
+# paper_fig2's 3 agents on 4 shards put one agent on a shard, which trains
+# as two lanes (rl/fleet.py::FleetEngine._flush_group) and so convolves as
+# the unsharded engine's grouped convolution: bit for bit on an H100 (0.0
+# in losses and params; 8.57e-7 in params before the two lanes, at
+# groups=1).  Evaluation keeps its bound.
+MESH_LOSS_TOL = 0.0  # each round's loss
+MESH_PARAMS_TOL = 0.0  # every slot's params after the first flush
 MESH_ERR_TOL = 1e-4  # mean_dist_err (voxels)
 CROWD_AGENTS = 183  # flash_crowd's widest flush (PERF.md section 5)
 
@@ -1576,6 +1608,9 @@ def phase_fleet_mesh(dev, main_ref: dict, serve_ref: list) -> dict[str, int]:
             "records_equal_but_loss": _meta(report) == _meta(ref),
             "max_round_loss_diff": loss_diff,
             "params_max_abs_err_after_first_flush": p_err,
+            "params_bound": MESH_PARAMS_TOL,
+            "loss_bound": MESH_LOSS_TOL,
+            "agents_a_shard_at_most": -(-n_agents // mesh.size),
             "mean_dist_err": [report.mean_dist_err, ref.mean_dist_err],
             "mean_dist_err_diff": err_diff,
             "run_s": [run_s, main_ref["run_s"]],
@@ -2858,6 +2893,191 @@ def phase_zoo_window(dev) -> dict[str, int]:
     return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
 
 
+def moe_ep_model(dev, mesh) -> dict[str, int]:
+    """(a) qwen3-moe at full width and ``ZOO_LAYERS`` depth, as zoo_main
+    builds it, through ``Model(mesh=)`` on the one-rank mesh against the
+    mesh-less model on the same params: the prefill's last logits and
+    ``MOE_EP_GEN`` decode steps' logits bit for bit (model 1 takes the
+    local path, as in the reference).  C and D launches read around the
+    mesh run alone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, prompt = serve.setup(
+        MOE_ARCH, ZOO_BATCH, ZOO_PROMPT, 0, dev, n_layers=ZOO_LAYERS[MOE_ARCH]
+    )
+    cfg = model.cfg
+    on_mesh = Model(cfg, dev, mesh=mesh)
+    mine = on_mesh.shard(params)
+    same_tensors = all(
+        a is b for a, b in zip(tree_leaves(mine), tree_leaves(params), strict=True)
+    )
+    batch = {"tokens": prompt}
+    with torch.no_grad():
+        want_last = model.prefill_step(params, batch)[0]
+        want = serve.generate(model, params, prompt, MOE_EP_GEN)
+        reset_launches()
+        got_last = on_mesh.prefill_step(mine, batch)[0]
+        got = serve.generate(on_mesh, mine, prompt, MOE_EP_GEN)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    prefill_err = float((got_last.float() - want_last.float()).abs().max())
+    decode_err = float((got.logits - want.logits).abs().max())
+    tokens_equal = torch.equal(got.tokens, want.tokens)
+    n_attn = sum(mixer == ATTN for mixer, _ in cfg.layer_pattern)
+    want_rms = norms_per_forward(cfg) * (2 + MOE_EP_GEN)  # the extra prefill
+    emit(
+        {
+            "phase": "moe_ep_model",
+            "arch": MOE_ARCH,
+            "mesh": "DeviceMesh('cuda', (1, 1), ('data', 'model')), NCCL, one rank",
+            "cuts": f"depth {cfg.n_layers} of {get_config(MOE_ARCH).n_layers} layers",
+            "weights": "random from seed 0",
+            "batch": ZOO_BATCH,
+            "prompt": ZOO_PROMPT,
+            "gen": MOE_EP_GEN,
+            "params_are_the_given_tensors": same_tensors,
+            "prefill_logits_max_abs_err": prefill_err,
+            "decode_logits_max_abs_err": decode_err,
+            "tokens_equal": tokens_equal,
+            "bound": 0.0,
+            "prefill_s": [got.prefill_s, want.prefill_s],
+            "decode_s": [got.decode_s, want.decode_s],
+            "launches": launches,
+        }
+    )
+    del model, on_mesh, params, mine, prompt, got, want, got_last, want_last
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(same_tensors, "moe_ep: a one-rank mesh must keep the params it was given")
+    require(
+        prefill_err == 0.0 and decode_err == 0.0 and tokens_equal,
+        f"moe_ep: Model(mesh=) logits differ from the mesh-less model's: "
+        f"prefill {prefill_err}, decode {decode_err}",
+    )
+    require(
+        launches["flash_attention"] == 2 * n_attn and launches["rmsnorm"] == want_rms,
+        f"moe_ep: launches {launches}, not D {2 * n_attn} and C {want_rms}",
+    )
+    return {k: launches[k] for k in ("rmsnorm", "flash_attention")}
+
+
+def moe_ep_layer(dev, mesh) -> None:
+    """(b) the per-shard body (``moe.moe_local``) forced past
+    ``moe_apply``'s routing at n_model = 1, on one qwen3-moe layer at full
+    width (D 4096, E 128, top-k 8, d_ff_expert 1536, bf16; 4.8 GB of
+    experts), against the local path on the same inputs: train mode at
+    T = 4000 tokens takes the all-to-all branch (two NCCL
+    ``all_to_all_single``), decode at T = 4 the psum branch (one NCCL
+    ``all_reduce``); ``y`` and the router loss held to ``MOE_EP_TOL``.
+    Times with CUDA events: the layer both ways, and each collective alone
+    at the body's shapes with its bytes."""
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.moe_init(cfg, gen)
+    experts = [p[k] for k in moe.EXPERTS]
+    model_group, data_group = mesh.get_group("model"), mesh.get_group("data")
+    dtype = p["w1"].dtype
+    rows = []
+    for mode, t in MOE_EP_TOKENS.items():
+        x = torch.randn(t, cfg.d_model, generator=gen, device=dev, dtype=dtype)
+        cap = moe.capacity(cfg, t)
+
+        def local(x=x):
+            return moe.moe_local(cfg, x, p["router"], *experts, seq_sharded=False)
+
+        def sharded(x=x, mode=mode):
+            return moe.moe_local(
+                cfg, x, p["router"], *experts,
+                seq_sharded=mode == "train", model=model_group, data=data_group,
+            )  # fmt: skip
+
+        with torch.no_grad():
+            y0, aux0 = local()
+            with moe_dispatches() as calls:
+                y1, aux1 = sharded()
+            dropped = int(calls[0][1])
+            err = float((y1.float() - y0.float()).abs().max())
+            aux_err = abs(float(aux1) - float(aux0))
+            local_ms = cuda_ms(local, reps=10, warmup=2)
+            sharded_ms = cuda_ms(sharded, reps=10, warmup=2)
+            if mode == "train":
+                send = torch.empty(1, cfg.moe.n_experts, cap, cfg.d_model, device=dev,
+                                   dtype=dtype)  # fmt: skip
+                coll = {
+                    "all_to_all_single": {
+                        "per_layer": 2,
+                        "bytes": send.nbytes,
+                        "ms": cuda_ms(
+                            lambda: moe._all_to_all(send, model_group), 10, 2
+                        ),
+                    }
+                }
+            else:
+                out = torch.empty(t, cfg.d_model, device=dev, dtype=dtype)
+                coll = {
+                    "all_reduce": {
+                        "per_layer": 1,
+                        "bytes": out.nbytes,
+                        "ms": cuda_ms(
+                            lambda: dist.all_reduce(out, group=model_group), 10, 2
+                        ),
+                    }
+                }
+        # the grouped SwiGLU over every expert's C rows: 3 products of
+        # 2 E C D F flops; bytes: the experts, x and y once each
+        flops = 6 * cfg.moe.n_experts * cap * cfg.d_model * cfg.moe.d_ff_expert
+        nbytes = sum(w.nbytes for w in experts) + 2 * x.nbytes
+        bounds = {
+            "operations": flops / PEAK_FLOPS[dtype],
+            "bytes": nbytes / HBM_BYTES_PER_S,
+        }
+        bound_by = max(bounds, key=bounds.get)
+        rows.append(
+            {
+                "mode": mode,
+                "tokens": t,
+                "capacity": cap,
+                "bound_ms": bounds[bound_by] * 1e3,
+                "bound_by": bound_by,
+                "branch": "all_to_all" if mode == "train" else "psum",
+                "dropped_pairs": dropped,
+                "y_max_abs_err": err,
+                "aux_abs_err": aux_err,
+                "tol": MOE_EP_TOL,
+                "layer_ms": sharded_ms,
+                "local_ms": local_ms,
+                "collectives": coll,
+            }
+        )
+        del x, y0, y1
+    emit({"phase": "moe_ep_layer", "arch": MOE_ARCH, "n_model": 1, "cases": rows})
+    del p, experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in rows:
+        require(
+            r["y_max_abs_err"] <= MOE_EP_TOL and r["aux_abs_err"] <= MOE_EP_TOL,
+            f"moe_ep: the forced {r['branch']} body differs from the local path "
+            f"by {r['y_max_abs_err']} (aux {r['aux_abs_err']})",
+        )
+
+
+def phase_moe_ep(dev) -> dict[str, int]:
+    """Expert-parallel MoE on the card: a one-rank NCCL group and its
+    ``(data 1, model 1)`` ``DeviceMesh`` (``launch/mesh.py``), (a) the
+    model path and (b) the sharded body (:func:`moe_ep_model`,
+    :func:`moe_ep_layer`); the group is torn down at the end.  The
+    machine has one card, so ranks > 1 run on the CPU over gloo
+    (``tests/test_torch_moe_ep.py``)."""
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev.index or 0)
+    with one_rank_device_mesh("cuda") as mesh:
+        launches = moe_ep_model(dev, mesh)
+        moe_ep_layer(dev, mesh)
+    emit({"phase": "moe_ep_wall", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def load_example(name: str):
     """``main`` of ``examples/<name>.py``, loaded from its file."""
     path = ROOT / "examples" / f"{name}.py"
@@ -3117,6 +3337,7 @@ def main() -> int:
         zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch, measured)
         by_route = by_route or routes  # danube's: the zoo's reference path
     zoo_paths["zoo_window"] = phase_zoo_window(dev)
+    zoo_paths["moe_ep"] = phase_moe_ep(dev)
     by_path["examples"], zoo_paths["examples"] = phase_examples(dev)
     zoo_paths["planner"] = phase_planner(dev, measured)
     by_path["planner"] = {k: 0 for k in FLEET_KERNELS}

@@ -9,11 +9,21 @@ node), the network between nodes carries ``data`` and ``pod``.
 The constants are spec-sheet figures of the H100 SXM5 80GB (NVIDIA's data
 sheet, dense rates, at the full 700 W power limit), not measurements:
 the planner's figures are estimates from them.
+
+:func:`one_rank_device_mesh` joins this process alone to a process group
+and gives the ``(data, model)`` ``DeviceMesh`` of one rank that
+``Model(mesh=)`` runs on where one card is all there is.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+from collections.abc import Iterator
+from contextlib import contextmanager
+
 import torch
+import torch.distributed as dist
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> dict[str, int]:
@@ -26,6 +36,28 @@ def make_production_mesh(*, multi_pod: bool = False) -> dict[str, int]:
 def make_local_mesh() -> dict[str, int]:
     """One card, with the production axis names."""
     return {"data": 1, "model": 1}
+
+
+@contextmanager
+def one_rank_device_mesh(device_type: str = "cuda") -> Iterator:
+    """A ``(data 1, model 1)`` ``DeviceMesh`` of this process alone: a
+    one-rank process group (NCCL on ``cuda``, gloo on ``cpu``) joined
+    through a file in a temporary directory, destroyed on exit."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    backend = "nccl" if device_type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend,
+            init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+            rank=0,
+            world_size=1,
+        )
+        try:
+            names = ("data", "model")
+            yield init_device_mesh(device_type, (1, 1), mesh_dim_names=names)
+        finally:
+            dist.destroy_process_group()
 
 
 # H100 SXM5 80GB spec-sheet figures (per card) — roofline denominators.

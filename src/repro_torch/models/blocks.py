@@ -97,9 +97,14 @@ def block_apply(
     positions: torch.Tensor,
     cache: dict[str, torch.Tensor] | None = None,
     attn_impl: str = "kernel",
+    mesh=None,
+    batch_axes: tuple[str, ...] = ("data",),
+    tp: bool = True,
 ):
     """Returns (x, new_cache, aux): ``aux`` is the MoE router's loss (a
-    float32 scalar), None for a dense FFN or none.  ``new_cache``: an
+    float32 scalar), None for a dense FFN or none.  ``mesh``,
+    ``batch_axes``, ``tp``: an MoE FFN's expert parallelism
+    (:func:`moe_apply`); every other part runs whole on each rank.  ``new_cache``: an
     attention mixer's cache as :func:`attention.gqa_apply` returns it
     (decode writes it in place), a recurrent mixer's new state (new
     tensors; the caller keeps it).  ``attn_impl``: see
@@ -131,7 +136,9 @@ def block_apply(
     h = norm_apply(cfg, p["norm2"], x)
     if ffn == FFN_DENSE:
         return x + mlp_apply(cfg, p["ffn"], h), new_cache, None
-    y, aux = moe_apply(cfg, p["ffn"], h)
+    y, aux = moe_apply(
+        cfg, p["ffn"], h, mesh=mesh, batch_axes=batch_axes, mode=mode, tp=tp
+    )
     return x + y, new_cache, aux
 
 

@@ -4,13 +4,17 @@ prefill and decode.
 The port of the reference's ``models/model.py``.  The parameter layout is
 the reference's: the per-group leaves are stacked on a leading ``[G, ...]``
 axis, so converting reference params is a dtype change, and ``forward``
-loops over the groups in Python where the reference scans.  There is no
-mesh: one card holds the whole model.  Of the
+loops over the groups in Python where the reference scans.  Of the
 reference's ``ShardingPolicy`` (``models/sharding.py``) the train step
 keeps the knobs that change what is computed or held (``loss_chunk``,
 ``microbatches``), which :class:`Model` reads from its policy; per-layer
 rematerialisation and the mesh's gather hoisting change no number and are
-left out.  Training attends through ``chunked_attention``
+left out.  ``mesh=`` (a ``(data, model)`` ``torch.distributed``
+``DeviceMesh``, one process a rank) reaches the MoE layers, which run
+expert parallel as the reference's do (``models/moe.py``; the policy's
+``batch_axes`` and ``tensor_parallel``); every other layer runs whole on
+each rank, and each rank holds the params :func:`shard_params` gives it
+(its slice of the experts).  Training attends through ``chunked_attention``
 (``attn_impl="chunked"``), as the reference trains through its XLA path;
 serving's prefill through the ``flash_attention`` kernel.
 """
@@ -34,7 +38,7 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed_apply,
 )
-from repro_torch.models.sharding import ShardingPolicy
+from repro_torch.models.sharding import ShardingPolicy, global_norm, shard_params
 from repro_torch.optim.adamw import (
     AdamWConfig,
     tree_adamw_init,
@@ -181,9 +185,11 @@ def forward(
     mode: str,
     caches: dict[str, Any] | None = None,
     attn_impl: str = "kernel",
+    mesh=None,
+    policy: ShardingPolicy = ShardingPolicy(),
 ):
     """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S] (or
-    M-RoPE's [3,B,S]).
+    M-RoPE's [3,B,S]).  ``mesh``: see the module docstring.
 
     Returns (hidden [B,S,D], aux, caches): ``aux`` is the sum of the MoE
     layers' router losses (a float32 scalar, 0 without MoE); the caches
@@ -198,7 +204,14 @@ def forward(
     else:
         x = inputs.to(torch_dtype(cfg.dtype)).contiguous()
     aux = torch.zeros((), dtype=F32, device=x.device)
-    kw = dict(mode=mode, positions=positions, attn_impl=attn_impl)
+    kw = dict(
+        mode=mode,
+        positions=positions,
+        attn_impl=attn_impl,
+        mesh=mesh,
+        batch_axes=policy.batch_axes,
+        tp=policy.tensor_parallel,
+    )
     handed: dict[str, Any] = {}
     if cfg.first_k_dense:
         handed["prefix"] = {}
@@ -275,7 +288,12 @@ def chunked_xent(
 # training
 # ---------------------------------------------------------------------------
 def make_loss_fn(
-    cfg: ModelConfig, *, attn_impl: str = "chunked", loss_chunk: int = 2048
+    cfg: ModelConfig,
+    *,
+    attn_impl: str = "chunked",
+    loss_chunk: int = 2048,
+    mesh=None,
+    policy: ShardingPolicy = ShardingPolicy(),
 ):
     """``(params, batch{tokens|embeds, labels[, positions]}) -> (total,
     {"loss", "aux", "n_tokens"})``: the mean next-token loss over the
@@ -289,7 +307,14 @@ def make_loss_fn(
         if positions is None:
             positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
         hidden, aux, _ = forward(
-            cfg, params, inputs, positions, mode="train", attn_impl=attn_impl
+            cfg,
+            params,
+            inputs,
+            positions,
+            mode="train",
+            attn_impl=attn_impl,
+            mesh=mesh,
+            policy=policy,
         )
         nll, n = chunked_xent(
             cfg, params, hidden, batch["labels"], loss_chunk=loss_chunk
@@ -327,6 +352,8 @@ def make_train_step(
     attn_impl: str = "chunked",
     loss_chunk: int = 2048,
     microbatches: int = 1,
+    mesh=None,
+    policy: ShardingPolicy = ShardingPolicy(),
 ):
     """``(state{params, opt}, batch) -> (state, metrics)``: the gradient of
     :func:`make_loss_fn`'s total, then one AdamW step (in place: the
@@ -338,8 +365,11 @@ def make_train_step(
     sequence: here those split with the batch); the gradients (in the
     params' dtype), the totals and the metrics are summed over the
     microbatches and divided by k (``n_tokens`` stays a sum).  Metrics: ``loss, aux,
-    n_tokens, total, grad_norm``."""
-    loss_fn = make_loss_fn(cfg, attn_impl=attn_impl, loss_chunk=loss_chunk)
+    n_tokens, total, grad_norm``.  On a ``mesh`` each rank updates its own
+    params; the clip reads the global norm over the ranks' expert slices."""
+    loss_fn = make_loss_fn(
+        cfg, attn_impl=attn_impl, loss_chunk=loss_chunk, mesh=mesh, policy=policy
+    )
     k = microbatches
 
     def train_step(state, batch):
@@ -375,7 +405,10 @@ def make_train_step(
                 "aux": metrics["aux"] / k,
                 "n_tokens": metrics["n_tokens"],
             }
-        params, opt, gnorm = tree_adamw_update(opt_cfg, params, grads, state["opt"])
+        gnorm = None if mesh is None else global_norm(grads, mesh, policy, cfg)
+        params, opt, gnorm = tree_adamw_update(
+            opt_cfg, params, grads, state["opt"], gnorm
+        )
         metrics = dict(metrics, total=total, grad_norm=gnorm)
         return {"params": params, "opt": opt}, metrics
 
@@ -385,7 +418,9 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(
+    cfg: ModelConfig, *, mesh=None, policy: ShardingPolicy = ShardingPolicy()
+):
     """(params, batch{tokens|embeds[, positions]}) -> (last logits [B, V],
     caches to hand to decode)."""
 
@@ -395,14 +430,18 @@ def make_prefill_step(cfg: ModelConfig):
         positions = batch.get("positions")
         if positions is None:
             positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
-        hidden, _, caches = forward(cfg, params, inputs, positions, mode="prefill")
+        hidden, _, caches = forward(
+            cfg, params, inputs, positions, mode="prefill", mesh=mesh, policy=policy
+        )
         last = logits_fn(cfg, params, hidden[:, -1:])
         return last[:, 0], caches
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(
+    cfg: ModelConfig, *, mesh=None, policy: ShardingPolicy = ShardingPolicy()
+):
     """One decode step: (params, caches, batch{tokens|embeds, pos [B]}) ->
     (logits [B, V], caches).  The caches are written in place and
     returned."""
@@ -413,7 +452,14 @@ def make_serve_step(cfg: ModelConfig):
         if cfg.rope == "mrope":
             positions = positions[None].expand(3, *positions.shape)
         hidden, _, new_caches = forward(
-            cfg, params, inputs, positions, mode="decode", caches=caches
+            cfg,
+            params,
+            inputs,
+            positions,
+            mode="decode",
+            caches=caches,
+            mesh=mesh,
+            policy=policy,
         )
         return logits_fn(cfg, params, hidden)[:, 0], new_caches
 
@@ -427,7 +473,10 @@ class Model:
     ``loss_chunk`` and ``microbatches``; ``remat`` is not read: the port does
     not rematerialise per layer (ROADMAP queue 1 item 3.2); it checkpoints
     the attention's query chunks, the cross entropy's chunks and the
-    recurrences' chunks."""
+    recurrences' chunks.  ``mesh``: a ``(data, model)`` ``DeviceMesh`` of
+    the process group this rank joined; the MoE layers run expert
+    parallel on it, and ``init_params``/``init_train_state`` keep this
+    rank's slice of the experts."""
 
     def __init__(
         self,
@@ -436,29 +485,40 @@ class Model:
         *,
         policy: ShardingPolicy = ShardingPolicy(),
         opt_cfg: AdamWConfig = AdamWConfig(),
+        mesh=None,
     ):
         self.cfg = cfg
         self.policy = policy
         self.opt_cfg = opt_cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.loss_fn = make_loss_fn(cfg, loss_chunk=policy.loss_chunk)
+        sh = dict(mesh=mesh, policy=policy)
+        self.loss_fn = make_loss_fn(cfg, loss_chunk=policy.loss_chunk, **sh)
         self.train_step = make_train_step(
             cfg,
             opt_cfg,
             loss_chunk=policy.loss_chunk,
             microbatches=policy.microbatches,
+            **sh,
         )
-        self.prefill_step = make_prefill_step(cfg)
-        self.serve_step = make_serve_step(cfg)
+        self.prefill_step = make_prefill_step(cfg, **sh)
+        self.serve_step = make_serve_step(cfg, **sh)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def shard(self, params: dict[str, Any]) -> dict[str, Any]:
+        """This rank's part of whole params (themselves without a mesh)."""
+        if self.mesh is None:
+            return params
+        return shard_params(self.cfg, params, self.mesh, self.policy)
+
     def init_params(self, seed: int) -> dict[str, Any]:
-        return init_params(self.cfg, self._generator(seed))
+        return self.shard(init_params(self.cfg, self._generator(seed)))
 
     def init_train_state(self, seed: int) -> dict[str, Any]:
-        return init_train_state(self.cfg, self._generator(seed), self.opt_cfg)
+        params = self.init_params(seed)
+        return {"params": params, "opt": tree_adamw_init(self.opt_cfg, params)}
 
     def init_caches(self, batch: int, seq_len: int) -> dict[str, Any]:
         return init_caches(self.cfg, batch, seq_len, self.device)

@@ -14,9 +14,12 @@ The fleet's mesh (:class:`FleetMesh`, :func:`make_fleet_mesh`) keeps the
 reference's rule: ``None`` when at most one device would join, and every
 caller then runs the single-device path; otherwise a 1-D mesh whose
 devices each hold a shard of the fleet engine's stacked agent axis
-(:class:`FleetSharding` says which).  The zoo's in-model constraints
-(``hoist_constrain``, ``act_spec``, ``constrain`` in the reference) are
-not ported: they only run under a multi-card mesh of the model's own.
+(:class:`FleetSharding` says which).  On a ``(data, model)``
+``torch.distributed`` ``DeviceMesh`` the zoo splits only its MoE experts
+(:func:`shard_params`, read by ``models/moe.py``'s expert-parallel
+path); every other leaf stays whole on each rank.  The zoo's in-model
+constraints (``hoist_constrain``, ``act_spec``, ``constrain`` in the
+reference) are not ported: they change no number.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.optim.adamw import tree_leaves
 
 FSDP = "__fsdp__"  # placeholder resolved to policy.fsdp_axes
 MODEL = "model"
@@ -220,6 +226,87 @@ def cache_shardings(tree, mesh_shape: dict[str, int], policy: ShardingPolicy):
 
 
 # ---------------------------------------------------------------------------
+# The zoo on a (data, model) DeviceMesh: the experts' slices
+# ---------------------------------------------------------------------------
+EXPERT_LEAVES = ("*/w1", "*/w3", "*/w2")
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``torch.distributed`` ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_coord(mesh, ax) -> tuple[int, int]:
+    """(index, count) of this rank along ``ax``, an axis name or a tuple
+    of them (row-major, as a spec's tuple splits a dimension)."""
+    names = (ax,) if isinstance(ax, str) else tuple(ax)
+    axes = mesh_axes(mesh)
+    idx = 0
+    for a in names:
+        idx = idx * axes[a] + mesh.get_local_rank(a)
+    return idx, axis_size(axes, names)
+
+
+def take_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (one entry per dim: None,
+    an axis name or a tuple of names): a copy of the block, or ``t``
+    itself when every dim stays whole (a mesh of one rank keeps the
+    tensors it was given)."""
+    sliced = False
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        idx, n = mesh_coord(mesh, ax)
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, idx * size, size)
+            sliced = True
+    return t.clone() if sliced else t
+
+
+def _expert_spec(path: str, leaf, axes: dict, policy: ShardingPolicy, cfg):
+    """The spec of an expert leaf (``*/w1``, ``*/w3``, ``*/w2``), None for
+    every other leaf: until the rest of the zoo is sharded, only the
+    experts are split; everything else is whole on every rank."""
+    if not any(fnmatch.fnmatch(path, pat) for pat in EXPERT_LEAVES):
+        return None
+    return leaf_pspec(path, tuple(leaf.shape), axes, policy, cfg)
+
+
+def shard_params(cfg, params: dict, mesh, policy: ShardingPolicy = ShardingPolicy()):
+    """A rank's own params on ``mesh``: each MoE layer's experts sliced by
+    the reference's rules (``E / n_model`` experts a rank; under FSDP
+    their ``d_model`` axis split over ``data``), every other leaf
+    whole.  A stacked ``[G, ...]`` leaf keeps its group axis whole."""
+    axes = mesh_axes(mesh)
+
+    def one(path, leaf):
+        spec = _expert_spec(path, leaf, axes, policy, cfg)
+        return leaf if spec is None else take_slice(leaf, spec, mesh)
+
+    return _map_with_path(one, params)
+
+
+def global_norm(grads: dict, mesh, policy: ShardingPolicy = ShardingPolicy(), cfg=None):
+    """The global gradient norm of params held as :func:`shard_params`
+    holds them: each leaf's float32 sum of squares, an expert leaf's
+    summed over the mesh axes that split it, added in
+    ``tree_leaves`` order (sorted keys)."""
+    axes = mesh_axes(mesh)
+
+    def sq(path, g):
+        total = g.float().square().sum()
+        spec = _expert_spec(path, g, axes, policy, cfg) or ()
+        for ax in spec:
+            for a in (ax,) if isinstance(ax, str) else ax or ():
+                if axes[a] > 1:
+                    dist.all_reduce(total, group=mesh.get_group(a))
+        return total
+
+    return torch.sqrt(sum(tree_leaves(_map_with_path(sq, grads))))
+
+
+# ---------------------------------------------------------------------------
 # Fleet-axis mesh
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
@@ -349,6 +436,7 @@ class FleetSharding:
 
 
 __all__ = [
+    "EXPERT_LEAVES",
     "FLEET",
     "FleetMesh",
     "FleetSharding",
@@ -356,7 +444,12 @@ __all__ = [
     "axis_size",
     "cache_pspec",
     "cache_shardings",
+    "global_norm",
     "leaf_pspec",
     "make_fleet_mesh",
+    "mesh_axes",
+    "mesh_coord",
+    "shard_params",
+    "take_slice",
     "tree_pspecs",
 ]

@@ -161,16 +161,26 @@ def tree_global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def tree_adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt: dict):
+def tree_adamw_update(
+    cfg: AdamWConfig,
+    params: dict,
+    grads: dict,
+    opt: dict,
+    gnorm: torch.Tensor | None = None,
+):
     """One AdamW step of the reference's ``adamw_update`` on one tree, in
     place: ``params``, ``opt["m"]`` and ``opt["v"]`` are overwritten (the
     reference's train step donates its state the same way) and
     ``opt["count"]`` replaced.  Returns ``(params, opt, gnorm)``.  Every
     leaf is updated in float32 and stored back in its own dtype (the
     moments in ``opt_dtype``); the schedule, the clip scale and the bias
-    corrections are float32 tensors, as JAX computes them."""
+    corrections are float32 tensors, as JAX computes them.  ``gnorm``:
+    the global norm the clip reads, where the tree is one rank's part of
+    the params (``models/sharding.py::global_norm``); by default the
+    tree's own."""
     count = opt["count"] + 1
-    gnorm = tree_global_norm(grads)
+    if gnorm is None:
+        gnorm = tree_global_norm(grads)
     clip = torch.full_like(gnorm, cfg.clip_norm)
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = cosine_schedule(cfg, count)

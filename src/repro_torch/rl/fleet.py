@@ -860,14 +860,31 @@ class FleetEngine:
             # resident fast path: the shard's jobs cover its rows in
             # order, so its resident state IS the chunk operand
             whole = rows == rows_all
-            resident &= whole
-            if whole:
+            # a lone job on a shard of a mesh trains as two lanes (a copy
+            # of itself beside it), as ActSteps serves a lone request: at
+            # groups=1 PyTorch takes its ungrouped convolution, which
+            # rounds differently from the grouped one the single-device
+            # engine runs.  The copy is a second row of the gathered
+            # state, so autograd gives each lane its own gradient; only
+            # lane 0's state and output columns are kept.
+            lone = len(rows) == 1 and self.sharding.size > 1
+            resident &= whole and not lone
+            if whole and not lone:
                 sub = shard
             else:
-                g = torch.tensor(rows, device=dev)
+                g = torch.tensor(rows * 2 if lone else rows, device=dev)
                 sub = shard.map(lambda x: x.index_select(0, g))
-            idx_j = idx if len(groups) == 1 else np.ascontiguousarray(idx[:, positions])
+            if lone:
+                idx_j = np.ascontiguousarray(idx[:, positions * 2])
+            elif len(groups) == 1:
+                idx_j = idx
+            else:
+                idx_j = np.ascontiguousarray(idx[:, positions])
             new, out = chunk(sub, pool, torch.from_numpy(idx_j).to(dev))
+            if lone:
+                new = new.map(lambda x: x[:1].clone())
+                out = out[:, :1]
+                g = g[:1]
             if whole:
                 self._shards[j] = new
             else:

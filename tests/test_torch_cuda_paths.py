@@ -51,6 +51,13 @@ imports JAX, so the tests run where the card is.
   xlstm-125m's train step at full width and depth (every leaf's
   gradient non-zero, a finite loss, C 13 launches a forward, D none).
 
+* expert-parallel MoE on a one-rank NCCL ``(data 1, model 1)`` mesh
+  (chip_smoke's ``moe_ep`` (b) at qwen3-moe-smoke's widths): the
+  per-shard body forced past ``moe_apply``'s routing, train (two
+  all-to-alls) and decode (an all-reduce), bit for bit the local path,
+  and the train branch's gradients through the collectives within 1e-6
+  of the local path's.
+
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
 """
@@ -543,3 +550,35 @@ def test_xlstm_125m_train_step_on_card(cuda):
     moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
     assert moved == (len(cfg.layer_pattern) + 1, 0)
     assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+@pytest.mark.cuda
+def test_moe_sharded_body_on_a_one_rank_mesh_on_card(cuda):
+    """chip_smoke's ``moe_ep`` (b) at qwen3-moe-smoke's widths (float32):
+    the per-shard body forced past ``moe_apply``'s routing on a one-rank
+    NCCL mesh, against the local path on the same inputs."""
+    from repro_torch.launch.mesh import one_rank_device_mesh
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-235b-a22b-smoke")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(cfg, gen)
+    with one_rank_device_mesh("cuda") as mesh:
+        groups = dict(model=mesh.get_group("model"), data=mesh.get_group("data"))
+        for mode, t in (("train", 96), ("decode", 4)):
+            x = torch.randn(t, cfg.d_model, generator=gen, device=cuda)
+            live = [
+                w.detach().clone().requires_grad_(True)
+                for w in (x, *(p[k] for k in moe.EXPERTS))
+            ]
+            outs = []
+            for kw in ({}, dict(seq_sharded=mode == "train", **groups)):
+                kw.setdefault("seq_sharded", False)
+                y, aux = moe.moe_local(cfg, live[0], p["router"], *live[1:], **kw)
+                grads = torch.autograd.grad((y * y).sum() + aux, live)
+                outs.append((y.detach(), aux.detach(), grads))
+            (y0, a0, g0), (y1, a1, g1) = outs
+            assert torch.equal(y1, y0) and torch.equal(a1, a0), mode
+            for a, b in zip(g1, g0, strict=True):
+                scale = float(b.abs().max())
+                assert float((a - b).abs().max()) <= 1e-6 * max(scale, 1.0), mode

@@ -461,3 +461,44 @@ def test_serving_session_on_a_mesh_is_identical(monkeypatch):
     assert s2.service.device == s2.engine.device == CPU
     assert s2.engine.n_shard_steps == 4 * s2.engine.n_chunk_steps == 12
     assert_close(s2.publisher.latest.params, s1.publisher.latest.params, 1e-6)
+
+
+# -- one agent a shard --------------------------------------------------------
+def test_one_agent_a_shard_is_bitwise_the_single_device_run(monkeypatch):
+    """A shard that holds one job trains it as two lanes (the agent and a
+    copy), so its grouped convolution is the one the single-device engine
+    runs: with one agent a shard, at one intra-op thread, the mesh gives
+    the single-device engine's params, target, opt state and losses bit
+    for bit (also on a partial flush), and ``ADFLLSystem`` its records,
+    loss included, and params.  The copy adds nothing: shard steps count
+    one per shard and step."""
+    assert torch.get_num_threads() == 1
+    erb, _ = _data_erbs()
+    single = FleetEngine(CFG, device="cpu")
+    shard = FleetEngine(CFG, device="cpu", mesh=cpu_mesh(4))
+    for eng in (single, shard):
+        for seed in range(4):
+            eng.add_slot(seed)
+    futs = {id(eng): [] for eng in (single, shard)}
+    for n_slots, seeds in ((4, 100), (4, 110), (3, 500)):
+        for eng in (single, shard):
+            for i in range(n_slots):
+                futs[id(eng)].append(eng.submit(i, _plans(erb, seeds + i, k=4)))
+            eng.flush()
+    assert [f.loss for f in futs[id(shard)]] == [f.loss for f in futs[id(single)]]
+    assert shard.n_shard_steps == 4 * (4 + 4 + 3) and shard.n_chunk_steps == 12
+    for i in range(4):
+        for get in ("get_params", "get_target", "get_opt"):
+            assert_close(getattr(shard, get)(i), getattr(single, get)(i), 0.0)
+
+    runs = []
+    for mesh in (None, cpu_mesh(4)):
+        system = _system(monkeypatch, mesh)
+        runs.append((system, system.run()))
+    (s1, r1), (s2, r2) = runs
+    assert [dataclasses.astuple(r) for r in r1.history] == [
+        dataclasses.astuple(r) for r in r2.history
+    ]
+    assert len(r2.history) == 8 and s2.engine.sharding.size == 4
+    for aid in range(4):
+        assert_close(s2.agents[aid].params, s1.agents[aid].params, 0.0)
