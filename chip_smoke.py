@@ -238,6 +238,23 @@ non-zero exit code and no result line:
    events).  Ranks past one need cards this machine does not have: the
    multi-rank proof is ``tests/test_torch_moe_ep.py``, over gloo on the
    CPU.
+   ``lm_train_mesh`` (after ``moe_ep``): the zoo's tensor, sequence and
+   FSDP parallel body on a one-rank NCCL ``(data 1, model 1)`` mesh, where
+   every collective is issued over groups of one.  h2o-danube-3-4b at full
+   width and depth (bf16, float32 moments, seed 0), batch 2, seq 1024,
+   3 train steps through ``Model(mesh=)``, then a prefill of the batch
+   and 4 decode steps of fixed tokens; the mesh-less model runs the same
+   from the same init after the first is freed.  Each step's loss and
+   grad norm within 1e-5 relative, every param within 1e-4 of its leaf's
+   scale, the logits within 3e-2; printed: the max |delta| of each, the
+   step walls both ways (CUDA events), the peaks, the collectives a step
+   with their bytes, one all-gather's and one reduce-scatter's time at
+   an FFN weight (a copy through NCCL at one rank), C's and D's launches (C a norm per mixer, per FFN
+   and the final one a forward: 49 x 3 steps + 49 x 5 serving passes; D
+   24 for the prefill).  Then ``launch/train.py::train_on_mesh`` (the
+   ``--production-mesh`` body) on the same mesh for 2 steps of
+   h2o-danube-3-4b-smoke.  The multi-rank proof is
+   ``tests/test_torch_zoo_mesh.py``, over gloo on the CPU.
 
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -245,7 +262,8 @@ reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 paths (main, baselines, sweep, topology, population, serve, fleet_mesh,
 table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
-lm_train_main, zoo_main for each arch, zoo_window, moe_ep and examples); the
+lm_train_main, zoo_main for each arch, zoo_window, moe_ep, lm_train_mesh
+and examples); the
 planner path launches none.  Every entry carries ``launches_by_path``
 and ``launches`` is its sum.
 """
@@ -320,7 +338,10 @@ from repro_torch.models.model import (  # noqa: E402
     make_loss_fn,
     make_train_step,
 )
+from repro_torch.models import spmd  # noqa: E402
 from repro_torch.models.rope import positions_for  # noqa: E402
+from repro_torch.data.pipeline import TokenStreamConfig, token_batches  # noqa: E402
+from repro_torch.launch.specs import opt_cfg_for  # noqa: E402
 from repro_torch.models.sharding import FleetMesh, make_fleet_mesh  # noqa: E402
 from repro_torch.optim.adamw import (  # noqa: E402
     AdamWConfig,
@@ -368,6 +389,9 @@ MOE_ARCH = "qwen3-moe-235b-a22b"
 MOE_EP_GEN = 4
 MOE_EP_TOKENS = {"train": 4000, "decode": 4}
 MOE_EP_TOL = 0.0  # (b) against the local path: the same products, one rank
+# lm_train_mesh: danube's train steps and serving passes on a one-rank mesh
+MESH_STEPS, MESH_GEN = 3, 4
+MESH_REL, MESH_PARAM_TOL, MESH_LOGITS_TOL = 1e-5, 1e-4, 3e-2
 # zoo_window: danube's window handoff, a prompt past 4096 and no multiple of it
 WINDOW_PROMPT, WINDOW_GEN = 4100, 8
 # zoo_main's float32 decode check of the MoE archs: full width, the depth
@@ -3300,6 +3324,226 @@ def phase_planner(dev, measured: dict) -> dict[str, int]:
     return {"rmsnorm": 0, "flash_attention": 0}
 
 
+@contextmanager
+def counted_collectives():
+    """Every NCCL collective issued inside, as ``(name, bytes)``: the
+    all-gathers (output bytes), reduce-scatters (input bytes), all-reduces
+    and all-to-alls (the buffer's bytes) of ``models/spmd.py``."""
+    calls: list[tuple[str, int]] = []
+    real = (spmd._ALL_GATHER, spmd._REDUCE_SCATTER, dist.all_reduce)
+
+    def gather(out, src, **kw):
+        calls.append(("all_gather", out.nbytes))
+        return real[0](out, src, **kw)
+
+    def scatter(out, src, **kw):
+        calls.append(("reduce_scatter", src.nbytes))
+        return real[1](out, src, **kw)
+
+    def reduce(t, *a, **kw):
+        calls.append(("all_reduce", t.nbytes))
+        return real[2](t, *a, **kw)
+
+    spmd._ALL_GATHER, spmd._REDUCE_SCATTER, dist.all_reduce = gather, scatter, reduce
+    try:
+        yield calls
+    finally:
+        spmd._ALL_GATHER, spmd._REDUCE_SCATTER, dist.all_reduce = real
+
+
+def _per_step(calls: list, steps: int) -> dict:
+    out: dict = {}
+    for name, nbytes in calls:
+        row = out.setdefault(name, {"count": 0, "bytes": 0})
+        row["count"] += 1
+        row["bytes"] += nbytes
+    return {k: {"count": v["count"] / steps, "bytes": v["bytes"] / steps}
+            for k, v in out.items()}  # fmt: skip
+
+
+def lm_mesh_run(dev, mesh, batches, prompt, gen_tokens) -> dict:
+    """One run of lm_train_mesh's work: ``MESH_STEPS`` train steps of
+    h2o-danube-3-4b from seed 0 (``mesh`` None: the mesh-less model), the
+    prefill of ``prompt`` and ``MESH_GEN`` decode steps of ``gen_tokens``;
+    the losses, grad norms, step times, logits and final params to the
+    host, the peak, the launches and the collectives of the train steps;
+    the device memory freed."""
+    cfg = get_config(ZOO_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    model = Model(cfg, dev, opt_cfg=opt_cfg_for(cfg), mesh=mesh)
+    state = model.init_train_state(0)
+    lines, step_ms = [], []
+    with counted_collectives() as calls:
+        for batch in batches:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            state, m = model.train_step(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            lines.append((float(m["loss"]), float(m["grad_norm"])))
+    train_launches = read_launches()
+    params = state["params"]
+    logits = []
+    with torch.no_grad():
+        b, s = prompt.shape
+        last, pre = model.prefill_step(params, {"tokens": prompt})
+        logits.append(last.float().cpu())
+        caches = serve.load_prefill(model.init_caches(b, s + MESH_GEN), pre)
+        del pre
+        for i in range(MESH_GEN):
+            step = {"tokens": gen_tokens[:, i : i + 1],
+                    "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev)}
+            lg, caches = model.serve_step(params, caches, step)  # fmt: skip
+            logits.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    out = {
+        "lines": lines,
+        "step_ms": step_ms,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_launches": train_launches,
+        "launches": read_launches(),
+        "collectives": _per_step(calls, len(batches)),
+        "logits": torch.stack(logits),
+        "params": {k: v.detach().cpu() for k, v in flatten_tree(params).items()},
+    }
+    del model, state, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def flatten_tree(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def time_collectives(dev, mesh, cfg) -> dict:
+    """CUDA-event times of one all-gather and one reduce-scatter over the
+    one-rank mesh's data group at the largest FSDP block of the step (an
+    FFN weight, ``[d_model, d_ff]`` bf16), each with its bytes and rate:
+    at one rank each is a copy through NCCL."""
+    w = torch.empty(cfg.d_model, cfg.d_ff, dtype=torch.bfloat16, device=dev)
+    group = mesh.get_group("data")
+    out = {}
+    for name, fn in (("all_gather", spmd.all_gather), ("reduce_scatter", spmd.reduce_scatter)):
+        ms = cuda_ms(lambda fn=fn: fn(w, group, 0), 10, 2)
+        out[name] = {"bytes": w.nbytes, "ms": ms, "gb_per_s": w.nbytes / ms / 1e6}
+    del w
+    return out
+
+
+def phase_lm_train_mesh(dev) -> dict[str, int]:
+    """The zoo's sharded body on the card (the module docstring): the
+    meshed run and the mesh-less run of :func:`lm_mesh_run`, one after the
+    other, and ``launch.train``'s meshed body for 2 smoke steps."""
+    t_phase = time.perf_counter()
+    cfg = get_config(ZOO_ARCH)
+    sc = TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0
+    )
+    stream = token_batches(sc)
+    batches = []
+    for _ in range(MESH_STEPS):
+        raw = next(stream)
+        batches.append({
+            k: torch.tensor(raw[k] % cfg.vocab_size, device=dev)
+            for k in ("tokens", "labels")
+        })  # fmt: skip
+    prompt = batches[0]["tokens"]
+    rng = np.random.default_rng(1)
+    gen_tokens = torch.tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, MESH_GEN)), device=dev
+    )
+    torch.cuda.set_device(dev.index or 0)
+    with one_rank_device_mesh("cuda") as mesh:
+        got = lm_mesh_run(dev, mesh, batches, prompt, gen_tokens)
+        want = lm_mesh_run(dev, None, batches, prompt, gen_tokens)
+        smoke = "h2o-danube-3-4b-smoke"
+        argv = ["--arch", smoke, "--steps", "2", "--batch", "2", "--seq", "64",
+                "--device", str(dev)]  # fmt: skip
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.train_on_mesh(train_cli._parser().parse_args(argv), mesh)
+        cli_launches = read_launches()
+        cli_lines = buf.getvalue().splitlines()
+        coll_ms = time_collectives(dev, mesh, cfg)
+    cli_steps, _ = train_lines(cli_lines)
+    rel = max(
+        max(abs(a - b) / abs(b) for a, b in zip(g, w, strict=True))
+        for g, w in zip(got["lines"], want["lines"], strict=True)
+    )
+    param_err, param_rel = 0.0, 0.0
+    for k, w in want["params"].items():
+        d = float((got["params"][k].to(dev).float() - w.to(dev).float()).abs().max())
+        scale = max(float(w.float().abs().max()), 1e-30)
+        param_err, param_rel = max(param_err, d), max(param_rel, d / scale)
+    logits_err = float((got["logits"] - want["logits"]).abs().max())
+    n_attn = sum(mixer == ATTN for mixer, _ in cfg.layer_pattern)
+    norms = norms_per_forward(cfg)
+    want_c = norms * (MESH_STEPS + 1 + MESH_GEN)
+    emit(
+        {
+            "phase": "lm_train_mesh",
+            "arch": ZOO_ARCH,
+            "mesh": "DeviceMesh('cuda', (1, 1), ('data', 'model')), NCCL, one rank",
+            "cuts": "none (full width and depth; random weights from seed 0)",
+            "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ,
+            "steps": MESH_STEPS,
+            "mesh_lines": got["lines"],
+            "meshless_lines": want["lines"],
+            "loss_gnorm_max_rel_err": rel,
+            "param_max_abs_err": param_err,
+            "param_max_err_of_scale": param_rel,
+            "logits_max_abs_err": logits_err,
+            "tol": {"rel": MESH_REL, "param_of_scale": MESH_PARAM_TOL,
+                    "logits": MESH_LOGITS_TOL},  # fmt: skip
+            "step_ms": {"mesh": got["step_ms"], "meshless": want["step_ms"]},
+            "peak_gb": {"mesh": got["peak_gb"], "meshless": want["peak_gb"]},
+            "collectives_per_step": got["collectives"],
+            "collective_ms": coll_ms,
+            "launches": {"mesh": got["launches"], "meshless": want["launches"]},
+            "train_on_mesh": {"argv": argv, "rc": rc, "stdout": cli_lines,
+                              "launches": cli_launches},  # fmt: skip
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )
+    require(rel <= MESH_REL, f"lm_train_mesh: loss/grad norm off by {rel} relative")
+    require(
+        param_rel <= MESH_PARAM_TOL,
+        f"lm_train_mesh: params off by {param_rel} of their scale",
+    )
+    require(logits_err <= MESH_LOGITS_TOL, f"lm_train_mesh: logits off by {logits_err}")
+    require(got["collectives"], "lm_train_mesh: the sharded body issued no collective")
+    for run in (got, want):
+        require(
+            run["launches"]["rmsnorm"] == want_c
+            and run["launches"]["flash_attention"] == n_attn,
+            f"lm_train_mesh: launches {run['launches']}, want C {want_c}, D {n_attn}",
+        )
+    smoke_c = norms_per_forward(get_config(smoke)) * 2
+    require(
+        rc == 0
+        and [i for i, _, _ in cli_steps] == [0, 1]
+        and all(np.isfinite(loss) and g > 0 for _, loss, g in cli_steps)
+        and cli_launches["rmsnorm"] == smoke_c,
+        f"lm_train_mesh: train_on_mesh rc {rc}, lines {cli_lines}, {cli_launches}",
+    )
+    return {
+        "rmsnorm": got["launches"]["rmsnorm"] + cli_launches["rmsnorm"],
+        "flash_attention": got["launches"]["flash_attention"],
+    }
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -3338,6 +3582,7 @@ def main() -> int:
         by_route = by_route or routes  # danube's: the zoo's reference path
     zoo_paths["zoo_window"] = phase_zoo_window(dev)
     zoo_paths["moe_ep"] = phase_moe_ep(dev)
+    zoo_paths["lm_train_mesh"] = phase_lm_train_mesh(dev)
     by_path["examples"], zoo_paths["examples"] = phase_examples(dev)
     zoo_paths["planner"] = phase_planner(dev, measured)
     by_path["planner"] = {k: 0 for k in FLEET_KERNELS}

@@ -10,6 +10,9 @@ The constants are spec-sheet figures of the H100 SXM5 80GB (NVIDIA's data
 sheet, dense rates, at the full 700 W power limit), not measurements:
 the planner's figures are estimates from them.
 
+:func:`device_mesh` builds torch's ``DeviceMesh`` of a shape over the
+process group this process already joined (``launch/train.py
+--production-mesh`` on ``{data 32, model 8}``);
 :func:`one_rank_device_mesh` joins this process alone to a process group
 and gives the ``(data, model)`` ``DeviceMesh`` of one rank that
 ``Model(mesh=)`` runs on where one card is all there is.
@@ -36,6 +39,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> dict[str, int]:
 def make_local_mesh() -> dict[str, int]:
     """One card, with the production axis names."""
     return {"data": 1, "model": 1}
+
+
+def device_mesh(shape: dict[str, int], device_type: str = "cuda"):
+    """``init_device_mesh`` over the process group already joined, with
+    ``shape``'s axes in order (``{"data": 32, "model": 8}`` for
+    production); its size must be the world's."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(
+        device_type, tuple(shape.values()), mesh_dim_names=tuple(shape)
+    )
 
 
 @contextmanager
@@ -82,6 +96,8 @@ __all__ = [
     "NVLINK_BW",
     "PEAK_FLOPS_BF16",
     "device_memory_bytes",
+    "device_mesh",
     "make_local_mesh",
     "make_production_mesh",
+    "one_rank_device_mesh",
 ]

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch xlstm-125m --batch 4 --seq 256
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --mesh
 
 The step ``chip_smoke.py``'s ``lm_train_main`` drives
 (``python -m repro_torch.launch.train``): h2o-danube-3-4b at full width
@@ -18,7 +19,11 @@ the unprofiled step walls, and for the step, the forward+backward and
 the update the device's busy seconds, the idle share ``1 - busy /
 profiled wall``, the device operations and the ten kernels with the most
 device time; the peak of device memory; the model's operations a step
-(6 x params x tokens, the products' count).
+(6 x params x tokens, the products' count).  ``--mesh``: the same step
+through ``Model(mesh=)`` on a one-rank NCCL ``(data, model)`` mesh
+(``chip_smoke.py``'s ``lm_train_mesh``: every collective issued over
+groups of one); the step's ten host operations with the most CPU time
+are printed either way.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch.profiler import profile
 from repro_torch.configs.base import get_config, param_count
 from repro_torch.data.pipeline import TokenStreamConfig, token_batches
 from repro_torch.experiments.profile import ACTIVITIES, device_summary
+from repro_torch.launch.mesh import one_rank_device_mesh
 from repro_torch.launch.specs import opt_cfg_for
 from repro_torch.models.model import Model, value_and_grad
 from repro_torch.optim.adamw import tree_adamw_update
@@ -48,11 +54,24 @@ def _timed(fn) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
+def host_top(prof, n: int = 10) -> list[dict]:
+    """The ``n`` operations with the most self CPU time."""
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total)
+    return [
+        {"name": e.key[:80], "count": e.count, "ms": e.self_cpu_time_total / 1e3}
+        for e in rows[::-1][:n]
+    ]
+
+
 def profile_train(
-    steps: int, arch: str = ARCH, batch_size: int = BATCH, seq: int = SEQ
+    steps: int,
+    arch: str = ARCH,
+    batch_size: int = BATCH,
+    seq: int = SEQ,
+    mesh=None,
 ) -> dict:
     cfg = get_config(arch)
-    model = Model(cfg, None, opt_cfg=opt_cfg_for(cfg))
+    model = Model(cfg, None, opt_cfg=opt_cfg_for(cfg), mesh=mesh)
     state = model.init_train_state(0)
     stream = token_batches(TokenStreamConfig(cfg.vocab_size, seq, batch_size, seed=0))
 
@@ -74,7 +93,7 @@ def profile_train(
     b = batch()
     with profile(activities=ACTIVITIES) as prof:
         (state, metrics), wall = _timed(lambda: model.train_step(state, b))
-    step = device_summary(prof, wall)
+    step = dict(device_summary(prof, wall), host_top=host_top(prof))
     with profile(activities=ACTIVITIES) as prof:
         (_, _, grads), fb_wall = _timed(
             lambda: value_and_grad(model.loss_fn, state["params"], b)
@@ -90,6 +109,7 @@ def profile_train(
     total, _ = param_count(cfg)
     return {
         "arch": arch,
+        "mesh": None if mesh is None else "one-rank NCCL (data 1, model 1)",
         "batch": batch_size,
         "seq": seq,
         "opt_dtype": model.opt_cfg.opt_dtype,
@@ -109,8 +129,17 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=ARCH)
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--seq", type=int, default=SEQ)
+    ap.add_argument(
+        "--mesh", action="store_true", help="through Model(mesh=) on one NCCL rank"
+    )
     args = ap.parse_args(argv)
-    result = profile_train(args.steps, args.arch, args.batch, args.seq)
+    run = (args.steps, args.arch, args.batch, args.seq)
+    if args.mesh:
+        torch.cuda.set_device(0)
+        with one_rank_device_mesh("cuda") as mesh:
+            result = profile_train(*run, mesh=mesh)
+    else:
+        result = profile_train(*run)
     result["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(result))
     return 0

@@ -13,12 +13,13 @@ tree per card.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig, param_count
 from repro_torch.models import model as model_lib
+from repro_torch.models.model import META, meta_params
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.sharding import (
     ShardingPolicy,
@@ -27,9 +28,6 @@ from repro_torch.models.sharding import (
     tree_pspecs,
 )
 from repro_torch.optim.adamw import AdamWConfig, tree_adamw_init
-
-META = torch.device("meta")
-
 
 class Sharded(NamedTuple):
     """A ``meta`` tensor at a global shape and its per-dimension spec."""
@@ -46,16 +44,6 @@ def opt_cfg_for(cfg: ModelConfig) -> AdamWConfig:
     return AdamWConfig(opt_dtype=dtype)
 
 
-class _MetaGenerator(torch.Generator):
-    """A generator whose ``device`` is ``meta``: the zoo's inits allocate
-    on ``generator.device``, so under it they build ``meta`` leaves and
-    draw nothing."""
-
-    @property
-    def device(self) -> torch.device:
-        return META
-
-
 def _pair(tensors, specs):
     if isinstance(tensors, dict):
         return {
@@ -69,10 +57,6 @@ def tensors(tree):
     if isinstance(tree, dict):
         return {k: tensors(v) for k, v in tree.items()}
     return tree.tensor
-
-
-def meta_params(cfg: ModelConfig) -> dict[str, Any]:
-    return model_lib.init_params(cfg, _MetaGenerator())
 
 
 def state_specs(

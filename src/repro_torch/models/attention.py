@@ -173,10 +173,17 @@ def gqa_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def gqa_cache_init(
-    cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype, device
+    cfg: ModelConfig,
+    batch: int,
+    cache_len: int,
+    dtype: torch.dtype,
+    device,
+    n_kv: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """cache_len already accounts for sliding windows (ring buffer)."""
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """cache_len already accounts for sliding windows (ring buffer);
+    ``n_kv``: the kv heads held (a rank's block on a mesh; default all)."""
+    n_kv = cfg.n_kv_heads if n_kv is None else n_kv
+    shape = (batch, cache_len, n_kv, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -215,6 +222,15 @@ def prefill_cache(
     }
 
 
+def select_kv(t: torch.Tensor, kv_map: range | None) -> torch.Tensor:
+    """The kv heads of ``t`` ``[B, L, H, hd]`` that a rank's q heads attend
+    with: all of them (``kv_map`` None) or a contiguous ``range`` of them
+    (each q group over one of them), contiguous."""
+    if kv_map is None:
+        return t
+    return t.narrow(2, kv_map.start, len(kv_map)).contiguous()
+
+
 def gqa_apply(
     cfg: ModelConfig,
     p: dict,
@@ -224,20 +240,28 @@ def gqa_apply(
     positions: torch.Tensor,
     cache: dict[str, torch.Tensor] | None = None,
     attn_impl: str = "kernel",
+    kv_map=None,
 ):
     """x [B,S,D] (train/prefill) or [B,1,D] (decode); positions [B,S] or
     M-RoPE's [3,B,S].  ``attn_impl`` picks the train/prefill attention:
     ``"kernel"`` (the ``flash_attention`` kernel, forward only) or
     ``"chunked"`` (:func:`chunked_attention`, differentiable).  Returns (y, cache): the
     prefill's cache to hand over, decode's updated cache (the same
-    tensors, written in place), or None in train mode."""
+    tensors, written in place), or None in train mode.
+
+    The head counts are the weights' (``wq``'s columns over head_dim, and
+    ``wk``'s): on a mesh, a rank's block of the heads.  ``kv_map``
+    (:func:`select_kv`) picks the kv heads its q heads attend with where
+    its kv columns are not already its q heads' own; the cache keeps
+    the kv heads as computed."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense_apply(p["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = dense_apply(p["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense_apply(p["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    hq, hkv = p["wq"]["w"].shape[1] // hd, p["wk"]["w"].shape[1] // hd
+    q = dense_apply(p["wq"], x).reshape(b, s, hq, hd)
+    k = dense_apply(p["wk"], x).reshape(b, s, hkv, hd)
+    v = dense_apply(p["wv"], x).reshape(b, s, hkv, hd)
     scale = hd**-0.5
 
     cs = rope_lib.cos_sin_for(cfg, positions)
@@ -250,8 +274,8 @@ def gqa_apply(
         attend = flash_attention if attn_impl == "kernel" else chunked_attention
         y = attend(
             q,
-            k,
-            v,
+            select_kv(k, kv_map),
+            select_kv(v, kv_map),
             causal=True,
             window=window,
             scale=scale,
@@ -270,8 +294,8 @@ def gqa_apply(
         cache["kpos"][bidx, slot] = pos.to(torch.int32)
         y = decode_attention(
             q,
-            cache["k"],
-            cache["v"],
+            select_kv(cache["k"], kv_map),
+            select_kv(cache["v"], kv_map),
             scale=scale,
             kpos=cache["kpos"],
             pos=pos,
@@ -281,7 +305,7 @@ def gqa_apply(
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    y = y.reshape(b, s, cfg.n_heads * hd)
+    y = y.reshape(b, s, hq * hd)
     return dense_apply(p["wo"], y), new_cache
 
 
@@ -410,4 +434,5 @@ __all__ = [
     "mla_cache_init",
     "mla_init",
     "prefill_cache",
+    "select_kv",
 ]

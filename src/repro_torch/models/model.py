@@ -6,17 +6,26 @@ the reference's: the per-group leaves are stacked on a leading ``[G, ...]``
 axis, so converting reference params is a dtype change, and ``forward``
 loops over the groups in Python where the reference scans.  Of the
 reference's ``ShardingPolicy`` (``models/sharding.py``) the train step
-keeps the knobs that change what is computed or held (``loss_chunk``,
-``microbatches``), which :class:`Model` reads from its policy; per-layer
-rematerialisation and the mesh's gather hoisting change no number and are
-left out.  ``mesh=`` (a ``(data, model)`` ``torch.distributed``
-``DeviceMesh``, one process a rank) reaches the MoE layers, which run
-expert parallel as the reference's do (``models/moe.py``; the policy's
-``batch_axes`` and ``tensor_parallel``); every other layer runs whole on
-each rank, and each rank holds the params :func:`shard_params` gives it
-(its slice of the experts).  Training attends through ``chunked_attention``
+reads ``loss_chunk``, ``microbatches`` and, on a mesh, the layout fields
+(``batch_axes``, ``fsdp_axes``, ``seq_shard``, ``tensor_parallel``,
+``hoist_dense_gathers``); per-layer rematerialisation (``remat``) is not
+done.  Training attends through ``chunked_attention``
 (``attn_impl="chunked"``), as the reference trains through its XLA path;
 serving's prefill through the ``flash_attention`` kernel.
+
+``mesh=`` (a ``(data, model)`` ``torch.distributed`` ``DeviceMesh``, one
+process a rank) runs the reference's sharded program with explicit
+collectives (``models/spmd.py``).  Each rank holds its block of every
+parameter (:func:`~repro_torch.models.sharding.shard_params`: tensor
+parallel over ``model``, FSDP over ``data``; MLA and recurrent configs
+split only their experts) and of the optimizer state and caches.  The
+steps take the global batch on every rank and each keeps its rows; the
+residual stream is batch-sharded over the batch axes and, in train and
+prefill, sequence-sharded over ``model`` (``act_spec``); the sequence is
+all-gathered at each mixer and FFN entry (``_full_s``); logits are
+vocab-sharded over ``model`` and the cross entropy is vocab parallel,
+normalised by the global token count.  Prefill and decode return the
+whole logits on every rank.
 """
 
 from __future__ import annotations
@@ -29,7 +38,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ATTN, FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.blocks import block_apply, block_cache_init, block_init
+from repro_torch.models.blocks import (
+    attention_plan,
+    block_apply,
+    block_cache_init,
+    block_init,
+)
 from repro_torch.models.layers import (
     embed_apply,
     embed_init,
@@ -38,7 +52,32 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed_apply,
 )
-from repro_torch.models.sharding import ShardingPolicy, global_norm, shard_params
+from repro_torch.models.sharding import (
+    ShardingPolicy,
+    _map_with_path,
+    gather_params,
+    global_norm,
+    mesh_axes,
+    param_specs,
+    shard_params,
+    take_slice,
+)
+from repro_torch.models.spmd import (
+    _AllReduceSum,
+    _VocabLSE,
+    all_gather,
+    all_reduce,
+    axis_names,
+    enter,
+    hoisted,
+    leave,
+    make_layout,
+    own_block,
+    psum,
+    reduce_scatter,
+    use,
+    use_tree,
+)
 from repro_torch.optim.adamw import (
     AdamWConfig,
     tree_adamw_init,
@@ -47,6 +86,7 @@ from repro_torch.optim.adamw import (
 )
 
 F32 = torch.float32
+META = torch.device("meta")
 
 
 def _stack(trees: list) -> Any:
@@ -107,7 +147,24 @@ def _tree_from_leaves(like: Any, leaves) -> Any:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: the zoo's inits allocate
+    on ``generator.device``, so under it they build ``meta`` leaves and
+    draw nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return META
+
+
+def meta_params(cfg: ModelConfig) -> dict[str, Any]:
+    """The params of ``cfg`` as ``meta`` tensors at their global shapes."""
+    return init_params(cfg, _MetaGenerator())
+
+
+def init_params(
+    cfg: ModelConfig, generator: torch.Generator, shard=None
+) -> dict[str, Any]:
     """Fresh params on the generator's device, with the reference's names,
     shapes and init scales (its distributions, not its bits): the
     unrolled dense prefix (``first_k_dense`` layers of attention and a
@@ -116,15 +173,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
     ``g`` is drawn into slice ``[g]``, groups in order, so the peak holds
     the params and one group more (not twice the params); a single group
     (jamba cut to 4 layers) is its own ``[1, ...]`` view; a config with no
-    group (the planner's walk of the layers outside them) gets ``{}``."""
+    group (the planner's walk of the layers outside them) gets ``{}``.
+
+    ``shard(path, leaf)``: the block to keep of each freshly drawn leaf
+    (a group's leaf one group at a time), so a mesh rank holds only its
+    blocks and one group's whole leaves at a time; the numbers are the
+    whole init's, sliced."""
+    if shard is None:
+
+        def shard(path, leaf):
+            return leaf
+
+    def kept(tree, prefix):
+        return _map_with_path(shard, tree, prefix)
+
     params: dict[str, Any] = {
-        "embed": embed_init(cfg, generator),
-        "final_norm": norm_init(cfg, cfg.d_model, generator.device),
+        "embed": kept(embed_init(cfg, generator), "embed"),
+        "final_norm": kept(
+            norm_init(cfg, cfg.d_model, generator.device), "final_norm"
+        ),
     }
     if cfg.first_k_dense:
         d_ff = cfg.first_k_dense_d_ff or cfg.d_ff
         params["prefix"] = {
-            f"l{i}": block_init(cfg, ATTN, FFN_DENSE, generator, d_ff=d_ff)
+            f"l{i}": kept(
+                block_init(cfg, ATTN, FFN_DENSE, generator, d_ff=d_ff), f"prefix/l{i}"
+            )
             for i in range(cfg.first_k_dense)
         }
     groups = None
@@ -133,6 +207,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict[str, Any]:
             f"b{j}": block_init(cfg, mixer, ffn, generator)
             for j, (mixer, ffn) in enumerate(cfg.pattern)
         }
+        one = kept(one, "groups")
         if cfg.n_groups == 1:  # a [1, ...] view: no second copy of the params
             groups = _tree_map(lambda t: t[None], one)
             break
@@ -150,20 +225,24 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict[str, Any]:
-    """Empty decode caches for ``seq_len`` tokens (ring-buffer length for
-    SWA models; a recurrent mixer's state has no length): the prefix's
-    per layer, the groups' stacked ``[G, ...]`` like the params."""
+def init_caches(
+    cfg: ModelConfig, batch: int, seq_len: int, device, n_kv: int | None = None
+) -> dict[str, Any]:
+    """Empty decode caches of ``batch`` rows for ``seq_len`` tokens
+    (ring-buffer length for SWA models; a recurrent mixer's state has no
+    length): the prefix's per layer, the groups' stacked ``[G, ...]`` like
+    the params.  ``n_kv``: the kv heads an attention cache holds (default
+    all)."""
     dtype = torch_dtype(cfg.dtype)
     clen = cache_len_for(cfg, seq_len)
     caches: dict[str, Any] = {}
     if cfg.first_k_dense:
         caches["prefix"] = {
-            f"l{i}": block_cache_init(cfg, ATTN, batch, clen, dtype, device)
+            f"l{i}": block_cache_init(cfg, ATTN, batch, clen, dtype, device, n_kv)
             for i in range(cfg.first_k_dense)
         }
     one = {
-        f"b{j}": block_cache_init(cfg, mixer, batch, clen, dtype, device)
+        f"b{j}": block_cache_init(cfg, mixer, batch, clen, dtype, device, n_kv)
         for j, (mixer, _) in enumerate(cfg.pattern)
     }
     groups = _stacked_empty(one, cfg.n_groups)
@@ -185,11 +264,10 @@ def forward(
     mode: str,
     caches: dict[str, Any] | None = None,
     attn_impl: str = "kernel",
-    mesh=None,
-    policy: ShardingPolicy = ShardingPolicy(),
+    layout=None,
 ):
     """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S] (or
-    M-RoPE's [3,B,S]).  ``mesh``: see the module docstring.
+    M-RoPE's [3,B,S]).
 
     Returns (hidden [B,S,D], aux, caches): ``aux`` is the sum of the MoE
     layers' router losses (a float32 scalar, 0 without MoE); the caches
@@ -198,20 +276,25 @@ def forward(
     written in place (a recurrent mixer's new state copied into its
     group's slice), in train mode (the teacher-forced forward) None.
     ``attn_impl``: ``"kernel"`` (serving) or ``"chunked"`` (training; see
-    ``attention.gqa_apply``)."""
+    ``attention.gqa_apply``).
+
+    ``layout`` (``models/spmd.py::Layout``): on a mesh, ``inputs`` and
+    ``positions`` are this rank's rows, ``params`` and ``caches`` its
+    blocks, and ``hidden`` its part of the stream (``[B/d, S/m, D]``
+    where the stream is sequence-sharded)."""
+    L = layout
     if inputs.dtype in (torch.int32, torch.int64):
-        x = embed_apply(params["embed"], inputs)
+        if L is None:
+            x = embed_apply(params["embed"], inputs)
+        else:
+            x = _embed_on_mesh(cfg, params["embed"], inputs, L)
     else:
-        x = inputs.to(torch_dtype(cfg.dtype)).contiguous()
+        x = inputs.to(torch_dtype(cfg.dtype))
+        if L is not None:
+            x = x[:, L.seq_block(x.shape[1])]
+        x = x.contiguous()
     aux = torch.zeros((), dtype=F32, device=x.device)
-    kw = dict(
-        mode=mode,
-        positions=positions,
-        attn_impl=attn_impl,
-        mesh=mesh,
-        batch_axes=policy.batch_axes,
-        tp=policy.tensor_parallel,
-    )
+    kw = dict(mode=mode, positions=positions, attn_impl=attn_impl, layout=L)
     handed: dict[str, Any] = {}
     if cfg.first_k_dense:
         handed["prefix"] = {}
@@ -219,23 +302,28 @@ def forward(
             name = f"l{i}"
             c = caches["prefix"][name] if caches is not None else None
             x, nc, _ = block_apply(
-                cfg, params["prefix"][name], x, mixer=ATTN, ffn=FFN_DENSE, cache=c, **kw
-            )
+                cfg, params["prefix"][name], x, mixer=ATTN, ffn=FFN_DENSE, cache=c,
+                path=f"prefix/{name}", **kw,
+            )  # fmt: skip
             handed["prefix"][name] = nc
     in_groups = {f"b{j}": [] for j in range(len(cfg.pattern))}
     for g, gp in enumerate(_unbind(params["groups"], cfg.n_groups)):
         for j, (mixer, ffn) in enumerate(cfg.pattern):
             c = _index(caches["groups"][f"b{j}"], g) if caches is not None else None
             x, nc, a = block_apply(
-                cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, cache=c, **kw
-            )
+                cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, cache=c,
+                path=f"groups/b{j}", **kw,
+            )  # fmt: skip
             if mode == "decode" and nc is not c:
                 # a recurrent mixer's next state, into the caches in place
                 _put(caches["groups"][f"b{j}"], nc, g)
             in_groups[f"b{j}"].append(nc)
             if a is not None:
                 aux = aux + a
-    x = norm_apply(cfg, params["final_norm"], x)
+    final = params["final_norm"]
+    if L is not None:
+        final = use_tree(L, final, "final_norm", L.vary_stream)
+    x = norm_apply(cfg, final, x)
     if mode == "prefill":
         handed["groups"] = {k: _stack(v) for k, v in in_groups.items() if v}
         return x, aux, handed
@@ -261,16 +349,24 @@ def chunked_xent(
     labels: torch.Tensor,
     *,
     loss_chunk: int = 2048,
+    layout=None,
 ):
     """Cross entropy over S in chunks of ``min(loss_chunk, S)`` tokens:
     the float32 logsumexp minus the gold logit, labels < 0 masked out.
     Returns ``(sum_nll, n_valid)``, float32 scalars.  Under autograd each
     chunk is checkpointed (the reference's ``jax.checkpoint``), so the
-    ``[B, S, V]`` logits are never held, in the forward or the backward."""
+    ``[B, S, V]`` logits are never held, in the forward or the backward.
+
+    ``layout``: on a mesh, ``hidden`` is this rank's part of the stream
+    and ``labels`` its rows; the sequence is gathered, the logits are
+    this rank's block of the vocabulary (where it divides over
+    ``model``), the logsumexp's max and sum of exponentials are
+    all-reduced over ``model`` and the gold logit comes from the rank
+    that holds it; both sums are over the global batch."""
+    if layout is not None:
+        return _chunked_xent_on_mesh(cfg, params, hidden, labels, layout, loss_chunk)
     b, s, _ = hidden.shape
-    c = min(loss_chunk, s)
-    if s % c:
-        raise ValueError(f"chunked_xent: S={s} is no multiple of the chunk {c}")
+    c = _loss_chunk(s, loss_chunk)
     nll = torch.zeros((), dtype=F32, device=hidden.device)
     n = torch.zeros((), dtype=F32, device=hidden.device)
     for i in range(s // c):
@@ -284,9 +380,129 @@ def chunked_xent(
     return nll, n
 
 
+def _loss_chunk(s: int, loss_chunk: int) -> int:
+    c = min(loss_chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_xent: S={s} is no multiple of the chunk {c}")
+    return c
+
+
+# ---------------------------------------------------------------------------
+# the embedding, the logits and the cross entropy on a mesh
+# ---------------------------------------------------------------------------
+def _embed_on_mesh(cfg: ModelConfig, p: dict, tokens: torch.Tensor, L) -> torch.Tensor:
+    """A vocab-parallel lookup onto the stream: each rank looks up the
+    tokens in its block of the vocabulary (zeros elsewhere) and the
+    partial sums are reduced over ``model``; the whole table on each
+    rank where the vocabulary does not divide."""
+    blk = L.block(cfg.vocab_size)
+    if blk is None:
+        tok = use(L, p["tok"], "embed/tok", L.vary_whole)
+        return leave(tok[tokens.long()], L, False)
+    lo, n = blk
+    tok = use(L, p["tok"], "embed/tok", L.vary_tp, (0, lo, n))
+    ids = tokens.long() - lo
+    inside = (ids >= 0) & (ids < n)
+    e = tok[ids.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    return leave(e, L, True)
+
+
+def _unembed_weight(cfg: ModelConfig, p: dict, L):
+    """``(w [D, V/m or V], first vocab id, vocab parallel)``: the head (or
+    the tied table, transposed) as the logits use it."""
+    blk = L.block(cfg.vocab_size)
+    vary = L.vary_tp if blk is not None else L.vary_whole
+    if cfg.tie_embeddings:
+        block = None if blk is None else (0, *blk)
+        w = use(L, p["tok"], "embed/tok", vary, block).T
+    else:
+        block = None if blk is None else (1, *blk)
+        w = use(L, p["head"]["w"], "embed/head/w", vary, block)
+    return w, (0 if blk is None else blk[0]), blk is not None
+
+
+def _xent_chunk_on_mesh(h, w, lab, lo, group):
+    """One chunk's ``(sum nll, n valid)`` over this rank's rows: the
+    logits ``h @ w`` in float32, the vocab block's logsumexp and gold
+    logit combined over ``group`` (None: the whole vocabulary here)."""
+    logits = (h @ w).float()
+    if group is None:
+        lse = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        v = logits.shape[-1]
+        lse = _VocabLSE.apply(logits, group)
+        ids = lab.clamp(min=0).long() - lo
+        inside = (ids >= 0) & (ids < v)
+        gold = logits.gather(-1, ids.clamp(0, v - 1)[..., None])[..., 0]
+        gold = _AllReduceSum.apply(gold.masked_fill(~inside, 0), group)
+    mask = (lab >= 0).to(F32)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def _chunked_xent_on_mesh(cfg, params, hidden, labels, L, loss_chunk):
+    w, lo, vp = _unembed_weight(cfg, params["embed"], L)
+    h = enter(hidden, L, vp)
+    group = L.group(L.model) if vp else None
+    b, s, _ = h.shape
+    c = _loss_chunk(s, loss_chunk)
+    nll = torch.zeros((), dtype=F32, device=h.device)
+    n = torch.zeros((), dtype=F32, device=h.device)
+    for i in range(s // c):
+        args = (h[:, i * c : (i + 1) * c], w, labels[:, i * c : (i + 1) * c], lo, group)
+        if torch.is_grad_enabled():
+            dn, dc = checkpoint(_xent_chunk_on_mesh, *args, use_reentrant=False)
+        else:
+            dn, dc = _xent_chunk_on_mesh(*args)
+        nll, n = nll + dn, n + dc
+    # the rows' sums over the global batch
+    return psum(nll, L, L.batch), all_reduce(n, L.groups(L.batch))
+
+
+def _whole_logits(cfg: ModelConfig, params: dict, h: torch.Tensor, L) -> torch.Tensor:
+    """``h`` [B/d, 1, D] (the same on every model rank) -> the whole
+    logits [B, 1, V] on every rank: this rank's vocabulary block
+    gathered over ``model``, its rows over the batch axes."""
+    w, _, vp = _unembed_weight(cfg, params["embed"], L)
+    logits = h @ w
+    if vp:
+        logits = all_gather(logits, L.group(L.model), 2)
+    for a in reversed(L.batch):
+        logits = all_gather(logits, L.group(a), 0)
+    return logits
+
+
+def _last_hidden(hidden: torch.Tensor, L) -> torch.Tensor:
+    """The stream's last position [B/d, 1, D] on every model rank (the
+    last model rank holds it when the stream is sequence-sharded)."""
+    last = hidden[:, -1:]
+    if L.seq:
+        last = all_gather(last, L.group(L.model), 1)[:, -1:]
+    return last
+
+
+def _rows(batch: dict, L, b: int) -> dict:
+    """This rank's rows of every leaf of a global batch (M-RoPE's
+    ``[3, B, S]`` positions along their batch axis)."""
+    rows = L.rows(b)
+    return {
+        k: x[:, rows] if (k == "positions" and x.dim() == 3) else x[rows]
+        for k, x in batch.items()
+    }
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
+def _inputs_positions(cfg: ModelConfig, batch: dict):
+    inputs = batch.get("tokens", batch.get("embeds"))
+    b, s = inputs.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
+    return inputs, positions, b, s
+
+
 def make_loss_fn(
     cfg: ModelConfig,
     *,
@@ -294,30 +510,36 @@ def make_loss_fn(
     loss_chunk: int = 2048,
     mesh=None,
     policy: ShardingPolicy = ShardingPolicy(),
+    hoist: frozenset = frozenset(),
 ):
     """``(params, batch{tokens|embeds, labels[, positions]}) -> (total,
     {"loss", "aux", "n_tokens"})``: the mean next-token loss over the
     labels >= 0, plus the router loss (0 without MoE) at the config's
-    weight."""
+    weight.  On a ``mesh`` the batch is the global one (every rank the
+    same; each keeps its rows), ``params`` this rank's blocks, and the
+    loss and ``n_tokens`` are the global batch's on every rank.
+    ``hoist``: paths whose leaves arrive gathered over the FSDP axes
+    (the train step's ``hoist_dense_gathers``)."""
+    specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
 
     def loss_fn(params, batch):
-        inputs = batch.get("tokens", batch.get("embeds"))
-        b, s = inputs.shape[:2]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
+        inputs, positions, b, s = _inputs_positions(cfg, batch)
+        L = None
+        if mesh is not None:
+            L = make_layout(
+                mesh, policy, specs, batch=b, seq_len=s, mode="train", hoist=hoist
+            )
+            local = _rows({"x": inputs, "labels": batch["labels"],
+                           "positions": positions}, L, b)  # fmt: skip
+            inputs, positions = local["x"], local["positions"]
+            labels = local["labels"]
+        else:
+            labels = batch["labels"]
         hidden, aux, _ = forward(
-            cfg,
-            params,
-            inputs,
-            positions,
-            mode="train",
-            attn_impl=attn_impl,
-            mesh=mesh,
-            policy=policy,
+            cfg, params, inputs, positions, mode="train", attn_impl=attn_impl, layout=L
         )
         nll, n = chunked_xent(
-            cfg, params, hidden, batch["labels"], loss_chunk=loss_chunk
+            cfg, params, hidden, labels, loss_chunk=loss_chunk, layout=L
         )
         loss = nll / torch.clamp(n, min=1.0)
         total = loss + cfg.moe.router_aux_weight * aux
@@ -345,6 +567,50 @@ def value_and_grad(loss_fn, params, batch):
     return total.detach(), metrics, _tree_from_leaves(params, iter(grads))
 
 
+def _gather_hoisted(params: dict, specs: dict, paths, mesh, policy) -> dict:
+    """``params`` with the hoisted leaves gathered over the FSDP axes that
+    split them (plain tensors: their gradients accumulate gathered)."""
+    fsdp = set(policy.fsdp_axes)
+
+    def one(path, leaf):
+        if path not in paths:
+            return leaf
+        with torch.no_grad():
+            for dim, ax in enumerate(specs[path]):
+                for a in reversed(axis_names(ax)):
+                    if a in fsdp:
+                        leaf = all_gather(leaf, mesh.get_group(a), dim)
+        return leaf
+
+    return _map_with_path(one, params)
+
+
+def _reduce_hoisted(grads: dict, specs: dict, paths, mesh, policy, batch_axes):
+    """The hoisted leaves' gradients back to the params' blocks: summed
+    over the FSDP axes that split the rows (a reduce-scatter where the
+    leaf is split over the axis, an all-reduce where it is not), the
+    rank's block over an FSDP axis that does not split the rows."""
+    fsdp = set(policy.fsdp_axes)
+
+    def one(path, g):
+        if path not in paths:
+            return g
+        split = set()
+        for dim, ax in enumerate(specs[path]):
+            for a in axis_names(ax):
+                if a in fsdp:
+                    split.add(a)
+                    group = mesh.get_group(a)
+                    if a in batch_axes:
+                        g = reduce_scatter(g, group, dim)
+                    else:
+                        g = own_block(g, group, dim)
+        summed = [mesh.get_group(a) for a in batch_axes if a in fsdp - split]
+        return all_reduce(g, summed) if summed else g
+
+    return _map_with_path(one, grads)
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: AdamWConfig,
@@ -364,16 +630,32 @@ def make_train_step(
     ``positions`` along axis 1, which for ``[B, S]`` ones would be the
     sequence: here those split with the batch); the gradients (in the
     params' dtype), the totals and the metrics are summed over the
-    microbatches and divided by k (``n_tokens`` stays a sum).  Metrics: ``loss, aux,
-    n_tokens, total, grad_norm``.  On a ``mesh`` each rank updates its own
-    params; the clip reads the global norm over the ranks' expert slices."""
+    microbatches and divided by k (``n_tokens`` stays a sum).  Metrics:
+    ``loss, aux, n_tokens, total, grad_norm``.
+
+    On a ``mesh`` the batch is the global one and ``state`` this rank's
+    blocks; a rank's part of microbatch ``i`` is its own rows ``i, i+k,
+    ...`` of the batch.  Each gradient arrives in its param's block,
+    summed over exactly the axes whose ranks computed parts of it.  Under
+    ``policy.hoist_dense_gathers`` the dense-FFN weights are gathered
+    over the FSDP axes once before the microbatches, their gradients
+    accumulate gathered and are reduce-scattered once after.  AdamW runs
+    on the blocks; its clip reads the global norm over them
+    (:func:`~repro_torch.models.sharding.global_norm`)."""
+    specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
+    hoist = frozenset()
+    if mesh is not None and policy.hoist_dense_gathers:
+        hoist = frozenset(p for p in specs if hoisted(p))
     loss_fn = make_loss_fn(
-        cfg, attn_impl=attn_impl, loss_chunk=loss_chunk, mesh=mesh, policy=policy
-    )
+        cfg, attn_impl=attn_impl, loss_chunk=loss_chunk, mesh=mesh, policy=policy,
+        hoist=hoist,
+    )  # fmt: skip
     k = microbatches
 
     def train_step(state, batch):
         params = state["params"]
+        if hoist:
+            params = _gather_hoisted(params, specs, hoist, mesh, policy)
         if k == 1:
             total, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -405,9 +687,18 @@ def make_train_step(
                 "aux": metrics["aux"] / k,
                 "n_tokens": metrics["n_tokens"],
             }
-        gnorm = None if mesh is None else global_norm(grads, mesh, policy, cfg)
+        gnorm = None
+        if mesh is not None:
+            if hoist:
+                inputs = batch.get("tokens", batch.get("embeds"))
+                bt = make_layout(
+                    mesh, policy, specs, batch=inputs.shape[0] // k, seq_len=1,
+                    mode="train",
+                ).batch  # fmt: skip
+                grads = _reduce_hoisted(grads, specs, hoist, mesh, policy, bt)
+            gnorm = global_norm(grads, mesh, policy, cfg)
         params, opt, gnorm = tree_adamw_update(
-            opt_cfg, params, grads, state["opt"], gnorm
+            opt_cfg, state["params"], grads, state["opt"], gnorm
         )
         metrics = dict(metrics, total=total, grad_norm=gnorm)
         return {"params": params, "opt": opt}, metrics
@@ -422,18 +713,23 @@ def make_prefill_step(
     cfg: ModelConfig, *, mesh=None, policy: ShardingPolicy = ShardingPolicy()
 ):
     """(params, batch{tokens|embeds[, positions]}) -> (last logits [B, V],
-    caches to hand to decode)."""
+    caches to hand to decode).  On a ``mesh``: the global batch in, the
+    whole logits on every rank, this rank's blocks of the caches (its
+    rows; its kv heads where they divide over ``model``, all of them
+    where they do not)."""
+    specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
 
     def prefill_step(params, batch):
-        inputs = batch.get("tokens", batch.get("embeds"))
-        b, s = inputs.shape[:2]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = rope_lib.positions_for(cfg, b, s, device=inputs.device)
+        inputs, positions, b, s = _inputs_positions(cfg, batch)
+        if mesh is None:
+            hidden, _, caches = forward(cfg, params, inputs, positions, mode="prefill")
+            return logits_fn(cfg, params, hidden[:, -1:])[:, 0], caches
+        L = make_layout(mesh, policy, specs, batch=b, seq_len=s, mode="prefill")
+        local = _rows({"x": inputs, "positions": positions}, L, b)
         hidden, _, caches = forward(
-            cfg, params, inputs, positions, mode="prefill", mesh=mesh, policy=policy
+            cfg, params, local["x"], local["positions"], mode="prefill", layout=L
         )
-        last = logits_fn(cfg, params, hidden[:, -1:])
+        last = _whole_logits(cfg, params, _last_hidden(hidden, L), L)
         return last[:, 0], caches
 
     return prefill_step
@@ -444,24 +740,28 @@ def make_serve_step(
 ):
     """One decode step: (params, caches, batch{tokens|embeds, pos [B]}) ->
     (logits [B, V], caches).  The caches are written in place and
-    returned."""
+    returned.  On a ``mesh``: the global batch in, the whole logits on
+    every rank, the caches this rank's blocks."""
+    specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
 
     def serve_step(params, caches, batch):
         inputs = batch.get("tokens", batch.get("embeds"))
-        positions = batch["pos"][:, None]
+        pos = batch["pos"]
+        L = None
+        if mesh is not None:
+            b = inputs.shape[0]
+            L = make_layout(mesh, policy, specs, batch=b, seq_len=1, mode="decode")
+            local = _rows({"x": inputs, "pos": pos}, L, b)
+            inputs, pos = local["x"], local["pos"]
+        positions = pos[:, None]
         if cfg.rope == "mrope":
             positions = positions[None].expand(3, *positions.shape)
         hidden, _, new_caches = forward(
-            cfg,
-            params,
-            inputs,
-            positions,
-            mode="decode",
-            caches=caches,
-            mesh=mesh,
-            policy=policy,
+            cfg, params, inputs, positions, mode="decode", caches=caches, layout=L
         )
-        return logits_fn(cfg, params, hidden)[:, 0], new_caches
+        if L is None:
+            return logits_fn(cfg, params, hidden)[:, 0], new_caches
+        return _whole_logits(cfg, params, hidden, L)[:, 0], new_caches
 
     return serve_step
 
@@ -471,12 +771,20 @@ class Model:
     card; raises without one), a sharding policy and an optimizer config.
     Of the policy the loss reads ``loss_chunk`` and the train step
     ``loss_chunk`` and ``microbatches``; ``remat`` is not read: the port does
-    not rematerialise per layer (ROADMAP queue 1 item 3.2); it checkpoints
+    not rematerialise per layer (ROADMAP queue 1 item 2); it checkpoints
     the attention's query chunks, the cross entropy's chunks and the
-    recurrences' chunks.  ``mesh``: a ``(data, model)`` ``DeviceMesh`` of
-    the process group this rank joined; the MoE layers run expert
-    parallel on it, and ``init_params``/``init_train_state`` keep this
-    rank's slice of the experts."""
+    recurrences' chunks.
+
+    ``mesh``: a ``(data, model)`` ``DeviceMesh`` of the process group this
+    rank joined (every rank builds the same ``Model``).  Then each rank
+    holds its blocks (``models/sharding.py::shard_params``): for the
+    configs whose mixers are all GQA attention, every leaf tensor
+    parallel over ``model`` and FSDP over ``data`` (``policy``'s rules;
+    ``dp_over_model``: FSDP over ``data``, whole over ``model``); for MLA
+    and recurrent configs only the experts split.  ``init_params`` and
+    ``init_train_state`` keep the rank's blocks, ``init_caches`` its
+    rows (and kv heads), and the steps take the global batch on every
+    rank (the module docstring says how the work is split)."""
 
     def __init__(
         self,
@@ -492,6 +800,7 @@ class Model:
         self.opt_cfg = opt_cfg
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
         sh = dict(mesh=mesh, policy=policy)
         self.loss_fn = make_loss_fn(cfg, loss_chunk=policy.loss_chunk, **sh)
         self.train_step = make_train_step(
@@ -507,21 +816,48 @@ class Model:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _keep(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a freshly drawn leaf (a group leaf one
+        group at a time: its stacked spec without the group axis)."""
+        spec = self.specs[path]
+        if path.startswith("groups/"):
+            spec = spec[1:]
+        return take_slice(leaf, spec, self.mesh)
+
     def shard(self, params: dict[str, Any]) -> dict[str, Any]:
-        """This rank's part of whole params (themselves without a mesh)."""
+        """This rank's blocks of whole params (themselves without a mesh)."""
         if self.mesh is None:
             return params
         return shard_params(self.cfg, params, self.mesh, self.policy)
 
+    def gather(self, params: dict[str, Any]) -> dict[str, Any]:
+        """Whole params from the ranks' blocks (themselves without a mesh)."""
+        if self.mesh is None:
+            return params
+        return gather_params(self.cfg, params, self.mesh, self.policy)
+
     def init_params(self, seed: int) -> dict[str, Any]:
-        return self.shard(init_params(self.cfg, self._generator(seed)))
+        shard = None if self.mesh is None else self._keep
+        return init_params(self.cfg, self._generator(seed), shard)
 
     def init_train_state(self, seed: int) -> dict[str, Any]:
         params = self.init_params(seed)
         return {"params": params, "opt": tree_adamw_init(self.opt_cfg, params)}
 
     def init_caches(self, batch: int, seq_len: int) -> dict[str, Any]:
-        return init_caches(self.cfg, batch, seq_len, self.device)
+        """Empty caches for ``batch`` rows (on a mesh, this rank's rows
+        and kv heads, as the prefill hands them over)."""
+        if self.mesh is None:
+            return init_caches(self.cfg, batch, seq_len, self.device)
+        L = make_layout(
+            self.mesh, self.policy, self.specs, batch=batch, seq_len=1, mode="decode"
+        )
+        rows = L.rows(batch)
+        plan = attention_plan(self.cfg, L)
+        n_kv = None if plan is None or plan[1] is None else plan[1][1]
+        return init_caches(
+            self.cfg, rows.stop - rows.start, seq_len, self.device, n_kv
+        )
 
 
 def build_model(cfg: ModelConfig, **kw) -> Model:
@@ -543,5 +879,6 @@ __all__ = [
     "make_prefill_step",
     "make_serve_step",
     "make_train_step",
+    "meta_params",
     "value_and_grad",
 ]

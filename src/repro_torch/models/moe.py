@@ -14,18 +14,20 @@ on both, so a dropped pair is scattered into one spare row past the
 grouped SwiGLU runs every expert over its ``C`` rows, filled or not: the
 reference's arithmetic, whatever the routing.
 
-With a mesh, :func:`moe_apply` follows the reference's ``shard_map``
-rules (``moe_apply``'s docstring): experts split over ``model`` (each
-rank holds ``E / n_model`` of them, :func:`shard_moe_params`), and over
-``data`` on their ``d_model`` axis (FSDP) where it divides.  The rest of
-the model runs replicated on every rank, so the layer takes and returns
-the whole ``[B, S, D]`` on each: it slices its rank's tokens on entry and
-gathers ``y`` on exit.  The collectives are autograd functions whose
-backward is the transpose the reference's ``shard_map`` gets from JAX for
-a program replicated outside the layer: each rank's loss is the same
-number, and a replicated tensor's gradient is the whole gradient on every
-rank.  A mesh rank runs on one device: ``gloo`` backs it on the CPU,
-NCCL on the card.
+With a mesh, the layer follows the reference's ``shard_map`` rules:
+experts split over ``model`` (each rank holds ``E / n_model`` of them,
+:func:`shard_moe_params`), and over ``data`` on their ``d_model`` axis
+(FSDP) where it divides.  In the model (:func:`moe_stream`) the layer
+takes the rank's own part of the residual stream, its rows and, in train
+and prefill, its block of the sequence (``models/spmd.py``): those are
+the expert-parallel path's tokens, so nothing is sliced on entry or
+gathered on exit.  :func:`moe_apply` is the reference's layer on the
+whole ``[B, S, D]`` on every rank: it slices the rank's tokens out and
+gathers ``y`` back.  The collectives are ``models/spmd.py``'s autograd
+functions, whose backward is the transpose JAX gives the reference's
+``shard_map``: a replicated tensor's gradient is the whole gradient on
+every rank.  A mesh rank runs on one device: ``gloo`` backs it on the
+CPU, NCCL on the card.
 """
 
 from __future__ import annotations
@@ -46,15 +48,18 @@ from repro_torch.models.sharding import (
     mesh_coord,
     take_slice,
 )
+from repro_torch.models.spmd import (
+    _AllReduceSum,
+    _AllToAll,
+    _Enter,
+    _Gather,
+    _Mean,
+    group_size as _group_size,
+)
+from repro_torch.models.spmd import all_to_all as _all_to_all  # noqa: F401
 
 F32 = torch.float32
 EXPERTS = ("w1", "w3", "w2")
-# the names ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` took
-# in newer PyTorch; either is the same collective
-_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-_REDUCE_SCATTER = (
-    getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-)
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -108,129 +113,6 @@ def shard_moe_params(cfg: ModelConfig, p: dict, mesh, *, tp: bool = True) -> dic
     for name in EXPERTS:
         out[name] = take_slice(p[name], expert_spec(cfg, name, axes, tp), mesh)
     return out
-
-
-# ---------------------------------------------------------------------------
-# collectives with their gradients
-# ---------------------------------------------------------------------------
-def _group_size(group) -> int:
-    return dist.get_world_size(group)
-
-
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    x = x.contiguous()  # a gradient may come transposed; blocks are rows
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
-
-
-def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    src = x.movedim(dim, 0).contiguous()
-    out = src.new_empty((_group_size(group) * src.shape[0], *src.shape[1:]))
-    _ALL_GATHER(out, src, group=group)
-    return out.movedim(0, dim).contiguous()
-
-
-class _AllToAll(torch.autograd.Function):
-    """``all_to_all_single`` of equal splits of dim 0 over ``group``: the
-    reference's ``all_to_all(split_axis=0, concat_axis=0)``.  Block ``i``
-    goes to rank ``i`` and block ``j`` of the result came from rank ``j``,
-    so the exchange is its own transpose."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_to_all(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
-
-
-class _Enter(torch.autograd.Function):
-    """A replicated tensor entering the per-rank body: forward its block
-    ``index`` (a tuple of slices; None: the whole tensor, a view), backward
-    the block's gradient put back in place in zeros and summed over
-    ``groups``.  For the tokens this gathers the blocks the mesh split and
-    sums where the ranks shared them (decode: each model rank's local
-    experts give a part); for the router (under ``P()``) it is the
-    ``psum`` JAX puts in the transpose of the broadcast; for experts
-    replicated over ``data`` it sums the data ranks' gradients."""
-
-    @staticmethod
-    def forward(ctx, t, index, groups):
-        ctx.shape, ctx.index, ctx.groups = t.shape, index, groups
-        return t.view_as(t) if index is None else t[index].clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.index is None:
-            full = g.contiguous().clone()
-        else:
-            full = g.new_zeros(ctx.shape)
-            full[ctx.index] = g
-        for group in ctx.groups:
-            dist.all_reduce(full, group=group)
-        return full, None, None
-
-
-class _Gather(torch.autograd.Function):
-    """All-gather along ``dim`` over ``group``.  ``reduce=False``: the
-    result is replicated and everything after it runs identically on
-    every rank (``y`` on exit, the whole experts of the local path), so
-    the backward is the rank's own block of the gradient, not a sum over
-    ranks (``torch.distributed.nn``'s all-gather sums, which scales the
-    gradient by the group size here).  ``reduce=True``: FSDP's gather of
-    weights that each rank then uses on its own tokens; the backward is a
-    reduce-scatter."""
-
-    @staticmethod
-    def forward(ctx, t, group, dim, reduce):
-        ctx.group, ctx.dim, ctx.reduce = group, dim, reduce
-        ctx.block = t.shape[dim]
-        return _all_gather(t, group, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        g0 = g.movedim(ctx.dim, 0).contiguous()
-        if ctx.reduce:
-            out = g0.new_empty((ctx.block, *g0.shape[1:]))
-            _REDUCE_SCATTER(out, g0, group=ctx.group)
-        else:
-            out = g0.narrow(0, dist.get_rank(ctx.group) * ctx.block, ctx.block)
-        return out.movedim(0, ctx.dim).contiguous(), None, None, None
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """``psum`` over ``group`` into a replicated result: the backward
-    hands every rank the whole gradient (JAX's transpose of ``psum``)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _Mean(torch.autograd.Function):
-    """The mean of each rank's value over ``groups`` (``n`` ranks in all),
-    replicated: the backward gives each rank ``1 / n`` of the gradient."""
-
-    @staticmethod
-    def forward(ctx, x, groups, n):
-        ctx.n = n
-        out = x.contiguous().clone()
-        for group in groups:
-            dist.all_reduce(out, group=group)
-        return out / n
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +265,51 @@ def _check_local(cfg: ModelConfig, p: dict, name: str, axes: dict, tp: bool):
     return p[name]
 
 
+def _ep_ok(cfg: ModelConfig, axes: dict, bt: tuple, tp: bool) -> bool:
+    """The reference's rule for the expert-parallel path: ``tp`` on, the
+    rows split over batch axes in the mesh, a model axis over 1 that
+    divides the experts."""
+    n_model = axes.get("model", 1)
+    return bool(tp and bt and n_model > 1 and not cfg.moe.n_experts % n_model)
+
+
+def _moe_ep(cfg: ModelConfig, p: dict, xs: torch.Tensor, mesh, *, seq_sharded, tp):
+    """The expert-parallel body on this rank's own tokens ``xs`` (its rows,
+    and under sequence sharding its block of S): ``(y like xs, aux)``,
+    ``aux`` the mean of every rank's router loss.  The router enters
+    replicated (its gradient summed over the mesh); experts replicated
+    over an axis other than model (data, unless FSDP splits them there)
+    sum their gradients over it."""
+    axes = mesh_axes(mesh)
+    d = xs.shape[-1]
+    world = [mesh.get_group(a) for a in axes]
+    router = _Enter.apply(p["router"], None, world)
+    fsdp = axes.get("data", 1) > 1 and d % axes["data"] == 0
+    rep = [
+        mesh.get_group(a)
+        for a in axes
+        if a != "model" and axes[a] > 1 and not (fsdp and a == "data")
+    ]
+    w1, w3, w2 = (_check_local(cfg, p, n, axes, tp) for n in EXPERTS)
+    if rep:
+        w1, w3, w2 = (_Enter.apply(w, None, rep) for w in (w1, w3, w2))
+    data = mesh.get_group("data") if "data" in axes else None
+    y, aux = moe_local(
+        cfg, xs.reshape(-1, d), router, w1, w3, w2,
+        seq_sharded=seq_sharded, model=mesh.get_group("model"), data=data,
+    )  # fmt: skip
+    # the reference's pmean over model in the body, then over every axis:
+    # one mean of each rank's own loss over the mesh
+    return y.reshape(xs.shape), _Mean.apply(aux, world, math.prod(axes.values()))
+
+
+def _refuse_unsharded(mode: str, s: int, n_model: int) -> None:
+    raise ValueError(
+        f"moe_apply: mode {mode!r} shards S={s} over model={n_model}; "
+        "the reference's shard_map refuses an S it does not divide"
+    )
+
+
 def moe_apply(
     cfg: ModelConfig,
     p: dict,
@@ -393,7 +320,8 @@ def moe_apply(
     mode: str = "train",
     tp: bool = True,
 ):
-    """x [B, S, D] -> (y [B, S, D], aux loss, a float32 scalar).
+    """x [B, S, D] -> (y [B, S, D], aux loss, a float32 scalar): the
+    reference's ``moe_apply`` on the whole ``x``, the same on every rank.
 
     Without a mesh, the single-shard local path.  With one (a
     ``DeviceMesh`` whose dims include ``model``, ``p`` this rank's slice,
@@ -402,25 +330,21 @@ def moe_apply(
     ``tp`` is off, no batch axis is in the mesh, the batch does not
     divide over the batch axes (a 1-token decode), the model axis is 1,
     or the experts do not divide over it.  Otherwise expert parallel:
-    train and prefill sequence-shard the tokens over ``model`` (the
-    all-to-all branch; an ``S`` that ``model`` does not divide raises, as
-    the reference's ``shard_map`` does for a replicated output its
-    all-to-alls make vary); decode keeps them replicated over ``model``
-    (the psum branch).  ``aux`` is the mean of every rank's router loss."""
-    m = cfg.moe
+    the layer slices this rank's tokens out of ``x`` (train and prefill
+    shard S over ``model``: the all-to-all branch; an ``S`` that ``model``
+    does not divide raises, as the reference's ``shard_map`` does for a
+    replicated output its all-to-alls make vary; decode keeps the tokens
+    replicated over ``model``: the psum branch) and gathers ``y`` back.
+    ``aux`` is the mean of every rank's router loss.  The model itself
+    calls :func:`moe_stream`, on its own part of the stream."""
     b, s, d = x.shape
     seq_sharded = mode in ("train", "prefill")
     axes = {} if mesh is None else mesh_axes(mesh)
     bt = tuple(a for a in batch_axes if a in axes)
     n_model = axes.get("model", 1)
-    if (
-        mesh is None
-        or not tp
-        or not bt
-        or b % axis_size(axes, bt)
-        or n_model == 1
-        or m.n_experts % n_model
-    ):
+    if bt and b % axis_size(axes, bt):
+        bt = ()
+    if mesh is None or not _ep_ok(cfg, axes, bt, tp):
         w1, w3, w2 = _whole_experts(cfg, p, mesh, tp)
         y, aux = moe_local(
             cfg, x.reshape(-1, d), p["router"], w1, w3, w2, seq_sharded=False
@@ -428,15 +352,11 @@ def moe_apply(
         y = y.reshape(b, s, d)
     else:
         if seq_sharded and s % n_model:
-            raise ValueError(
-                f"moe_apply: mode {mode!r} shards S={s} over model={n_model}; "
-                "the reference's shard_map refuses an S it does not divide"
-            )
+            _refuse_unsharded(mode, s, n_model)
         if "model" in bt:
             raise ValueError("moe_apply: the model axis cannot also split the batch")
         world = [mesh.get_group(a) for a in axes if axes[a] > 1]
         model = mesh.get_group("model")
-        data = mesh.get_group("data") if "data" in axes else None
         # this rank's tokens: its batch block, and under sequence sharding
         # its block of S
         bi, nb = mesh_coord(mesh, bt)
@@ -445,34 +365,61 @@ def moe_apply(
             mi = mesh.get_local_rank("model")
             index[1] = slice(mi * (s // n_model), (mi + 1) * (s // n_model))
         xs = _Enter.apply(x, tuple(index), world)
-        router = _Enter.apply(p["router"], None, world)
-        fsdp = axes.get("data", 1) > 1 and d % axes["data"] == 0
-        # experts replicated over an axis other than model (data, unless
-        # FSDP splits them there) sum their gradients over it
-        rep = [
-            mesh.get_group(a)
-            for a in axes
-            if a != "model" and axes[a] > 1 and not (fsdp and a == "data")
-        ]
-        w1, w3, w2 = (_check_local(cfg, p, n, axes, tp) for n in EXPERTS)
-        if rep:
-            w1, w3, w2 = (_Enter.apply(w, None, rep) for w in (w1, w3, w2))
-        y, aux = moe_local(
-            cfg, xs.reshape(-1, d), router, w1, w3, w2,
-            seq_sharded=seq_sharded, model=model, data=data,
-        )  # fmt: skip
-        y = y.reshape(xs.shape)
+        y, aux = _moe_ep(cfg, p, xs, mesh, seq_sharded=seq_sharded, tp=tp)
         # exit: gather y back to [B, S, D] on every rank
         if seq_sharded:
             y = _Gather.apply(y, model, 1, False)
         for a in reversed(bt):
             if axes[a] > 1:
                 y = _Gather.apply(y, mesh.get_group(a), 0, False)
-        # the reference's pmean over model in the body, then over every
-        # axis: one mean of each rank's own loss over the mesh
-        aux = _Mean.apply(aux, world, math.prod(axes.values()))
-    if m.n_shared_experts:
+    if cfg.moe.n_shared_experts:
         y = y + mlp_apply(cfg, p["shared"], x)
+    return y, aux
+
+
+def moe_stream(cfg: ModelConfig, p: dict, h: torch.Tensor, L, *, mode: str, path: str):
+    """The MoE FFN on this rank's part of the stream ``h`` (``L``, a
+    ``models/spmd.py::Layout``): ``(y like h, aux)``.  On the
+    expert-parallel path (the reference's rule) the stream's own tokens
+    are the rank's tokens: no slice on entry, no gather on exit.  Train
+    and prefill need the stream sequence-sharded (an S that ``model``
+    does not divide raises, as the reference does); decode's stream is
+    replicated over ``model`` (the psum branch).  Otherwise the local
+    path runs the reference's global computation: every token gathered
+    on every rank, the whole experts, and the rank's block of ``y`` cut
+    back out.  The shared experts are a tensor-parallel dense FFN on the
+    stream."""
+    from repro_torch.models.blocks import mlp_region
+
+    n_model = L.n_model
+    if _ep_ok(cfg, L.axes, L.batch, L.tp):
+        seq_sharded = mode in ("train", "prefill")
+        xs, s = h, h.shape[1]
+        if seq_sharded and not L.seq:  # a replicated stream (seq_shard off)
+            if s % n_model:
+                _refuse_unsharded(mode, s, n_model)
+            r, size = L.rank(L.model), s // n_model
+            index = (slice(None), slice(r * size, (r + 1) * size))
+            xs = _Enter.apply(h, index, [L.group(L.model)])
+        y, aux = _moe_ep(cfg, p, xs, L.mesh, seq_sharded=seq_sharded, tp=L.tp)
+        if xs is not h:
+            y = _Gather.apply(y, L.group(L.model), 1, False)
+    else:
+        t = h
+        if L.seq:
+            t = _Gather.apply(t, L.group(L.model), 1, False)
+        for a in reversed(L.batch):
+            t = _Gather.apply(t, L.group(a), 0, False)
+        b, s, d = t.shape
+        w1, w3, w2 = _whole_experts(cfg, p, L.mesh, L.tp)
+        y, aux = moe_local(
+            cfg, t.reshape(-1, d), p["router"], w1, w3, w2, seq_sharded=False
+        )
+        index = (L.rows(b), L.seq_block(s))
+        split = L.batch + ((L.model,) if L.seq else ())
+        y = _Enter.apply(y.reshape(b, s, d), index, L.groups(split))
+    if cfg.moe.n_shared_experts:
+        y = y + mlp_region(cfg, p["shared"], h, L, f"{path}/shared")
     return y, aux
 
 
@@ -483,5 +430,6 @@ __all__ = [
     "moe_apply",
     "moe_init",
     "moe_local",
+    "moe_stream",
     "shard_moe_params",
 ]

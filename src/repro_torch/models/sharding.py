@@ -15,11 +15,13 @@ reference's rule: ``None`` when at most one device would join, and every
 caller then runs the single-device path; otherwise a 1-D mesh whose
 devices each hold a shard of the fleet engine's stacked agent axis
 (:class:`FleetSharding` says which).  On a ``(data, model)``
-``torch.distributed`` ``DeviceMesh`` the zoo splits only its MoE experts
-(:func:`shard_params`, read by ``models/moe.py``'s expert-parallel
-path); every other leaf stays whole on each rank.  The zoo's in-model
-constraints (``hoist_constrain``, ``act_spec``, ``constrain`` in the
-reference) are not ported: they change no number.
+``torch.distributed`` ``DeviceMesh`` each rank keeps its block of every
+zoo parameter under these rules (:func:`shard_params`; the configs with
+MLA or recurrent mixers split only their experts,
+:func:`tensor_parallel_config`), and ``models/spmd.py`` lays out the
+activations as the reference's ``act_spec`` and ``_full_s`` do;
+:func:`gather_params` puts whole params back together and
+:func:`global_norm` is the clip's norm over the blocks.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from repro_torch.optim.adamw import tree_leaves
+from repro_torch.configs.base import ATTN
+
 
 FSDP = "__fsdp__"  # placeholder resolved to policy.fsdp_axes
 MODEL = "model"
@@ -42,15 +45,17 @@ FLEET = "fleet"  # the stacked agent axis of the fleet engine
 
 @dataclass(frozen=True)
 class ShardingPolicy:
-    """The reference's policy, field for field.  What a run on one card
-    reads of it: ``loss_chunk`` and ``microbatches`` (the train step's
-    ``chunked_xent`` chunk and gradient accumulation).  ``q_chunk`` and
-    ``kv_chunk`` are carried as in the reference, whose model does not
-    read them either (its attention runs at their defaults, 512 and
-    1024).  ``remat`` (per-layer rematerialisation) and
-    ``hoist_dense_gathers`` are planning fields here: the port's train
-    step does not rematerialise per layer (ROADMAP queue 1 item 3.2) and
-    gathers nothing on one card."""
+    """The reference's policy, field for field.  Every run reads
+    ``loss_chunk`` and ``microbatches`` (the train step's ``chunked_xent``
+    chunk and gradient accumulation); a run on a mesh also the layout
+    fields (``batch_axes``, ``model_axis``, ``fsdp_axes``, ``seq_shard``,
+    ``tensor_parallel``) and ``hoist_dense_gathers`` (the dense-FFN
+    weights gathered once a step, not once a microbatch).  ``q_chunk``
+    and ``kv_chunk`` are carried as in the reference, whose model does
+    not read them either (its attention runs at their defaults, 512 and
+    1024).  ``remat`` (per-layer rematerialisation) is a planning field:
+    the port's train step does not rematerialise per layer (ROADMAP
+    queue 1 item 2)."""
 
     batch_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"
@@ -226,7 +231,7 @@ def cache_shardings(tree, mesh_shape: dict[str, int], policy: ShardingPolicy):
 
 
 # ---------------------------------------------------------------------------
-# The zoo on a (data, model) DeviceMesh: the experts' slices
+# The zoo on a (data, model) DeviceMesh: each rank's blocks
 # ---------------------------------------------------------------------------
 EXPERT_LEAVES = ("*/w1", "*/w3", "*/w2")
 
@@ -264,46 +269,108 @@ def take_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return t.clone() if sliced else t
 
 
-def _expert_spec(path: str, leaf, axes: dict, policy: ShardingPolicy, cfg):
-    """The spec of an expert leaf (``*/w1``, ``*/w3``, ``*/w2``), None for
-    every other leaf: until the rest of the zoo is sharded, only the
-    experts are split; everything else is whole on every rank."""
-    if not any(fnmatch.fnmatch(path, pat) for pat in EXPERT_LEAVES):
-        return None
-    return leaf_pspec(path, tuple(leaf.shape), axes, policy, cfg)
+def tensor_parallel_config(cfg) -> bool:
+    """Whether every mixer of ``cfg`` is GQA attention (its FFNs dense or
+    MoE): the configs whose every leaf a mesh lays out by
+    :func:`leaf_pspec`.  The others (MLA and the recurrent mixers) split
+    only their experts until their mixers' rules are ported."""
+    return all(mixer == ATTN for mixer, _ in cfg.pattern)
+
+
+def leaf_spec(cfg, path: str, shape, mesh_shape: dict, policy: ShardingPolicy) -> tuple:
+    """The stored spec of leaf ``path`` (global ``shape``) on a mesh of
+    ``mesh_shape``: :func:`leaf_pspec`, except that a config outside
+    :func:`tensor_parallel_config` keeps every leaf but its experts
+    whole."""
+    if tensor_parallel_config(cfg) or any(
+        fnmatch.fnmatch(path, pat) for pat in EXPERT_LEAVES
+    ):
+        return leaf_pspec(path, tuple(shape), mesh_shape, policy, cfg)
+    return (None,) * len(shape)
+
+
+def param_specs(cfg, mesh_shape: dict, policy: ShardingPolicy = ShardingPolicy()) -> dict:
+    """``{path: stored spec}`` of every parameter of ``cfg`` (a stacked
+    ``groups/...`` leaf's spec with its leading group axis), from the
+    params' global shapes on ``meta``."""
+    from repro_torch.models.model import meta_params
+
+    specs: dict = {}
+
+    def one(path, leaf):
+        specs[path] = leaf_spec(cfg, path, tuple(leaf.shape), mesh_shape, policy)
+
+    _map_with_path(one, meta_params(cfg))
+    return specs
 
 
 def shard_params(cfg, params: dict, mesh, policy: ShardingPolicy = ShardingPolicy()):
-    """A rank's own params on ``mesh``: each MoE layer's experts sliced by
-    the reference's rules (``E / n_model`` experts a rank; under FSDP
-    their ``d_model`` axis split over ``data``), every other leaf
-    whole.  A stacked ``[G, ...]`` leaf keeps its group axis whole."""
+    """A rank's own blocks of whole params on ``mesh`` (:func:`leaf_spec`):
+    for the configs whose mixers are all GQA every leaf under the
+    reference's rules (tensor parallel over ``model``, FSDP over
+    ``data``), for the others only the experts.  A stacked ``[G, ...]``
+    leaf keeps its group axis whole."""
     axes = mesh_axes(mesh)
 
     def one(path, leaf):
-        spec = _expert_spec(path, leaf, axes, policy, cfg)
-        return leaf if spec is None else take_slice(leaf, spec, mesh)
+        spec = leaf_spec(cfg, path, tuple(leaf.shape), axes, policy)
+        return take_slice(leaf, spec, mesh)
 
     return _map_with_path(one, params)
 
 
-def global_norm(grads: dict, mesh, policy: ShardingPolicy = ShardingPolicy(), cfg=None):
+def gather_params(cfg, params: dict, mesh, policy: ShardingPolicy = ShardingPolicy()):
+    """The whole params on every rank, all-gathered from the ranks' blocks
+    (:func:`shard_params`'s inverse; no gradient)."""
+    from repro_torch.models.spmd import all_gather, axis_names
+
+    specs = param_specs(cfg, mesh_axes(mesh), policy)
+
+    def one(path, leaf):
+        for dim, ax in enumerate(specs[path]):
+            for a in reversed(axis_names(ax)):
+                leaf = all_gather(leaf, mesh.get_group(a), dim)
+        return leaf
+
+    with torch.no_grad():
+        return _map_with_path(one, params)
+
+
+def _sorted_items(tree, prefix: str = "") -> list:
+    """``(path, leaf)`` in ``tree_leaves`` order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [
+            item
+            for k in sorted(tree)
+            for item in _sorted_items(tree[k], f"{prefix}/{k}" if prefix else str(k))
+        ]
+    return [(prefix, tree)]
+
+
+def global_norm(grads: dict, mesh, policy: ShardingPolicy, cfg) -> torch.Tensor:
     """The global gradient norm of params held as :func:`shard_params`
-    holds them: each leaf's float32 sum of squares, an expert leaf's
-    summed over the mesh axes that split it, added in
-    ``tree_leaves`` order (sorted keys)."""
-    axes = mesh_axes(mesh)
+    holds them: each leaf's float32 sum of squares summed over exactly
+    the mesh axes that split it (a replicated leaf counts once), the
+    leaves added in ``tree_leaves`` order as ``tree_global_norm`` adds
+    them.  One all-reduce per axis for the leaves it splits."""
+    from repro_torch.models.spmd import axis_names
+    from repro_torch.optim.adamw import _chunks
 
-    def sq(path, g):
-        total = g.float().square().sum()
-        spec = _expert_spec(path, g, axes, policy, cfg) or ()
-        for ax in spec:
-            for a in (ax,) if isinstance(ax, str) else ax or ():
-                if axes[a] > 1:
-                    dist.all_reduce(total, group=mesh.get_group(a))
-        return total
-
-    return torch.sqrt(sum(tree_leaves(_map_with_path(sq, grads))))
+    specs = param_specs(cfg, mesh_axes(mesh), policy)
+    items = _sorted_items(grads)
+    sq = [sum(c.float().square().sum() for c in _chunks(g)) for _, g in items]
+    for a in mesh_axes(mesh):
+        idx = [i for i, (path, _) in enumerate(items)
+               if any(a in axis_names(ax) for ax in specs[path])]  # fmt: skip
+        if idx:
+            part = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(part, group=mesh.get_group(a))
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+    total = 0
+    for s in sq:
+        total = total + s
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------
@@ -444,12 +511,16 @@ __all__ = [
     "axis_size",
     "cache_pspec",
     "cache_shardings",
+    "gather_params",
     "global_norm",
     "leaf_pspec",
+    "leaf_spec",
     "make_fleet_mesh",
     "mesh_axes",
     "mesh_coord",
+    "param_specs",
     "shard_params",
     "take_slice",
+    "tensor_parallel_config",
     "tree_pspecs",
 ]

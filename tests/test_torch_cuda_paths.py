@@ -57,6 +57,12 @@ imports JAX, so the tests run where the card is.
   all-to-alls) and decode (an all-reduce), bit for bit the local path,
   and the train branch's gradients through the collectives within 1e-6
   of the local path's.
+* the zoo's tensor, sequence and FSDP parallel body on a one-rank NCCL
+  mesh (chip_smoke's ``lm_train_mesh`` at h2o-danube-3-4b-smoke's
+  float32 widths): ``Model(mesh=)`` issues every collective over groups
+  of one; 2 train steps and a prefill against the mesh-less model from
+  the same init, losses and grad norms within 1e-5 relative, params
+  within 1e-4 of their scale, logits within 1e-4.
 
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
@@ -582,3 +588,51 @@ def test_moe_sharded_body_on_a_one_rank_mesh_on_card(cuda):
             for a, b in zip(g1, g0, strict=True):
                 scale = float(b.abs().max())
                 assert float((a - b).abs().max()) <= 1e-6 * max(scale, 1.0), mode
+
+
+@pytest.mark.cuda
+def test_zoo_sharded_train_step_on_a_one_rank_mesh_on_card(cuda):
+    """chip_smoke's ``lm_train_mesh`` at danube-smoke's widths: the forced
+    sharded train step and prefill on a one-rank NCCL mesh against the
+    mesh-less model (the collectives are counted: they were issued)."""
+    from repro_torch.launch.mesh import one_rank_device_mesh
+    from repro_torch.models import spmd
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config("h2o-danube-3-4b-smoke")
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 65)), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run(mesh):
+        model = Model(cfg, cuda, mesh=mesh)
+        state = model.init_train_state(0)
+        lines = []
+        for _ in range(2):
+            state, m = model.train_step(state, batch)
+            lines.append((float(m["loss"]), float(m["grad_norm"])))
+        with torch.no_grad():
+            last = model.prefill_step(state["params"], {"tokens": batch["tokens"]})[0]
+        return lines, [t.detach().clone() for t in tree_leaves(state["params"])], last
+
+    gathers = []
+    real = spmd.all_gather
+
+    def counted(*a, **kw):
+        gathers.append(1)
+        return real(*a, **kw)
+
+    torch.cuda.set_device(cuda.index or 0)
+    with one_rank_device_mesh("cuda") as mesh:
+        spmd.all_gather = counted
+        try:
+            got = run(mesh)
+        finally:
+            spmd.all_gather = real
+    want = run(None)
+    assert gathers
+    for (gl, gg), (wl, wg) in zip(got[0], want[0], strict=True):
+        assert gl == pytest.approx(wl, rel=1e-5) and gg == pytest.approx(wg, rel=1e-5)
+    for a, b in zip(got[1], want[1], strict=True):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4

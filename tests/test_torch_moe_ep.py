@@ -19,10 +19,11 @@ same numpy-seeded params, tokens and output cotangent, in float32, at
 * each rank holds ``E_loc / E`` of the expert bytes (``1 / n_data`` more
   under FSDP);
 * at ``{data 1, model 2}``, qwen3-moe-smoke through ``Model(mesh=)``: the
-  loss and every gradient against the reference's jitted
+  loss and every gradient (each leaf put together from the ranks' blocks
+  by its ``leaf_pspec``) against the reference's jitted
   ``make_loss_fn(mesh=)`` at the one-process train step's tolerance
   (``tests/test_torch_lm_train.py``: 1e-5 of each leaf's scale), and one
-  ``train_step`` (the global gradient norm over the ranks' slices) against
+  ``train_step`` (the global gradient norm over the ranks' blocks) against
   the reference's.
 
 Every world and reference run starts once for the module; a world's
@@ -432,12 +433,17 @@ def test_each_rank_holds_its_share_of_the_experts(runs, mesh):
 def test_model_loss_and_train_step_on_a_mesh_match_the_reference(runs):
     """qwen3-moe-smoke on ``{data 1, model 2}`` through ``Model(mesh=)``:
     the loss and router loss (1e-5 relative), every gradient within 1e-5
-    of its scale (the experts' put together from both ranks, the rest the
-    same on each), and after one ``train_step`` the grad norm (1e-5
-    relative) and every param within 1e-4 (``test_torch_lm_train``'s
-    bound after its steps)."""
+    of its scale (each leaf put together from both ranks' blocks by its
+    ``leaf_pspec``, a leaf the model axis does not split the same on
+    each), and after one ``train_step`` the grad norm (1e-5 relative) and
+    every param within 1e-4 (``test_torch_lm_train``'s bound after its
+    steps)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.sharding import param_specs
+
     port, ref = runs
     ranks, want = port[(1, 2)], ref[2]
+    specs = param_specs(get_config(ARCH), {"data": 1, "model": 2})
     for got in ranks:
         for k in ("model/total", "model/aux", "model/step_grad_norm"):
             assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5), k
@@ -450,8 +456,9 @@ def test_model_loss_and_train_step_on_a_mesh_match_the_reference(runs):
     assert paths == grad_paths(ranks[0])
     for path in paths:
         for prefix, check in (("model/grad/", "grad"), ("model/step/", "step")):
-            if path.rsplit("/", 1)[1] in ("w1", "w3", "w2"):
-                got = np.concatenate([r[prefix + path] for r in ranks], 1)
+            split = [i for i, ax in enumerate(specs[path]) if ax == "model"]
+            if split:  # each rank's block of the model axis, put together
+                got = np.concatenate([r[prefix + path] for r in ranks], split[0])
             else:
                 got = ranks[0][prefix + path]
                 np.testing.assert_array_equal(ranks[1][prefix + path], got)
