@@ -255,6 +255,29 @@ non-zero exit code and no result line:
    ``--production-mesh`` body) on the same mesh for 2 steps of
    h2o-danube-3-4b-smoke.  The multi-rank proof is
    ``tests/test_torch_zoo_mesh.py``, over gloo on the CPU.
+   ``lm_mixers_mesh`` (after ``lm_train_mesh``, on the same kind of
+   one-rank NCCL mesh): MLA, Mamba, mLSTM and sLSTM in their
+   tensor-parallel regions, every leaf in its ``leaf_pspec`` block and
+   every cache in its ``cache_pspec`` block (MLA's latent cache a
+   sequence block read by the split-K combine), each config through
+   ``Model(mesh=)`` against the mesh-less model from the same init at
+   full width (bf16): deepseek-v2-lite-16b at full depth, a prefill of
+   batch 2 at prompt 480 and 4 decode steps, then 3 train steps at 6 of
+   27 layers (batch 2, seq 1024); jamba-1.5-large-398b at 4 of 72 layers
+   (zoo_main's depth), a prefill of batch 2 at prompt 480 and 4 decode
+   steps, then its (mamba, dense) block's forward and backward through
+   ``block_apply(layout=)`` at batch 1, seq 1024 against the mesh-less
+   block (no layer set with an MoE layer trains on one card); xlstm-125m
+   at full width and depth, a prefill of batch 4 at prompt 256 and 4
+   decode steps, then 3 train steps (batch 4, seq 128).  lm_train_mesh's
+   tolerances (loss and grad norm 1e-5 relative, params and the block's output and gradients 1e-4 of
+   scale, logits 3e-2); printed: the max |delta| of each, the step,
+   prefill and decode walls both ways (CUDA events), the peaks, the
+   collectives a step or a serving pass with their bytes, and C's and
+   D's launches (C a norm per mixer, per FFN and the final one a
+   forward; D once an attention layer a prefill: deepseek's dense prefix
+   layer and jamba's attention layer).  The multi-rank proof is
+   ``tests/test_torch_mixers_mesh.py``, over gloo on the CPU.
 
 Then the script's wall time, one line with the card as ``nvidia-smi``
 reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
@@ -262,8 +285,8 @@ reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 paths (main, baselines, sweep, topology, population, serve, fleet_mesh,
 table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
-lm_train_main, zoo_main for each arch, zoo_window, moe_ep, lm_train_mesh
-and examples); the
+lm_train_main, zoo_main for each arch, zoo_window, moe_ep, lm_train_mesh,
+lm_mixers_mesh and examples); the
 planner path launches none.  Every entry carries ``launches_by_path``
 and ``launches`` is its sum.
 """
@@ -295,8 +318,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
     ATTN,
+    FFN_DENSE,
     FFN_MOE,
     FFN_NONE,
+    MAMBA,
     InputShape,
     get_config,
 )
@@ -339,6 +364,14 @@ from repro_torch.models.model import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.models import spmd  # noqa: E402
+from repro_torch.models.blocks import block_apply, block_init  # noqa: E402
+from repro_torch.models.layers import torch_dtype  # noqa: E402
+from repro_torch.models.sharding import (  # noqa: E402
+    ShardingPolicy,
+    mesh_axes,
+    param_specs,
+)
+from repro_torch.models.spmd import make_layout  # noqa: E402
 from repro_torch.models.rope import positions_for  # noqa: E402
 from repro_torch.data.pipeline import TokenStreamConfig, token_batches  # noqa: E402
 from repro_torch.launch.specs import opt_cfg_for  # noqa: E402
@@ -392,6 +425,15 @@ MOE_EP_TOL = 0.0  # (b) against the local path: the same products, one rank
 # lm_train_mesh: danube's train steps and serving passes on a one-rank mesh
 MESH_STEPS, MESH_GEN = 3, 4
 MESH_REL, MESH_PARAM_TOL, MESH_LOGITS_TOL = 1e-5, 1e-4, 3e-2
+# lm_mixers_mesh: arch -> ((serving depth or None, batch, prompt), (train
+# depth or None, batch, seq) or None: jamba's (mamba, dense) block instead)
+MIXERS_GEN = 4
+MIXERS = {
+    "deepseek-v2-lite-16b": ((None, 2, 480), (6, 2, 1024)),
+    "jamba-1.5-large-398b": ((4, 2, 480), None),
+    "xlstm-125m": ((None, 4, 256), (None, 4, 128)),
+}
+MAMBA_BLOCK = (1, 1024)  # batch, seq of jamba's (mamba, dense) block
 # zoo_window: danube's window handoff, a prompt past 4096 and no multiple of it
 WINDOW_PROMPT, WINDOW_GEN = 4100, 8
 # zoo_main's float32 decode check of the MoE archs: full width, the depth
@@ -3544,6 +3586,289 @@ def phase_lm_train_mesh(dev) -> dict[str, int]:
     }
 
 
+def _events():
+    return [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+
+def _max_rel(got: list, want: list) -> float:
+    return max(
+        abs(a - b) / abs(b)
+        for g, w in zip(got, want, strict=True)
+        for a, b in zip(g, w, strict=True)
+    )
+
+
+def _err_of_scale(got: dict, want: dict, dev) -> tuple[float, float]:
+    """(max |delta|, max |delta| over the leaf's largest |value|) over the
+    leaves of two flat dicts of tensors."""
+    err, rel = 0.0, 0.0
+    for k, w in want.items():
+        d = float((got[k].to(dev).float() - w.to(dev).float()).abs().max())
+        scale = max(float(w.float().abs().max()), 1e-30)
+        err, rel = max(err, d), max(rel, d / scale)
+    return err, rel
+
+
+def mixers_serve(dev, cfg, params, prompt, gen_tokens, mesh) -> dict:
+    """A prefill of ``prompt`` and ``MIXERS_GEN`` decode steps of
+    ``gen_tokens`` through ``Model(cfg, mesh=)`` (None: mesh-less) on
+    ``params``: the logits to the host, the prefill's and a decode
+    step's wall (CUDA events), the peak, the launches and the
+    collectives of each."""
+    model = Model(cfg, dev, mesh=mesh)
+    b, s = prompt.shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start, mid, end = _events()
+    with torch.no_grad(), counted_collectives() as calls:
+        start.record()
+        last, pre = model.prefill_step(params, {"tokens": prompt})
+        caches = model.load_prefill(model.init_caches(b, s + MIXERS_GEN), pre)
+        mid.record()
+        del pre
+        n_prefill = len(calls)
+        logits = [last.float()]
+        for i in range(MIXERS_GEN):
+            step = {"tokens": gen_tokens[:, i : i + 1],
+                    "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev)}
+            lg, caches = model.serve_step(params, caches, step)  # fmt: skip
+            logits.append(lg.float())
+        end.record()
+        end.synchronize()
+    out = {
+        "logits": torch.stack(logits).cpu(),
+        "prefill_ms": start.elapsed_time(mid),
+        "decode_ms": mid.elapsed_time(end) / MIXERS_GEN,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": read_launches(),
+        "collectives": {"prefill": _per_step(calls[:n_prefill], 1),
+                        "decode_step": _per_step(calls[n_prefill:], MIXERS_GEN)},
+    }  # fmt: skip
+    del model, caches
+    return out
+
+
+def mixers_train(dev, cfg, mesh, batches) -> dict:
+    """The train steps of ``batches`` from seed 0 through ``Model(cfg,
+    mesh=)`` (None: mesh-less): losses, grad norms, step walls, the peak,
+    the launches, the collectives a step and the final params on the
+    host; the device memory freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dev, opt_cfg=opt_cfg_for(cfg), mesh=mesh)
+    state = model.init_train_state(0)
+    reset_launches()
+    lines, step_ms = [], []
+    with counted_collectives() as calls:
+        for batch in batches:
+            start, end, _ = _events()
+            start.record()
+            state, m = model.train_step(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            lines.append((float(m["loss"]), float(m["grad_norm"])))
+    out = {
+        "lines": lines,
+        "step_ms": step_ms,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": read_launches(),
+        "collectives": _per_step(calls, len(batches)),
+        "params": {
+            k: v.detach().cpu() for k, v in flatten_tree(state["params"]).items()
+        },
+    }
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_block_run(dev, cfg, p, x, g, mesh) -> dict:
+    """jamba's (mamba, dense) block at full width, forward and backward of
+    ``(y * g).sum()``, through ``block_apply`` (on ``mesh`` with its
+    layout: every collective of the Mamba and FFN regions over groups of
+    one): the output, the gradients of the input and of every leaf, the
+    wall (CUDA events), the launches and the collectives."""
+    j = cfg.pattern.index((MAMBA, FFN_DENSE))
+    b, s, _ = x.shape
+    layout = None
+    if mesh is not None:
+        specs = param_specs(cfg, mesh_axes(mesh))
+        layout = make_layout(mesh, ShardingPolicy(), specs, batch=b, seq_len=s,
+                             mode="train")  # fmt: skip
+    names = list(flatten_tree(p))
+    live = {k: v.detach().requires_grad_(True) for k, v in flatten_tree(p).items()}
+    tree: dict = {}
+    for k, v in live.items():
+        node = tree
+        *head, last = k.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    xi = x.detach().requires_grad_(True)
+    positions = positions_for(cfg, b, s, device=dev)
+    reset_launches()
+    start, end, _ = _events()
+    with counted_collectives() as calls:
+        start.record()
+        y, _, _ = block_apply(
+            cfg, tree, xi, mixer=MAMBA, ffn=FFN_DENSE, mode="train",
+            positions=positions, attn_impl="chunked", layout=layout, path=f"groups/b{j}",
+        )  # fmt: skip
+        grads = torch.autograd.grad((y.float() * g.float()).sum(), [xi, *live.values()])
+        end.record()
+        end.synchronize()
+    return {
+        "y": y.detach(),
+        "grads": dict(zip(["x", *names], grads, strict=True)),
+        "ms": start.elapsed_time(end),
+        "launches": read_launches(),
+        "collectives": _per_step(calls, 1),
+    }
+
+
+def phase_lm_mixers_mesh(dev) -> dict[str, int]:
+    """MLA, Mamba, mLSTM and sLSTM on a one-rank NCCL mesh against the
+    mesh-less model (the module docstring): per config a JSON line with
+    the serving and training (or jamba's block) comparisons; returns the
+    meshed runs' launches."""
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev.index or 0)
+    rng = np.random.default_rng(2)
+    launched = {"rmsnorm": 0, "flash_attention": 0}
+    failures = []
+    with one_rank_device_mesh("cuda") as mesh:
+        for arch, (serving, training) in MIXERS.items():
+            t_arch = time.perf_counter()
+            n_layers, b, s = serving
+            model, params, prompt = serve.setup(arch, b, s, 0, dev, n_layers=n_layers)
+            cfg = model.cfg
+            del model
+            gen_tokens = torch.tensor(
+                rng.integers(0, cfg.vocab_size, (b, MIXERS_GEN)), device=dev
+            )
+            want = mixers_serve(dev, cfg, params, prompt, gen_tokens, None)
+            got = mixers_serve(dev, cfg, params, prompt, gen_tokens, mesh)
+            del params, prompt
+            gc.collect()
+            torch.cuda.empty_cache()
+            n_attn = sum(mixer == ATTN for mixer, _ in cfg.layer_pattern)
+            want_c = norms_per_forward(cfg) * (1 + MIXERS_GEN)
+            logits_err = float((got["logits"] - want["logits"]).abs().max())
+            row = {
+                "phase": "lm_mixers_mesh",
+                "arch": arch,
+                "mesh": "DeviceMesh('cuda', (1, 1), ('data', 'model')), NCCL, one rank",
+                "serve": {
+                    "layers": cfg.n_layers, "batch": b, "prompt": s, "gen": MIXERS_GEN,
+                    "logits_max_abs_err": logits_err,
+                    "prefill_ms": {"mesh": got["prefill_ms"], "meshless": want["prefill_ms"]},
+                    "decode_step_ms": {"mesh": got["decode_ms"], "meshless": want["decode_ms"]},
+                    "peak_gb": {"mesh": got["peak_gb"], "meshless": want["peak_gb"]},
+                    "collectives": got["collectives"],
+                    "launches": {"mesh": got["launches"], "meshless": want["launches"]},
+                },
+            }  # fmt: skip
+            if logits_err > MESH_LOGITS_TOL:
+                failures.append(f"{arch}: serving logits off by {logits_err}")
+            for run in (got, want):
+                if (run["launches"]["rmsnorm"], run["launches"]["flash_attention"]) != (
+                    want_c, n_attn
+                ):
+                    failures.append(f"{arch}: serving launches {run['launches']}, "
+                                    f"want C {want_c}, D {n_attn}")  # fmt: skip
+            for k in launched:
+                launched[k] += got["launches"][k]
+            if training is not None:
+                depth, tb, ts = training
+                tcfg = get_config(arch)
+                if depth is not None:
+                    tcfg = serve.cut_depth(tcfg, depth)
+                sc = TokenStreamConfig(
+                    vocab_size=tcfg.vocab_size, seq_len=ts, batch_size=tb, seed=0
+                )
+                stream = token_batches(sc)
+                batches = []
+                for _ in range(MESH_STEPS):
+                    raw = next(stream)
+                    batches.append({
+                        k: torch.tensor(raw[k] % tcfg.vocab_size, device=dev)
+                        for k in ("tokens", "labels")
+                    })  # fmt: skip
+                tg = mixers_train(dev, tcfg, mesh, batches)
+                tw = mixers_train(dev, tcfg, None, batches)
+                rel = _max_rel(tg["lines"], tw["lines"])
+                err, of_scale = _err_of_scale(tg["params"], tw["params"], dev)
+                want_c = norms_per_forward(tcfg) * MESH_STEPS
+                row["train"] = {
+                    "layers": tcfg.n_layers, "batch": tb, "seq": ts, "steps": MESH_STEPS,
+                    "mesh_lines": tg["lines"], "meshless_lines": tw["lines"],
+                    "loss_gnorm_max_rel_err": rel,
+                    "param_max_abs_err": err, "param_max_err_of_scale": of_scale,
+                    "step_ms": {"mesh": tg["step_ms"], "meshless": tw["step_ms"]},
+                    "peak_gb": {"mesh": tg["peak_gb"], "meshless": tw["peak_gb"]},
+                    "collectives_per_step": tg["collectives"],
+                    "launches": {"mesh": tg["launches"], "meshless": tw["launches"]},
+                }  # fmt: skip
+                if rel > MESH_REL or of_scale > MESH_PARAM_TOL:
+                    failures.append(
+                        f"{arch}: train off by {rel} rel, {of_scale} of scale"
+                    )
+                for run in (tg, tw):
+                    if run["launches"]["rmsnorm"] != want_c:
+                        failures.append(f"{arch}: train launches {run['launches']}, "
+                                        f"want C {want_c}")  # fmt: skip
+                for k in launched:
+                    launched[k] += tg["launches"][k]
+                del tg, tw, batches
+            else:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                p = block_init(cfg, MAMBA, FFN_DENSE, gen)
+                bb, bs = MAMBA_BLOCK
+                x, g = (
+                    torch.randn(bb, bs, cfg.d_model, generator=gen, device=dev).to(
+                        torch_dtype(cfg.dtype)
+                    )
+                    for _ in range(2)
+                )
+                bw = mamba_block_run(dev, cfg, p, x, g, None)
+                bg = mamba_block_run(dev, cfg, p, x, g, mesh)
+                y_err, y_rel = _err_of_scale({"y": bg["y"]}, {"y": bw["y"]}, dev)
+                g_err, g_rel = _err_of_scale(bg["grads"], bw["grads"], dev)
+                row["mamba_block"] = {
+                    "block": "(mamba, dense)", "batch": bb, "seq": bs,
+                    "y_max_abs_err": y_err, "y_max_err_of_scale": y_rel,
+                    "grad_max_abs_err": g_err, "grad_max_err_of_scale": g_rel,
+                    "fwd_bwd_ms": {"mesh": bg["ms"], "meshless": bw["ms"]},
+                    "collectives": bg["collectives"],
+                    "launches": {"mesh": bg["launches"], "meshless": bw["launches"]},
+                }  # fmt: skip
+                if max(y_rel, g_rel) > MESH_PARAM_TOL:
+                    failures.append(
+                        f"{arch}: mamba block off by {y_rel}, {g_rel} of scale"
+                    )
+                for run in (bg, bw):
+                    if run["launches"]["rmsnorm"] != 2:
+                        failures.append(f"{arch}: block launches {run['launches']}")
+                for k in launched:
+                    launched[k] += bg["launches"][k]
+                del p, x, g, bw, bg
+            row["seconds"] = time.perf_counter() - t_arch
+            emit(row)
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({"phase": "lm_mixers_mesh", "seconds": time.perf_counter() - t_phase,
+          "launches": launched, "failures": failures})  # fmt: skip
+    require(not failures, f"lm_mixers_mesh: {failures}")
+    require(launched["rmsnorm"] > 0 and launched["flash_attention"] > 0,
+            f"lm_mixers_mesh: launches {launched}")  # fmt: skip
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -3583,6 +3908,7 @@ def main() -> int:
     zoo_paths["zoo_window"] = phase_zoo_window(dev)
     zoo_paths["moe_ep"] = phase_moe_ep(dev)
     zoo_paths["lm_train_mesh"] = phase_lm_train_mesh(dev)
+    zoo_paths["lm_mixers_mesh"] = phase_lm_mixers_mesh(dev)
     by_path["examples"], zoo_paths["examples"] = phase_examples(dev)
     zoo_paths["planner"] = phase_planner(dev, measured)
     by_path["planner"] = {k: 0 for k in FLEET_KERNELS}

@@ -24,6 +24,13 @@ is the absorbed path: scores and the weighted sum in the
 ``kv_lora_rank`` latent space, products in float32; its cache is the
 latent ``{ckv, krope, kpos}``.
 
+On a mesh a decode cache that ``model`` splits along the sequence (MLA's
+latent cache; a kv cache whose heads do not divide) is read through a
+split-K combine: ``split`` (``models/spmd.py::SeqSplit``) gives each
+rank's partial softmax's max, sum and weighted values to an all-reduce.
+The softmax at decode is written out (max, exponentials, sum, divide)
+so that the combine and one device run the same operations.
+
 Two deliberate differences from the reference:
 
 * the prefill -> decode handoff for a sliding window: when the prompt is
@@ -129,6 +136,25 @@ def chunked_attention(
     return torch.cat(outs, 1)
 
 
+def _softmax(s: torch.Tensor, split=None) -> torch.Tensor:
+    """Softmax over the last dim, whose entries ``split`` may spread over
+    ranks (each holds its block of the keys): the max and the sum of
+    exponentials combined over them."""
+    m = s.amax(-1, keepdim=True)
+    if split is not None:
+        m = split.max(m)
+    e = torch.exp(s - m)
+    total = e.sum(-1, keepdim=True)
+    if split is not None:
+        total = split.sum(total)
+    return e / total
+
+
+def _own_slots(kpos: torch.Tensor, split) -> torch.Tensor:
+    """The positions of the slots this rank holds (all without a split)."""
+    return kpos if split is None else kpos[:, split.start : split.start + split.size]
+
+
 def decode_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -139,14 +165,20 @@ def decode_attention(
     pos: torch.Tensor,
     window: int | None,
     softcap: float = 0.0,
+    split=None,
 ) -> torch.Tensor:
     """Single-token attention against a cache, in float32.
 
     q [B,1,Hq,D], k/v [B,L,Hkv,D]; kpos [B,L] absolute positions of the
     cache entries (-1 marks an empty slot; ring buffers are unordered);
-    pos [B] current position."""
+    pos [B] current position.  ``split``: k/v are this rank's block of
+    the slots (kpos all of them); the query's heads are gathered, the
+    blocks' partial softmaxes combined, and the rank's heads returned."""
+    if split is not None:
+        q = split.whole_heads(q, 2)
     b, _, hq, d = q.shape
     hkv = k.shape[2]
+    kpos = _own_slots(kpos, split)
     qg = q.reshape(b, hkv, hq // hkv, d).float()
     s_ = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
     if softcap > 0.0:
@@ -155,9 +187,12 @@ def decode_attention(
     if window is not None:
         valid &= (pos[:, None] - kpos) < window
     s_ = s_.masked_fill(~valid[:, None, None, :], NEG_INF)
-    p = torch.softmax(s_, dim=-1)
+    p = _softmax(s_, split)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    return out.reshape(b, 1, hq, v.shape[-1]).to(q.dtype)
+    if split is not None:
+        out = split.sum(out)
+    out = out.reshape(b, 1, hq, v.shape[-1]).to(q.dtype)
+    return out if split is None else split.own_heads(out, 2)
 
 
 def gqa_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -178,12 +213,9 @@ def gqa_cache_init(
     cache_len: int,
     dtype: torch.dtype,
     device,
-    n_kv: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """cache_len already accounts for sliding windows (ring buffer);
-    ``n_kv``: the kv heads held (a rank's block on a mesh; default all)."""
-    n_kv = cfg.n_kv_heads if n_kv is None else n_kv
-    shape = (batch, cache_len, n_kv, cfg.resolved_head_dim)
+    """cache_len already accounts for sliding windows (ring buffer)."""
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -241,6 +273,7 @@ def gqa_apply(
     cache: dict[str, torch.Tensor] | None = None,
     attn_impl: str = "kernel",
     kv_map=None,
+    split=None,
 ):
     """x [B,S,D] (train/prefill) or [B,1,D] (decode); positions [B,S] or
     M-RoPE's [3,B,S].  ``attn_impl`` picks the train/prefill attention:
@@ -253,7 +286,8 @@ def gqa_apply(
     ``wk``'s): on a mesh, a rank's block of the heads.  ``kv_map``
     (:func:`select_kv`) picks the kv heads its q heads attend with where
     its kv columns are not already its q heads' own; the cache keeps
-    the kv heads as computed."""
+    the kv heads as computed.  ``split``: decode's cache is this rank's
+    block of the slots (:func:`decode_attention`; ``kv_map`` unused)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
     b, s, _ = x.shape
@@ -286,12 +320,15 @@ def gqa_apply(
             new_cache = prefill_cache(k, v, positions, window)
     elif mode == "decode":
         pos = _decode_pos(positions)
-        slot = pos if window is None else pos % cache["k"].shape[1]
+        # kpos holds every slot, also where a rank holds a block of k/v
+        slot = pos if window is None else pos % cache["kpos"].shape[1]
         bidx = torch.arange(b, device=x.device)
         slot = slot.long()
-        cache["k"][bidx, slot] = k[:, 0]
-        cache["v"][bidx, slot] = v[:, 0]
+        _write(cache, "k", bidx, slot, k[:, 0], split)
+        _write(cache, "v", bidx, slot, v[:, 0], split)
         cache["kpos"][bidx, slot] = pos.to(torch.int32)
+        if split is not None:
+            kv_map = None
         y = decode_attention(
             q,
             select_kv(cache["k"], kv_map),
@@ -301,12 +338,22 @@ def gqa_apply(
             pos=pos,
             window=window,
             softcap=cfg.attn_logit_softcap,
+            split=split,
         )
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
     y = y.reshape(b, s, hq * hd)
     return dense_apply(p["wo"], y), new_cache
+
+
+def _write(cache: dict, name: str, rows, slot, value, split) -> None:
+    """Decode's new entry into ``cache[name]`` at ``slot`` of each row (on
+    a sequence split, only where this rank holds the slot)."""
+    if split is None:
+        cache[name][rows, slot] = value
+    else:
+        split.write(cache[name], rows, slot, value)
 
 
 # ---------------------------------------------------------------------------
@@ -348,14 +395,15 @@ def mla_cache_init(
 
 
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, the rope's cos/sin)."""
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, the rope's
+    cos/sin), H the heads of the weights (on a mesh, the rank's)."""
     a = cfg.mla
     b, s, _ = x.shape
     if a.q_lora_rank:
         q = dense_apply(p["w_uq"], dense_apply(p["w_dq"], x))
     else:
         q = dense_apply(p["wq"], x)
-    q = q.reshape(b, s, cfg.n_heads, a.nope_head_dim + a.rope_head_dim)
+    q = q.reshape(b, s, -1, a.nope_head_dim + a.rope_head_dim)
     q_nope, q_rope = q[..., : a.nope_head_dim], q[..., a.nope_head_dim :]
     cs = rope_lib.cos_sin_for(cfg, positions, head_dim=a.rope_head_dim)
     return q_nope, rope_lib.apply_rope(q_rope, *cs), cs
@@ -369,13 +417,18 @@ def mla_apply(
     mode: str,
     positions: torch.Tensor,
     cache: dict[str, torch.Tensor] | None = None,
+    split=None,
 ):
     """x [B,S,D] (train/prefill) or [B,1,D] (decode).  Returns (y, cache)
     as :func:`gqa_apply` does; the cache is the latent ``{ckv, krope,
-    kpos}``, written in place at decode."""
+    kpos}``, written in place at decode.  The heads are ``w_uk``'s (on a
+    mesh, the rank's).  ``split``: decode's latent cache is this rank's
+    block of the sequence; each rank gathers every head's latent query,
+    scores it against its own slots, the partial softmaxes are combined
+    over ``model``, and the rank's heads go on into ``w_uv``."""
     a = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = p["w_uk"]["w"].shape[1] // a.nope_head_dim
     scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
     q_nope, q_rope, cs = _mla_q(cfg, p, x, positions)
     ckv = dense_apply(p["w_dkv"], x)  # [B, S, r]
@@ -399,21 +452,28 @@ def mla_apply(
         pos = _decode_pos(positions)
         bidx = torch.arange(b, device=x.device)
         slot = pos.long()
-        cache["ckv"][bidx, slot] = ckv[:, 0]
-        cache["krope"][bidx, slot] = krope[:, 0]
+        _write(cache, "ckv", bidx, slot, ckv[:, 0], split)
+        _write(cache, "krope", bidx, slot, krope[:, 0], split)
         cache["kpos"][bidx, slot] = pos.to(torch.int32)
-        ckv_c, kr_c, kpos = cache["ckv"].float(), cache["krope"].float(), cache["kpos"]
+        ckv_c, kr_c = cache["ckv"].float(), cache["krope"].float()
+        kpos = _own_slots(cache["kpos"], split)
         r = a.kv_lora_rank
         w_uk = p["w_uk"]["w"].reshape(r, h, a.nope_head_dim).float()
         # W_uk absorbed into q: q_lat [B, H, r], rounded as the reference's
         q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk).to(x.dtype)
+        q_r = q_rope[:, 0]
+        if split is not None:  # every head's query against this rank's slots
+            q_lat, q_r = split.whole_heads(q_lat, 1), split.whole_heads(q_r, 1)
         s_lat = torch.einsum("bhr,bkr->bhk", q_lat.float(), ckv_c)
-        s_rope = torch.einsum("bhd,bkd->bhk", q_rope[:, 0].float(), kr_c)
+        s_rope = torch.einsum("bhd,bkd->bhk", q_r.float(), kr_c)
         s_all = (s_lat + s_rope) * scale
         valid = (kpos >= 0) & (kpos <= pos[:, None])
         s_all = s_all.masked_fill(~valid[:, None, :], NEG_INF)
-        pr = torch.softmax(s_all, dim=-1).to(x.dtype)
-        o_lat = torch.einsum("bhk,bkr->bhr", pr.float(), ckv_c).to(x.dtype)
+        pr = _softmax(s_all, split).to(x.dtype)
+        o_lat = torch.einsum("bhk,bkr->bhr", pr.float(), ckv_c)
+        if split is not None:
+            o_lat = split.own_heads(split.sum(o_lat), 1)
+        o_lat = o_lat.to(x.dtype)
         w_uv = p["w_uv"]["w"].reshape(r, h, a.v_head_dim).float()
         y = torch.einsum("bhr,rhd->bhd", o_lat.float(), w_uv).to(x.dtype)[:, None]
         new_cache = cache

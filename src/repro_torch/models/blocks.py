@@ -24,8 +24,20 @@ from repro_torch.configs.base import (
 from repro_torch.models import attention, ssm
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.moe import moe_apply, moe_init, moe_stream
-from repro_torch.models.sharding import axis_size
-from repro_torch.models.spmd import enter, leave, use, use_tree
+from repro_torch.models.sharding import _map_with_path, axis_size
+from repro_torch.models.spmd import (
+    combine,
+    enter,
+    gather,
+    leave,
+    own,
+    psum,
+    reblock,
+    seq_split,
+    use,
+    use_tree,
+    vary_model,
+)
 
 _MIXER_INIT = {
     ATTN: attention.gqa_init,
@@ -39,11 +51,6 @@ _STATE_INIT = {
     MAMBA: ssm.mamba_state_init,
     MLSTM: ssm.mlstm_state_init,
     SLSTM: ssm.slstm_state_init,
-}
-_RECURRENT_APPLY = {
-    MAMBA: ssm.mamba_apply,
-    MLSTM: ssm.mlstm_apply,
-    SLSTM: ssm.slstm_apply,
 }
 FFNS = (FFN_DENSE, FFN_MOE, FFN_NONE)
 
@@ -82,14 +89,12 @@ def block_cache_init(
     cache_len: int,
     dtype,
     device,
-    n_kv: int | None = None,
 ) -> dict[str, torch.Tensor]:
     """The mixer's decode cache: an attention's kv cache of ``cache_len``
-    slots (``n_kv`` kv heads, default all), a recurrent mixer's state (no
-    length)."""
+    slots, a recurrent mixer's state (no length)."""
     _check_kinds(mixer, FFN_DENSE)
     if mixer == ATTN:
-        return attention.gqa_cache_init(cfg, batch, cache_len, dtype, device, n_kv)
+        return attention.gqa_cache_init(cfg, batch, cache_len, dtype, device)
     if mixer == MLA:
         return attention.mla_cache_init(cfg, batch, cache_len, dtype, device)
     return _STATE_INIT[mixer](cfg, batch, dtype, device)
@@ -118,14 +123,13 @@ def block_apply(
     ``chunked_attention``).
 
     ``layout`` (``models/spmd.py::Layout``): the block on a mesh, ``x``
-    this rank's part of the stream and ``p`` its blocks of the params at
-    ``path`` ("groups/b0", "prefix/l0").  The norms run on the rank's
-    rows (``[B/d, S/m, D]`` when the stream is sequence-sharded); the
-    sequence is all-gathered into the mixer and the FFN; attention and
-    the dense FFN run tensor parallel where their widths divide over
-    ``model`` (:func:`attention_region`, :func:`mlp_region`); the MoE
-    takes the stream as it is (``moe.moe_stream``); the mixers the port
-    does not split run whole on each rank."""
+    this rank's part of the stream, ``p`` its blocks of the params and
+    ``cache`` its blocks of the cache at ``path`` ("groups/b0",
+    "prefix/l0").  The norms run on the rank's rows (``[B/d, S/m, D]``
+    when the stream is sequence-sharded); the sequence is all-gathered
+    into the mixer and the FFN; every mixer and the dense FFN run tensor
+    parallel where their widths divide over ``model`` (the ``*_region``
+    functions); the MoE takes the stream as it is (``moe.moe_stream``)."""
     _check_kinds(mixer, ffn)
     if layout is not None:
         return _block_on_mesh(
@@ -143,8 +147,16 @@ def block_apply(
             cache=cache,
             attn_impl=attn_impl,
         )
+    elif mixer == MLA:
+        y, new_cache = attention.mla_apply(
+            cfg, p["mixer"], h, mode=mode, positions=positions, cache=cache
+        )
+    elif mixer == MAMBA:
+        y, new_cache = ssm.mamba_apply(cfg, p["mixer"], h, mode=mode, state=cache)
+    elif mixer == MLSTM:
+        y, new_cache = ssm.mlstm_apply(cfg, p["mixer"], h, mode=mode, state=cache)
     else:
-        y, new_cache = _whole_mixer(cfg, mixer, p["mixer"], h, mode, positions, cache)
+        y, new_cache = ssm.slstm_apply(cfg, p["mixer"], h, mode=mode, state=cache)
     x = x + y
     if ffn == FFN_NONE:
         return x, new_cache, None
@@ -153,14 +165,6 @@ def block_apply(
         return x + mlp_apply(cfg, p["ffn"], h), new_cache, None
     y, aux = moe_apply(cfg, p["ffn"], h, mode=mode)
     return x + y, new_cache, aux
-
-
-def _whole_mixer(cfg, mixer, p, h, mode, positions, cache):
-    if mixer == MLA:
-        return attention.mla_apply(
-            cfg, p, h, mode=mode, positions=positions, cache=cache
-        )
-    return _RECURRENT_APPLY[mixer](cfg, p, h, mode=mode, state=cache)
 
 
 # ---------------------------------------------------------------------------
@@ -203,30 +207,230 @@ def attention_plan(cfg: ModelConfig, L):
     return q, None, kv_range(q[0])
 
 
+def _use_blocks(L, p: dict, path: str, vary, blocks: dict) -> dict:
+    """Every leaf of ``p`` (at ``path``) through :func:`use`: the block
+    ``blocks`` names by the leaf's path below ``path``, else whole."""
+
+    def one(rel, t):
+        return use(L, t, f"{path}/{rel}", vary, blocks.get(rel))
+
+    return _map_with_path(one, p)
+
+
+def _to_stored(L, path: str, new: dict, dims: dict) -> dict:
+    """A region's cache or state (each leaf split over ``model`` along
+    ``dims[name]``, None: whole) as the rank stores it."""
+    return {
+        k: reblock(v, L, dims.get(k), L.cache_dim(f"{path}/{k}"))
+        for k, v in new.items()
+    }
+
+
 def attention_region(cfg, p, h, L, path, *, mode, positions, cache, attn_impl):
-    """GQA on the stream ``h``: the rank's q heads and their kv heads
-    (``wq``/``wk``/``wv`` column blocks, ``wo`` a row block, its output
-    partial sums summed back onto the stream), or the whole attention on
-    each rank when the heads do not divide over ``model``."""
+    """GQA on the stream ``h`` (the block at ``path``): the rank's q heads
+    and their kv heads (``wq``/``wk``/``wv`` column blocks, ``wo`` a row
+    block, its output partial sums summed back onto the stream), or the
+    whole attention on each rank when the heads do not divide over
+    ``model``.  A cache whose kv heads do not divide is held in sequence
+    blocks where its length divides (``cache_pspec``): the prefill keeps
+    the rank's block, decode reads it through the split-K combine."""
     plan = attention_plan(cfg, L)
     tp = plan is not None
     qb, kvb, kv_map = plan if tp else (None, None, None)
     vary = L.vary_tp if tp else L.vary_whole
     hd = cfg.resolved_head_dim
-    pp = {}
+    blocks = {}
     for name, heads in (("wq", qb), ("wk", kvb), ("wv", kvb), ("wo", qb)):
-        pp[name] = {}
-        for leaf, t in p[name].items():
-            block = None
+        for leaf in p[name]:
             if heads is not None:
                 dim = 0 if (leaf == "b" or name == "wo") else 1
-                block = (dim, heads[0] * hd, heads[1] * hd)
-            pp[name][leaf] = use(L, t, f"{path}/{name}/{leaf}", vary, block)
+                blocks[f"{name}/{leaf}"] = (dim, heads[0] * hd, heads[1] * hd)
+    pp = _use_blocks(L, p, f"{path}/mixer", vary, blocks)
+    split = None
+    if mode == "decode":
+        split = seq_split(L, f"{path}/k", qb, cache["k"].shape[1])
     y, new_cache = attention.gqa_apply(
         cfg, pp, enter(h, L, tp), mode=mode, positions=positions, cache=cache,
-        attn_impl=attn_impl, kv_map=kv_map,
+        attn_impl=attn_impl, kv_map=kv_map, split=split,
     )  # fmt: skip
+    if mode == "prefill":  # k/v: the rank's kv heads, or all of them
+        dims = {"k": 2, "v": 2} if kvb is not None else {}
+        new_cache = _to_stored(L, path, new_cache, dims)
     return leave(y, L, tp), new_cache
+
+
+def mla_region(cfg, p, h, L, path, *, mode, positions, cache):
+    """MLA on the stream ``h`` (the reference's ``attention.py:351-424``
+    under ``make_wsc``): the rank's heads of ``wq``/``w_uq``, ``w_uk`` and
+    ``w_uv`` (column blocks) and of ``wo`` (a row block, partial sums
+    summed back onto the stream); the latent ``ckv`` and ``krope`` from
+    weights whole over ``model``, the same on every model rank.  The
+    prefill hands over the rank's sequence block of the latent cache
+    where ``model`` splits it (``cache_pspec``; ``kpos`` whole); decode
+    reads it through the split-K combine.  Whole on each rank when the
+    heads do not divide over ``model``."""
+    a = cfg.mla
+    hb = L.block(cfg.n_heads)
+    tp = hb is not None
+    blocks = {}
+    if tp:
+        widths = {"wq/w": a.nope_head_dim + a.rope_head_dim, "w_uk/w": a.nope_head_dim,
+                  "w_uv/w": a.v_head_dim, "wo/w": a.v_head_dim}  # fmt: skip
+        widths["w_uq/w"] = widths["wq/w"]
+        for rel, width in widths.items():
+            blocks[rel] = (0 if rel == "wo/w" else 1, hb[0] * width, hb[1] * width)
+    pp = _use_blocks(L, p, f"{path}/mixer", L.vary_tp if tp else L.vary_whole, blocks)
+    split = None
+    if mode == "decode":
+        split = seq_split(L, f"{path}/ckv", hb, cache["ckv"].shape[1])
+    y, new_cache = attention.mla_apply(
+        cfg, pp, enter(h, L, tp), mode=mode, positions=positions, cache=cache,
+        split=split,
+    )  # fmt: skip
+    if mode == "prefill":
+        new_cache = _to_stored(L, path, new_cache, {})
+    return leave(y, L, tp), new_cache
+
+
+def _from_stored(L, path, cache, dims) -> dict | None:
+    """Decode's stored state as the region runs it (each leaf split over
+    ``model`` along ``dims[name]``, None: whole)."""
+    if cache is None:
+        return None
+    return {
+        k: reblock(v, L, L.cache_dim(f"{path}/{k}"), dims.get(k))
+        for k, v in cache.items()
+    }
+
+
+def mamba_region(cfg, p, h, L, path, *, mode, positions, cache):
+    """Mamba on the stream ``h`` (the reference's ``ssm.py:156-205`` under
+    ``_make_wsc_ch``), over the rank's channels of ``d_inner``:
+    ``in_proj`` column-parallel (the rank's channels of ``x`` and of
+    ``z``: ``use`` all-gathers the weight over ``model`` and cuts both,
+    as the stored column block holds only one half's), the conv,
+    ``dt_proj``, ``a_log``, ``d_skip`` and the scan on those channels,
+    ``x_proj`` row-parallel with its partial sums combined over ``model``
+    (dt's rank input, B and C are needed whole), ``out_proj``
+    row-parallel.  The state is held by channel.  Whole on each rank when
+    ``d_inner`` does not divide over ``model``."""
+    di = cfg.ssm.expand * cfg.d_model
+    cb = L.block(di)
+    tp = cb is not None
+    blocks, dims, split = {}, {}, ssm.WHOLE
+    if tp:
+        lo, n = cb
+        blocks = {"in_proj/w": (1, ((lo, n), (di + lo, n))), "dt_proj/w": (1, lo, n)}
+        for rel in ("conv_w", "conv_b", "x_proj/w", "dt_proj/b", "a_log", "d_skip",
+                    "out_proj/w"):  # fmt: skip
+            blocks[rel] = (0, lo, n)
+        dims = {"conv": 2, "ssm": 1}
+        split = ssm.Split(reduce=lambda t: combine(t, L))
+    pp = _use_blocks(L, p, f"{path}/mixer", L.vary_tp if tp else L.vary_whole, blocks)
+    y, new = ssm.mamba_apply(
+        cfg, pp, enter(h, L, tp), mode=mode, state=_from_stored(L, path, cache, dims),
+        split=split,
+    )  # fmt: skip
+    if new is not None:
+        new = _to_stored(L, path, new, dims)
+    return leave(y, L, tp), new
+
+
+def mlstm_region(cfg, p, h, L, path, *, mode, positions, cache):
+    """mLSTM on the stream ``h`` (the reference's ``ssm.py:259-325``):
+    ``in_proj`` column-parallel (both halves, as Mamba's), the conv on
+    the rank's channels, which are all-gathered over ``model`` into
+    ``wq``/``wk``/``wv``; ``w_if`` row-parallel, its partial sums combined;
+    ``out_proj`` row-parallel.  The cell runs on the rank's heads where
+    the heads divide over ``model`` (their channels are the rank's block
+    of ``d_inner``), else whole on each rank between the channel-split
+    projections (its output cut to the rank's channels).  Whole on each
+    rank when ``d_inner`` does not divide."""
+    di = int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+    dh = di // cfg.n_heads
+    cb = L.block(di)
+    hb = L.block(cfg.n_heads) if cb is not None else None
+    blocks, dims, split = {}, {}, ssm.WHOLE
+    if cb is not None:
+        lo, n = cb
+        blocks = {"in_proj/w": (1, ((lo, n), (di + lo, n)))}
+        for rel in ("conv_w", "conv_b", "w_if/w", "out_proj/w"):
+            blocks[rel] = (0, lo, n)
+        dims = {"conv": 2}
+        if hb is not None:  # the cell on the rank's heads
+            for rel in ("wq/w", "wk/w", "wv/w"):
+                blocks[rel] = (1, hb[0] * dh, hb[1] * dh)
+            dims.update(c=1, n=1, m=1)
+            split = ssm.Split(
+                reduce=lambda t: combine(t, L),
+                whole=lambda t: gather(t, L, 2, True),
+                head0=hb[0],
+            )
+        else:  # the cell whole on each rank
+            split = ssm.Split(
+                reduce=lambda t: psum(t, L, (L.model,)),
+                whole=lambda t: gather(t, L, 2, False),
+                own=lambda t: own(t, L, 2, lo, n),
+            )
+    qkv = ("wq", "wk", "wv")
+    vary = L.vary_tp if cb is not None else L.vary_whole
+    pp = _use_blocks(L, {k: v for k, v in p.items() if k not in qkv},
+                     f"{path}/mixer", vary, blocks)  # fmt: skip
+    if hb is None:  # q, k and v: the same on every model rank
+        vary = L.vary_whole
+    pp.update(_use_blocks(L, {k: p[k] for k in qkv}, f"{path}/mixer", vary, blocks))
+    y, new = ssm.mlstm_apply(
+        cfg, pp, enter(h, L, cb is not None), mode=mode,
+        state=_from_stored(L, path, cache, dims), split=split,
+    )  # fmt: skip
+    if new is not None:
+        new = _to_stored(L, path, new, dims)
+    return leave(y, L, cb is not None), new
+
+
+def slstm_region(cfg, p, h, L, path, *, mode, positions, cache):
+    """sLSTM on the stream ``h`` (the reference's ``ssm.py:377-421``): the
+    recurrence on the rank's heads (``w_x``'s columns of those heads in
+    all four gates, ``r_h`` by head), then the post gated FFN with
+    ``ffn_up`` column-parallel (both halves) and ``ffn_down``
+    row-parallel, the heads' output all-gathered over ``model`` between
+    them.  The recurrence runs whole on each rank where the heads do not
+    divide over ``model``, the FFN where ``d_ff`` does not."""
+    d = cfg.d_model
+    dh = d // cfg.n_heads
+    dff = _width(L, f"{path}/mixer/ffn_up/w", p["ffn_up"]["w"], 1) // 2
+    hb, fb = L.block(cfg.n_heads), L.block(dff)
+    blocks, dims = {}, {}
+    if hb is not None:
+        lo, n = hb[0] * dh, hb[1] * dh
+        gates = tuple((g * d + lo, n) for g in range(4))
+        blocks = {"w_x/w": (1, gates), "w_x/b": (0, gates), "r_h": (1, *hb)}
+        dims = dict.fromkeys("hcnm", 1)
+    cell = {k: p[k] for k in ("w_x", "r_h")}
+    vary = L.vary_tp if hb is not None else L.vary_whole
+    pc = _use_blocks(L, cell, f"{path}/mixer", vary, blocks)
+    y, new = ssm.slstm_cell(
+        cfg, pc, enter(h, L, hb is not None), mode=mode,
+        state=_from_stored(L, path, cache, dims),
+    )  # fmt: skip
+    if new is not None:
+        new = _to_stored(L, path, new, dims)
+    if hb is not None:  # the heads' channels whole for ffn_up
+        y = gather(y, L, 2, fb is not None)
+    elif fb is not None:  # the same on every model rank, into a split FFN
+        y = vary_model(y, L)
+    blocks = {}
+    if fb is not None:
+        lo, n = fb
+        blocks = {"ffn_up/w": (1, ((lo, n), (dff + lo, n))), "ffn_down/w": (0, lo, n)}
+    ffn = {k: p[k] for k in ("ffn_up", "ffn_down")}
+    vary = L.vary_tp if fb is not None else L.vary_whole
+    y = ssm.slstm_ffn(_use_blocks(L, ffn, f"{path}/mixer", vary, blocks), y)
+    return leave(y, L, fb is not None), new
+
+
+_REGIONS = {MLA: mla_region, MAMBA: mamba_region, MLSTM: mlstm_region,
+            SLSTM: slstm_region}  # fmt: skip
 
 
 def mlp_region(cfg, p, h, L, path):
@@ -260,15 +464,13 @@ def _block_on_mesh(cfg, p, x, *, mixer, ffn, mode, positions, cache, attn_impl, 
     h = norm("norm1", x)
     if mixer == ATTN:
         y, new_cache = attention_region(
-            cfg, p["mixer"], h, L, f"{path}/mixer", mode=mode, positions=positions,
+            cfg, p["mixer"], h, L, path, mode=mode, positions=positions,
             cache=cache, attn_impl=attn_impl,
         )  # fmt: skip
     else:
-        pm = use_tree(L, p["mixer"], f"{path}/mixer", L.vary_whole)
-        y, new_cache = _whole_mixer(
-            cfg, mixer, pm, enter(h, L, False), mode, positions, cache
+        y, new_cache = _REGIONS[mixer](
+            cfg, p["mixer"], h, L, path, mode=mode, positions=positions, cache=cache
         )
-        y = leave(y, L, False)
     x = x + y
     if ffn == FFN_NONE:
         return x, new_cache, None
@@ -285,5 +487,9 @@ __all__ = [
     "block_apply",
     "block_cache_init",
     "block_init",
+    "mamba_region",
+    "mla_region",
     "mlp_region",
+    "mlstm_region",
+    "slstm_region",
 ]

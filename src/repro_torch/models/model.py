@@ -17,8 +17,8 @@ serving's prefill through the ``flash_attention`` kernel.
 process a rank) runs the reference's sharded program with explicit
 collectives (``models/spmd.py``).  Each rank holds its block of every
 parameter (:func:`~repro_torch.models.sharding.shard_params`: tensor
-parallel over ``model``, FSDP over ``data``; MLA and recurrent configs
-split only their experts) and of the optimizer state and caches.  The
+parallel over ``model``, FSDP over ``data``) and of the optimizer state,
+and of every decode cache (``cache_pspec``).  The
 steps take the global batch on every rank and each keeps its rows; the
 residual stream is batch-sharded over the batch axes and, in train and
 prefill, sequence-sharded over ``model`` (``act_spec``); the sequence is
@@ -30,6 +30,7 @@ whole logits on every rank.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -38,12 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ATTN, FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.blocks import (
-    attention_plan,
-    block_apply,
-    block_cache_init,
-    block_init,
-)
+from repro_torch.models.blocks import block_apply, block_cache_init, block_init
 from repro_torch.models.layers import (
     embed_apply,
     embed_init,
@@ -60,6 +56,7 @@ from repro_torch.models.sharding import (
     mesh_axes,
     param_specs,
     shard_params,
+    stored_cache_specs,
     take_slice,
 )
 from repro_torch.models.spmd import (
@@ -226,25 +223,32 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_caches(
-    cfg: ModelConfig, batch: int, seq_len: int, device, n_kv: int | None = None
+    cfg: ModelConfig, batch: int, seq_len: int, device, shard=None
 ) -> dict[str, Any]:
     """Empty decode caches of ``batch`` rows for ``seq_len`` tokens
     (ring-buffer length for SWA models; a recurrent mixer's state has no
     length): the prefix's per layer, the groups' stacked ``[G, ...]`` like
-    the params.  ``n_kv``: the kv heads an attention cache holds (default
-    all)."""
+    the params.  ``shard(path, leaf)``: the block to keep of each layer's
+    leaf (a group's before stacking), as :func:`init_params` takes it."""
     dtype = torch_dtype(cfg.dtype)
     clen = cache_len_for(cfg, seq_len)
+
+    def kept(tree, prefix):
+        return tree if shard is None else _map_with_path(shard, tree, prefix)
+
     caches: dict[str, Any] = {}
     if cfg.first_k_dense:
         caches["prefix"] = {
-            f"l{i}": block_cache_init(cfg, ATTN, batch, clen, dtype, device, n_kv)
+            f"l{i}": kept(
+                block_cache_init(cfg, ATTN, batch, clen, dtype, device), f"prefix/l{i}"
+            )
             for i in range(cfg.first_k_dense)
         }
     one = {
-        f"b{j}": block_cache_init(cfg, mixer, batch, clen, dtype, device, n_kv)
+        f"b{j}": block_cache_init(cfg, mixer, batch, clen, dtype, device)
         for j, (mixer, _) in enumerate(cfg.pattern)
     }
+    one = kept(one, "groups")
     groups = _stacked_empty(one, cfg.n_groups)
     for g in range(cfg.n_groups):
         _put(groups, one, g)
@@ -709,22 +713,54 @@ def make_train_step(
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
+def _cache_specs_for(cfg: ModelConfig, mesh, policy: ShardingPolicy):
+    """``(batch, seq_len) -> stored_cache_specs``, remembered (the specs
+    of a decode call are the same step after step)."""
+    axes = mesh_axes(mesh)
+    return functools.lru_cache(maxsize=8)(
+        lambda b, s: stored_cache_specs(cfg, b, s, axes, policy)
+    )
+
+
+SLOT_LEAVES = ("k", "v", "ckv", "krope")  # the cache leaves with a slot axis
+
+
+def _leaf(tree: dict, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _cache_len(caches: dict) -> int:
+    """The slots of a decode cache: any ``kpos`` leaf's length (whole on
+    every model rank); 1 where the caches are all recurrent states."""
+    if isinstance(caches, dict):
+        if "kpos" in caches:
+            return caches["kpos"].shape[-1]
+        return max((_cache_len(v) for v in caches.values()), default=1)
+    return 1
+
+
 def make_prefill_step(
     cfg: ModelConfig, *, mesh=None, policy: ShardingPolicy = ShardingPolicy()
 ):
     """(params, batch{tokens|embeds[, positions]}) -> (last logits [B, V],
     caches to hand to decode).  On a ``mesh``: the global batch in, the
-    whole logits on every rank, this rank's blocks of the caches (its
-    rows; its kv heads where they divide over ``model``, all of them
-    where they do not)."""
+    whole logits on every rank, this rank's blocks of the caches
+    (``cache_pspec`` at the prompt's length: its rows; its kv heads, or
+    its block of the sequence, or its channels or heads of a state)."""
     specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
+    cache_specs = None if mesh is None else _cache_specs_for(cfg, mesh, policy)
 
     def prefill_step(params, batch):
         inputs, positions, b, s = _inputs_positions(cfg, batch)
         if mesh is None:
             hidden, _, caches = forward(cfg, params, inputs, positions, mode="prefill")
             return logits_fn(cfg, params, hidden[:, -1:])[:, 0], caches
-        L = make_layout(mesh, policy, specs, batch=b, seq_len=s, mode="prefill")
+        L = make_layout(
+            mesh, policy, specs, batch=b, seq_len=s, mode="prefill",
+            cache_specs=cache_specs(b, s),
+        )  # fmt: skip
         local = _rows({"x": inputs, "positions": positions}, L, b)
         hidden, _, caches = forward(
             cfg, params, local["x"], local["positions"], mode="prefill", layout=L
@@ -741,8 +777,9 @@ def make_serve_step(
     """One decode step: (params, caches, batch{tokens|embeds, pos [B]}) ->
     (logits [B, V], caches).  The caches are written in place and
     returned.  On a ``mesh``: the global batch in, the whole logits on
-    every rank, the caches this rank's blocks."""
+    every rank, the caches this rank's blocks (``Model.init_caches``)."""
     specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
+    cache_specs = None if mesh is None else _cache_specs_for(cfg, mesh, policy)
 
     def serve_step(params, caches, batch):
         inputs = batch.get("tokens", batch.get("embeds"))
@@ -750,7 +787,10 @@ def make_serve_step(
         L = None
         if mesh is not None:
             b = inputs.shape[0]
-            L = make_layout(mesh, policy, specs, batch=b, seq_len=1, mode="decode")
+            L = make_layout(
+                mesh, policy, specs, batch=b, seq_len=1, mode="decode",
+                cache_specs=cache_specs(b, _cache_len(caches)),
+            )  # fmt: skip
             local = _rows({"x": inputs, "pos": pos}, L, b)
             inputs, pos = local["x"], local["pos"]
         positions = pos[:, None]
@@ -777,14 +817,13 @@ class Model:
 
     ``mesh``: a ``(data, model)`` ``DeviceMesh`` of the process group this
     rank joined (every rank builds the same ``Model``).  Then each rank
-    holds its blocks (``models/sharding.py::shard_params``): for the
-    configs whose mixers are all GQA attention, every leaf tensor
-    parallel over ``model`` and FSDP over ``data`` (``policy``'s rules;
-    ``dp_over_model``: FSDP over ``data``, whole over ``model``); for MLA
-    and recurrent configs only the experts split.  ``init_params`` and
-    ``init_train_state`` keep the rank's blocks, ``init_caches`` its
-    rows (and kv heads), and the steps take the global batch on every
-    rank (the module docstring says how the work is split)."""
+    holds its blocks (``models/sharding.py::shard_params``): every leaf
+    tensor parallel over ``model`` and FSDP over ``data`` (``policy``'s
+    rules; ``dp_over_model``: FSDP over ``data``, whole over ``model``).
+    ``init_params`` and ``init_train_state`` keep the rank's blocks,
+    ``init_caches`` and :meth:`load_prefill` its blocks of the caches,
+    and the steps take the global batch on every rank (the module
+    docstring says how the work is split)."""
 
     def __init__(
         self,
@@ -845,19 +884,63 @@ class Model:
         return {"params": params, "opt": tree_adamw_init(self.opt_cfg, params)}
 
     def init_caches(self, batch: int, seq_len: int) -> dict[str, Any]:
-        """Empty caches for ``batch`` rows (on a mesh, this rank's rows
-        and kv heads, as the prefill hands them over)."""
+        """Empty caches for ``batch`` rows (on a mesh, this rank's blocks
+        under ``cache_pspec``: its rows, and its kv heads, block of the
+        sequence, or channels or heads of a state; built a layer at a
+        time)."""
         if self.mesh is None:
             return init_caches(self.cfg, batch, seq_len, self.device)
         L = make_layout(
             self.mesh, self.policy, self.specs, batch=batch, seq_len=1, mode="decode"
         )
         rows = L.rows(batch)
-        plan = attention_plan(self.cfg, L)
-        n_kv = None if plan is None or plan[1] is None else plan[1][1]
-        return init_caches(
-            self.cfg, rows.stop - rows.start, seq_len, self.device, n_kv
+        specs = stored_cache_specs(
+            self.cfg, batch, seq_len, mesh_axes(self.mesh), self.policy
         )
+
+        def keep(path, leaf):  # the rows are this rank's already
+            spec = specs[path][1:] if path.startswith("groups/") else specs[path]
+            return take_slice(leaf, (None, *spec[1:]), self.mesh)
+
+        n = rows.stop - rows.start
+        return init_caches(self.cfg, n, seq_len, self.device, keep)
+
+    def load_prefill(self, caches: dict[str, Any], pre_caches: dict[str, Any]):
+        """The prefill's caches into decode caches from
+        :meth:`init_caches` (``launch/serve.py::load_prefill``).  On a mesh
+        a cache that ``model`` splits along the sequence at the prompt's
+        length or at the decode caches' is all-gathered and cut to the
+        rank's slots first."""
+        from repro_torch.launch.serve import load_prefill
+
+        if self.mesh is None:
+            return load_prefill(caches, pre_caches)
+        axes = mesh_axes(self.mesh)
+        b = 1  # the rows' spec is not read
+        want, have = (
+            stored_cache_specs(self.cfg, b, _cache_len(c), axes, self.policy)
+            for c in (caches, pre_caches)
+        )
+        group = self.mesh.get_group(self.policy.model_axis)
+        rank = self.mesh.get_local_rank(self.policy.model_axis)
+
+        def seq_split(spec, dim):
+            return self.policy.model_axis in axis_names(spec[dim])
+
+        def one(path, src):
+            if path.rsplit("/", 1)[-1] not in SLOT_LEAVES:
+                return src  # a state, or kpos (whole over model)
+            dim = 2 if path.startswith("groups/") else 1  # the slots
+            if seq_split(have[path], dim):  # the prompt's slots, all of them
+                src = all_gather(src, group, dim)
+            if seq_split(want[path], dim):  # this rank's of the decode cache's
+                n = _leaf(caches, path).shape[dim]
+                lo = min(rank * n, src.shape[dim])
+                src = src.narrow(dim, lo, min(n, src.shape[dim] - lo))
+            return src
+
+        with torch.no_grad():
+            return load_prefill(caches, _map_with_path(one, pre_caches))
 
 
 def build_model(cfg: ModelConfig, **kw) -> Model:

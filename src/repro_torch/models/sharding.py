@@ -16,12 +16,12 @@ caller then runs the single-device path; otherwise a 1-D mesh whose
 devices each hold a shard of the fleet engine's stacked agent axis
 (:class:`FleetSharding` says which).  On a ``(data, model)``
 ``torch.distributed`` ``DeviceMesh`` each rank keeps its block of every
-zoo parameter under these rules (:func:`shard_params`; the configs with
-MLA or recurrent mixers split only their experts,
-:func:`tensor_parallel_config`), and ``models/spmd.py`` lays out the
-activations as the reference's ``act_spec`` and ``_full_s`` do;
-:func:`gather_params` puts whole params back together and
-:func:`global_norm` is the clip's norm over the blocks.
+zoo parameter under these rules (:func:`shard_params`) and of every
+decode cache under :func:`cache_pspec` (:func:`stored_cache_specs`), and
+``models/spmd.py`` lays out the activations as the reference's
+``act_spec``, ``_full_s`` and ``_make_wsc_ch`` do; :func:`gather_params`
+puts whole params back together and :func:`global_norm` is the clip's
+norm over the blocks.
 """
 
 from __future__ import annotations
@@ -32,8 +32,6 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
-
-from repro_torch.configs.base import ATTN
 
 
 FSDP = "__fsdp__"  # placeholder resolved to policy.fsdp_axes
@@ -230,12 +228,34 @@ def cache_shardings(tree, mesh_shape: dict[str, int], policy: ShardingPolicy):
     )
 
 
+def stored_cache_specs(
+    cfg, batch: int, seq_len: int, mesh_shape: dict, policy: ShardingPolicy
+) -> dict:
+    """``{path: spec}`` of every decode-cache leaf of ``cfg`` (``batch``
+    rows, ``seq_len`` tokens) as a rank on a mesh of ``mesh_shape`` holds
+    it: :func:`cache_pspec` at the global shapes, a stacked ``groups/...``
+    leaf's spec with its leading group axis.  Without tensor parallelism
+    ``model`` splits only the rows (``cache_pspec`` would name it twice)."""
+    from repro_torch.models.model import META, init_caches
+
+    specs: dict = {}
+
+    def one(path, leaf):
+        spec = cache_pspec(path, tuple(leaf.shape), mesh_shape, policy)
+        if not policy.tensor_parallel:
+            lead = 2 if path.startswith("groups/") else 1  # the rows' dim, then
+            spec = spec[:lead] + tuple(
+                None if a == policy.model_axis else a for a in spec[lead:]
+            )
+        specs[path] = spec
+
+    _map_with_path(one, init_caches(cfg, batch, seq_len, META))
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # The zoo on a (data, model) DeviceMesh: each rank's blocks
 # ---------------------------------------------------------------------------
-EXPERT_LEAVES = ("*/w1", "*/w3", "*/w2")
-
-
 def mesh_axes(mesh) -> dict[str, int]:
     """``{axis name: size}`` of a ``torch.distributed`` ``DeviceMesh``."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -269,26 +289,6 @@ def take_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return t.clone() if sliced else t
 
 
-def tensor_parallel_config(cfg) -> bool:
-    """Whether every mixer of ``cfg`` is GQA attention (its FFNs dense or
-    MoE): the configs whose every leaf a mesh lays out by
-    :func:`leaf_pspec`.  The others (MLA and the recurrent mixers) split
-    only their experts until their mixers' rules are ported."""
-    return all(mixer == ATTN for mixer, _ in cfg.pattern)
-
-
-def leaf_spec(cfg, path: str, shape, mesh_shape: dict, policy: ShardingPolicy) -> tuple:
-    """The stored spec of leaf ``path`` (global ``shape``) on a mesh of
-    ``mesh_shape``: :func:`leaf_pspec`, except that a config outside
-    :func:`tensor_parallel_config` keeps every leaf but its experts
-    whole."""
-    if tensor_parallel_config(cfg) or any(
-        fnmatch.fnmatch(path, pat) for pat in EXPERT_LEAVES
-    ):
-        return leaf_pspec(path, tuple(shape), mesh_shape, policy, cfg)
-    return (None,) * len(shape)
-
-
 def param_specs(cfg, mesh_shape: dict, policy: ShardingPolicy = ShardingPolicy()) -> dict:
     """``{path: stored spec}`` of every parameter of ``cfg`` (a stacked
     ``groups/...`` leaf's spec with its leading group axis), from the
@@ -298,22 +298,21 @@ def param_specs(cfg, mesh_shape: dict, policy: ShardingPolicy = ShardingPolicy()
     specs: dict = {}
 
     def one(path, leaf):
-        specs[path] = leaf_spec(cfg, path, tuple(leaf.shape), mesh_shape, policy)
+        specs[path] = leaf_pspec(path, tuple(leaf.shape), mesh_shape, policy, cfg)
 
     _map_with_path(one, meta_params(cfg))
     return specs
 
 
 def shard_params(cfg, params: dict, mesh, policy: ShardingPolicy = ShardingPolicy()):
-    """A rank's own blocks of whole params on ``mesh`` (:func:`leaf_spec`):
-    for the configs whose mixers are all GQA every leaf under the
-    reference's rules (tensor parallel over ``model``, FSDP over
-    ``data``), for the others only the experts.  A stacked ``[G, ...]``
-    leaf keeps its group axis whole."""
+    """A rank's own blocks of whole params on ``mesh``: every leaf under
+    the reference's rules (:func:`leaf_pspec`: tensor parallel over
+    ``model``, FSDP over ``data``).  A stacked ``[G, ...]`` leaf keeps its
+    group axis whole."""
     axes = mesh_axes(mesh)
 
     def one(path, leaf):
-        spec = leaf_spec(cfg, path, tuple(leaf.shape), axes, policy)
+        spec = leaf_pspec(path, tuple(leaf.shape), axes, policy, cfg)
         return take_slice(leaf, spec, mesh)
 
     return _map_with_path(one, params)
@@ -503,7 +502,6 @@ class FleetSharding:
 
 
 __all__ = [
-    "EXPERT_LEAVES",
     "FLEET",
     "FleetMesh",
     "FleetSharding",
@@ -514,13 +512,12 @@ __all__ = [
     "gather_params",
     "global_norm",
     "leaf_pspec",
-    "leaf_spec",
     "make_fleet_mesh",
     "mesh_axes",
     "mesh_coord",
     "param_specs",
     "shard_params",
+    "stored_cache_specs",
     "take_slice",
-    "tensor_parallel_config",
     "tree_pspecs",
 ]

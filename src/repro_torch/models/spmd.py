@@ -22,12 +22,16 @@ One call's :class:`Layout` says how it is split:
 * the residual stream ``[B/d, S/m, D]`` sequence-sharded over ``model``
   in train and prefill when ``seq`` (the reference's ``act_spec``),
   ``[B/d, S, D]`` otherwise;
-* tensor-parallel regions (column-parallel products, attention over the
-  rank's heads, row-parallel products, the vocab-parallel embedding and
-  logits) over ``model`` when ``tp``; a region whose width does not
-  divide over ``model`` (heads, ``d_ff``, the vocabulary) runs whole on
-  each rank, and so do the mixers the port does not split (MLA, Mamba,
-  mLSTM, sLSTM).
+* tensor-parallel regions (column-parallel products, attention and MLA
+  over the rank's heads, Mamba's, mLSTM's and sLSTM's recurrences over
+  the rank's channels or heads, row-parallel products, the
+  vocab-parallel embedding and logits) over ``model`` when ``tp``; a
+  region whose width does not divide over ``model`` (heads, ``d_inner``,
+  ``d_ff``, the vocabulary) runs whole on each rank;
+* the decode caches as the reference's ``cache_pspec`` lays them out
+  (``caches``): rows over the batch axes, heads, channels or the
+  sequence over ``model``.  A cache held in sequence blocks is read by a
+  split-K combine (:class:`SeqSplit`).
 
 :func:`use` turns a rank's stored block of a weight into the block a
 region computes with: an all-gather over each axis that splits it and
@@ -44,7 +48,7 @@ drives every collective the multi-rank path issues.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -194,6 +198,21 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _Combine(torch.autograd.Function):
+    """Partial sums over ``group`` into a sum that each rank then uses on
+    its own part of a region (its channels, its heads): forward and
+    backward both all-reduce (JAX's ``psum`` followed by ``pvary``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, (group,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, (ctx.group,)), None
+
+
 class _Mean(torch.autograd.Function):
     """The mean of each rank's value over ``groups`` (``n`` ranks in all),
     replicated: the backward gives each rank ``1 / n`` of the gradient."""
@@ -246,14 +265,19 @@ class _Use(torch.autograd.Function):
             out = all_gather(out, group, dim)
         ctx.shape = out.shape
         if narrow is not None:
-            out = out.narrow(*narrow).contiguous()
+            dim, pieces = narrow
+            out = torch.cat([out.narrow(dim, a, n) for a, n in pieces], dim)
         return out.view_as(out) if out is w else out
 
     @staticmethod
     def backward(ctx, g):
         if ctx.narrow is not None:
+            dim, pieces = ctx.narrow
             full = g.new_zeros(ctx.shape)
-            full.narrow(*ctx.narrow).copy_(g)
+            at = 0
+            for a, n in pieces:
+                full.narrow(dim, a, n).copy_(g.narrow(dim, at, n))
+                at += n
             g = full
         for dim, group, reduce in reversed(ctx.gathers):
             g = reduce_scatter(g, group, dim) if reduce else own_block(g, group, dim)
@@ -290,7 +314,9 @@ class Layout:
     gathered).  ``batch``: the axes splitting the rows (empty: every rank
     has them all).  ``seq``: the stream sequence-sharded over ``model``.
     ``tp``: tensor-parallel regions over ``model``.  ``hoist``: the paths
-    whose reduction over the FSDP axes waits for the train step."""
+    whose reduction over the FSDP axes waits for the train step.
+    ``caches``: each decode-cache leaf's stored spec by path (a group
+    leaf's without its stacked axis; empty in train mode)."""
 
     mesh: object
     policy: ShardingPolicy
@@ -299,6 +325,7 @@ class Layout:
     seq: bool
     tp: bool
     hoist: frozenset = frozenset()
+    caches: dict = field(default_factory=dict)
 
     @property
     def axes(self) -> dict[str, int]:
@@ -360,6 +387,15 @@ class Layout:
         size = width // self.n_model
         return self.rank(self.model) * size, size
 
+    def cache_dim(self, path: str) -> int | None:
+        """The dimension of cache leaf ``path`` that ``model`` splits (past
+        the rows), None where the leaf is whole over ``model``."""
+        spec = self.caches[path]
+        for dim in range(1, len(spec)):
+            if self.model in axis_names(spec[dim]):
+                return dim
+        return None
+
 
 def make_layout(
     mesh,
@@ -370,10 +406,12 @@ def make_layout(
     seq_len: int,
     mode: str,
     hoist: frozenset = frozenset(),
+    cache_specs: dict | None = None,
 ) -> Layout:
     """The layout of a call on ``batch`` x ``seq_len`` global tokens.
     ``specs``: every leaf's stored spec by path (stacked leaves with their
-    leading axis), ``models/sharding.py::param_specs``."""
+    leading axis), ``models/sharding.py::param_specs``; ``cache_specs``
+    the same of the decode caches (``stored_cache_specs``)."""
     axes = mesh_axes(mesh)
     for a in ("data", policy.model_axis):
         if a not in axes:
@@ -396,7 +434,11 @@ def make_layout(
             fsdp = set(policy.fsdp_axes)
             spec = tuple(None if set(axis_names(a)) & fsdp else a for a in spec)
         local[path] = spec[1:] if path.startswith("groups/") else spec
-    return Layout(mesh, policy, local, bt, seq, tp, frozenset(hoist))
+    caches = {
+        path: spec[1:] if path.startswith("groups/") else spec
+        for path, spec in (cache_specs or {}).items()
+    }
+    return Layout(mesh, policy, local, bt, seq, tp, frozenset(hoist), caches)
 
 
 # ---------------------------------------------------------------------------
@@ -410,23 +452,29 @@ def use(
     block: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Leaf ``path``'s stored block ``w`` as a region computes with it:
-    whole, or ``block = (dim, start, size)`` of it.  The region varies
-    over ``vary``.  Each axis that splits the stored block is gathered
-    (its backward a reduce-scatter where the region varies over it, the
-    rank's own block where it does not), except ``model`` on ``dim`` when
-    the stored block is the one wanted; the wanted block is then cut out;
-    the gradient is summed over the axes of ``vary`` the stored block is
-    replicated over.  A hoisted leaf's sum over the FSDP axes is left to
-    the train step."""
+    whole, or ``block = (dim, start, size)`` of it, or ``(dim, ((start,
+    size), ...))``: those pieces of ``dim`` side by side (a rank's
+    channels of both halves of Mamba's ``in_proj``, its heads of all four
+    of sLSTM's gates).  The region varies over ``vary``.  Each axis that
+    splits the stored block is gathered (its backward a reduce-scatter
+    where the region varies over it, the rank's own block where it does
+    not), except ``model`` on ``dim`` when the stored block is the one
+    wanted; the wanted block is then cut out; the gradient is summed over
+    the axes of ``vary`` the stored block is replicated over.  A hoisted
+    leaf's sum over the FSDP axes is left to the train step."""
     spec = L.specs[path]
     if path in L.hoist:
         vary = tuple(a for a in vary if a not in L.policy.fsdp_axes)
-    gathers, narrow, split = [], block, set()
+    narrow = None
+    if block is not None:
+        pieces = block[1] if len(block) == 2 else (block[1:],)
+        narrow = (block[0], tuple(tuple(p) for p in pieces))
+    gathers, split = [], set()
     for dim, ax in enumerate(spec):
         names = axis_names(ax)
         split.update(names)
-        if block is not None and dim == block[0] and names == (L.model,):
-            if block[1:] == (L.rank(L.model) * w.shape[dim], w.shape[dim]):
+        if narrow is not None and dim == narrow[0] and names == (L.model,):
+            if narrow[1] == ((L.rank(L.model) * w.shape[dim], w.shape[dim]),):
                 narrow = None  # the stored block is the wanted one
                 continue
         for a in reversed(names):
@@ -479,21 +527,126 @@ def psum(x: torch.Tensor, L: Layout, axes) -> torch.Tensor:
     return x
 
 
+def vary_model(x: torch.Tensor, L: Layout) -> torch.Tensor:
+    """A tensor the same on every model rank into a computation on each
+    rank's own part (forward as is; backward the gradients summed over
+    ``model``)."""
+    return _Enter.apply(x, None, [L.group(L.model)])
+
+
+def combine(x: torch.Tensor, L: Layout) -> torch.Tensor:
+    """A row-parallel product's partial sums over ``model`` into the sum
+    that each model rank then uses on its own channels or heads
+    (Mamba's ``x_proj``, mLSTM's gates): the backward sums the ranks'
+    gradients too."""
+    return _Combine.apply(x, L.group(L.model))
+
+
+def gather(x: torch.Tensor, L: Layout, dim: int, vary: bool) -> torch.Tensor:
+    """A region's channel-split ``x`` whole along ``dim`` (an all-gather
+    over ``model``): ``vary``, what follows runs on the rank's own part
+    (a reduce-scatter backward); else it runs whole on every rank (the
+    own block of the gradient)."""
+    return _Gather.apply(x, L.group(L.model), dim, vary)
+
+
+def own(x: torch.Tensor, L: Layout, dim: int, start: int, size: int) -> torch.Tensor:
+    """Block ``[start, start + size)`` of ``dim`` of a tensor the same on
+    every model rank, into a computation on the rank's own part (the
+    backward puts the block's gradient back in zeros and sums it over
+    ``model``)."""
+    index = (slice(None),) * dim + (slice(start, start + size),)
+    return _Enter.apply(x, index, [L.group(L.model)])
+
+
+def reblock(t: torch.Tensor, L: Layout, have: int | None, want: int | None):
+    """A cache leaf held split over ``model`` along ``have`` (None: whole)
+    as the rank's block along ``want`` (None: whole): an all-gather and a
+    cut, no gradient (decode and the prefill's hand-over)."""
+    if have == want:
+        return t
+    m = L.group(L.model)
+    if have is not None:
+        t = all_gather(t, m, have)
+    return t if want is None else own_block(t, m, want)
+
+
+@dataclass(frozen=True)
+class SeqSplit:
+    """A decode cache held in blocks of the sequence over ``model`` (the
+    reference's ``cache_pspec`` for MLA's latent cache, and for a kv
+    cache whose heads do not divide): this rank's slots ``[start, start +
+    size)``, and the split-K (flash-decoding) combine of attention over
+    the blocks.  Each rank scores the whole query against its own slots;
+    the softmax's max and sum and the weighted values are all-reduced
+    over ``model``.  Decode takes no gradient: plain collectives.
+    ``heads``: the rank's ``(first, count)`` of the gathered query's
+    heads, None where the query is whole on every rank."""
+
+    group: object
+    start: int
+    size: int
+    heads: tuple[int, int] | None = None
+
+    def write(self, cache, rows, slot, value) -> None:
+        """``cache[rows[i], slot[i]] = value[i]`` at the global slots this
+        rank holds (a select, so nothing waits for the host)."""
+        mine = (slot >= self.start) & (slot < self.start + self.size)
+        local = (slot - self.start).clamp(0, self.size - 1)
+        keep = cache[rows, local]
+        shape = (-1,) + (1,) * (keep.dim() - 1)
+        cache[rows, local] = torch.where(mine.view(shape), value.to(keep.dtype), keep)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def whole_heads(self, q: torch.Tensor, dim: int) -> torch.Tensor:
+        return q if self.heads is None else all_gather(q, self.group, dim)
+
+    def own_heads(self, y: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.heads is None:
+            return y
+        return y.narrow(dim, *self.heads).contiguous()
+
+
+def seq_split(L: Layout, path: str, heads, cache_len: int) -> SeqSplit | None:
+    """The :class:`SeqSplit` of attention cache ``path`` (its ``k`` or
+    ``ckv``) if ``model`` splits it along the sequence, else None;
+    ``cache_len``: the slots a rank holds."""
+    if L.cache_dim(path) != 1:
+        return None
+    return SeqSplit(L.group(L.model), L.rank(L.model) * cache_len, cache_len, heads)
+
+
 __all__ = [
     "HOIST_PATTERNS",
     "Layout",
+    "SeqSplit",
     "all_gather",
     "all_reduce",
     "all_to_all",
     "axis_names",
+    "combine",
     "enter",
+    "gather",
     "group_size",
     "hoisted",
     "leave",
     "make_layout",
+    "own",
     "own_block",
     "psum",
+    "reblock",
     "reduce_scatter",
+    "seq_split",
     "use",
     "use_tree",
+    "vary_model",
 ]

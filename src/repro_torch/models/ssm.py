@@ -20,12 +20,21 @@ In train mode under autograd each chunk body of Mamba and mLSTM is
 checkpointed (the reference's ``jax.checkpoint``), so the backward holds
 one chunk's intermediates at a time; prefill and decode take none.
 Decode is one step of each recurrence against the state a prefill hands
-over.  Left out: the reference's ``_make_wsc_ch`` mesh constraints and
-its ``REPRO_NO_SCAN_WSC`` switch, which place the scan's tensors on a
-device mesh and change no number.
+over.
+
+Every recurrence is per channel or per head, so on a mesh
+(``models/blocks.py``'s regions, the reference's ``_make_wsc_ch``) a rank
+runs these functions on its block of the weights: its channels of
+``d_inner`` (the widths are read off the weights) and its heads, with
+:class:`Split` saying where the other ranks' channels come in.  No
+collective is needed inside a scan.  Left out: the reference's
+``REPRO_NO_SCAN_WSC`` switch.
 """
 
 from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +50,37 @@ from repro_torch.models.layers import (
 
 F32 = torch.float32
 M_INIT = -1e30  # mLSTM's empty stabiliser (finite: -inf - -inf would be NaN)
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    # contiguous and a node of its own, as the mesh's all-gather gives it:
+    # the products that read it and the order in which their gradients
+    # add up are then the same on one device and on a mesh
+    return x.contiguous().view_as(x)
+
+
+@dataclass(frozen=True)
+class Split:
+    """How a mixer that runs on a rank's part of its channels meets the
+    others' (the defaults: the whole mixer on one device).  ``reduce``: a
+    row-parallel product's partial sums summed (Mamba's ``x_proj``,
+    mLSTM's gates); ``whole``: the rank's channels of ``d_inner`` whole
+    (mLSTM's q, k and v read every channel); ``own``: the rank's
+    channels of a whole ``d_inner`` (mLSTM's cell run whole); ``head0``:
+    the first of the rank's heads (in mLSTM's gates, which cover all
+    heads)."""
+
+    reduce: Callable = _same
+    whole: Callable = _whole
+    own: Callable = _same
+    head0: int = 0
+
+
+WHOLE = Split()
 
 
 def _remat(mode: str) -> bool:
@@ -162,12 +202,16 @@ def mamba_apply(
     *,
     mode: str,
     state: dict[str, torch.Tensor] | None = None,
+    split: Split = WHOLE,
 ):
     """u [B,S,D] -> (y [B,S,D], new_state or None): the prefill's state to
-    hand over, decode's next state, None in train mode."""
+    hand over, decode's next state, None in train mode.  ``d_inner`` is
+    ``in_proj``'s half (on a mesh the rank's channels, ``x`` and ``z``
+    side by side); ``split.reduce`` sums ``x_proj``'s partial products,
+    and the output is then the rank's partial sum."""
     s_cfg = cfg.ssm
     d = u.shape[-1]
-    di = s_cfg.expand * d
+    di = p["in_proj"]["w"].shape[1] // 2
     dtr = s_cfg.dt_rank or -(-d // 16)
     n = s_cfg.d_state
 
@@ -177,7 +221,7 @@ def mamba_apply(
     x, new_conv = causal_conv1d(x, p["conv_w"], p["conv_b"], conv_state)
     x = F.silu(x)
 
-    xdb = dense_apply(p["x_proj"], x)
+    xdb = split.reduce(dense_apply(p["x_proj"], x))
     dt = F.softplus(dense_apply(p["dt_proj"], xdb[..., :dtr]).float())  # [B,S,di]
     b_ssm = xdb[..., dtr : dtr + n].float()
     c_ssm = xdb[..., dtr + n :].float()
@@ -274,33 +318,44 @@ def mlstm_apply(
     *,
     mode: str,
     state: dict[str, torch.Tensor] | None = None,
+    split: Split = WHOLE,
 ):
     """u [B,S,D] -> (y [B,S,D], new_state or None), as :func:`mamba_apply`.
     v comes from the un-convolved input, q, k and the gates from the
-    convolved one (the reference's wiring)."""
+    convolved one (the reference's wiring).  On a mesh the channels are
+    ``in_proj``'s half and the heads ``wq``'s columns over the head
+    width: ``split.whole`` gives q, k and v every channel,
+    ``split.reduce`` sums the gates' partial products (all heads; the
+    rank's from ``split.head0``) and ``split.own`` cuts the cell's output
+    to the rank's channels."""
     x_cfg = cfg.xlstm
     b, s_len, d = u.shape
-    di = int(x_cfg.mlstm_proj_factor * d)
-    h = cfg.n_heads
-    dh = di // h
+    n_heads = cfg.n_heads
+    dh = int(x_cfg.mlstm_proj_factor * d) // n_heads
+    h0, h = split.head0, p["wq"]["w"].shape[1] // dh
 
     xz = dense_apply(p["in_proj"], u)
+    di = xz.shape[-1] // 2
     x, z = xz[..., :di], xz[..., di:]
     conv_state = state["conv"] if state is not None else None
     xc, new_conv = causal_conv1d(x, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
 
-    q = dense_apply(p["wq"], xc).reshape(b, s_len, h, dh).float()
-    k = dense_apply(p["wk"], xc).reshape(b, s_len, h, dh).float() * dh**-0.5
-    v = dense_apply(p["wv"], x).reshape(b, s_len, h, dh).float()
-    if_pre = dense_apply(p["w_if"], xc).float()  # [B,S,2H]
-    log_i = if_pre[..., :h]
-    log_f = F.logsigmoid(if_pre[..., h:])
+    xcw = split.whole(xc)
+    q = dense_apply(p["wq"], xcw).reshape(b, s_len, h, dh).float()
+    k = dense_apply(p["wk"], xcw).reshape(b, s_len, h, dh).float() * dh**-0.5
+    v = dense_apply(p["wv"], split.whole(x)).reshape(b, s_len, h, dh).float()
+    if_pre = split.reduce(dense_apply(p["w_if"], xc)).float()  # [B,S,2H]
+    log_i = if_pre[..., h0 : h0 + h]
+    log_f = F.logsigmoid(if_pre[..., n_heads + h0 : n_heads + h0 + h])
 
     if mode in ("train", "prefill"):
         chunk = _best_chunk(s_len, x_cfg.chunk)
-        init = mlstm_state_init(cfg, b, u.dtype, u.device)
-        carry = (init["c"], init["n"], init["m"])
+        carry = (
+            u.new_zeros((b, h, dh, dh), dtype=F32),
+            u.new_zeros((b, h, dh), dtype=F32),
+            u.new_full((b, h), M_INIT, dtype=F32),
+        )
         remat, ys = _remat(mode), []
         for i in range(0, s_len, chunk):
             sl = slice(i, i + chunk)
@@ -321,7 +376,7 @@ def mlstm_apply(
         new_state = {"conv": new_conv, "c": c, "n": n, "m": m}
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    y = y.reshape(b, s_len, di).to(u.dtype) * F.silu(z)
+    y = split.own(y.reshape(b, s_len, h * dh).to(u.dtype)) * F.silu(z)
     return dense_apply(p["out_proj"], y), new_state
 
 
@@ -375,6 +430,48 @@ def _slstm_step(rh, hprev, c, n, m, x_pre):
     return h_new, c_new, n_new, m_new
 
 
+def slstm_cell(
+    cfg: ModelConfig,
+    p: dict,
+    u: torch.Tensor,
+    *,
+    mode: str,
+    state: dict[str, torch.Tensor] | None = None,
+):
+    """The recurrence a token at a time: u [B,S,D] -> (y [B,S,H*dh],
+    new_state or None) over the heads of ``r_h`` (on a mesh the rank's,
+    ``w_x`` then holding its heads' columns of all four gates)."""
+    b, s_len, _ = u.shape
+    h = p["r_h"].shape[1]
+    dh = cfg.d_model // cfg.n_heads
+    x_pre = dense_apply(p["w_x"], u).float().reshape(b, s_len, 4, h, dh)
+    rh = p["r_h"].float()
+    if state is None:
+        shape = (b, h, dh)
+        zero = u.new_zeros(shape, dtype=F32)
+        carry = (zero, zero, u.new_ones(shape, dtype=F32), zero)
+    else:
+        carry = tuple(state[key] for key in "hcnm")
+
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    ys = []
+    for t in range(s_len):
+        carry = _slstm_step(rh, *carry, x_pre[:, t])
+        ys.append(carry[0])
+    y = torch.stack(ys, 1).reshape(b, s_len, h * dh)
+    new_state = None if mode == "train" else dict(zip("hcnm", carry, strict=True))
+    return y.to(u.dtype), new_state
+
+
+def slstm_ffn(p: dict, y: torch.Tensor) -> torch.Tensor:
+    """The post gated FFN (the xLSTM block's structure): ``ffn_up``'s two
+    halves side by side (on a mesh the rank's columns of each)."""
+    up = dense_apply(p["ffn_up"], y)
+    dff = up.shape[-1] // 2
+    return dense_apply(p["ffn_down"], F.silu(up[..., :dff]) * up[..., dff:])
+
+
 def slstm_apply(
     cfg: ModelConfig,
     p: dict,
@@ -385,34 +482,13 @@ def slstm_apply(
 ):
     """u [B,S,D] -> (y [B,S,D], new_state or None), as :func:`mamba_apply`:
     the recurrence a token at a time, then the post gated FFN."""
-    b, s_len, d = u.shape
-    h = cfg.n_heads
-    dh = d // h
-    x_pre = dense_apply(p["w_x"], u).float().reshape(b, s_len, 4, h, dh)
-    rh = p["r_h"].float()
-    if state is None:
-        init = slstm_state_init(cfg, b, F32, u.device)
-        carry = tuple(init[key] for key in "hcnm")
-    else:
-        carry = tuple(state[key] for key in "hcnm")
-
-    if mode not in ("train", "prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r}")
-    ys = []
-    for t in range(s_len):
-        carry = _slstm_step(rh, *carry, x_pre[:, t])
-        ys.append(carry[0])
-    y = torch.stack(ys, 1).reshape(b, s_len, d)
-    new_state = None if mode == "train" else dict(zip("hcnm", carry, strict=True))
-    y = y.to(u.dtype)
-    # post gated FFN (the xLSTM block's structure)
-    up = dense_apply(p["ffn_up"], y)
-    dff = up.shape[-1] // 2
-    y = dense_apply(p["ffn_down"], F.silu(up[..., :dff]) * up[..., dff:])
-    return y, new_state
+    y, new_state = slstm_cell(cfg, p, u, mode=mode, state=state)
+    return slstm_ffn(p, y), new_state
 
 
 __all__ = [
+    "WHOLE",
+    "Split",
     "causal_conv1d",
     "mamba_apply",
     "mamba_init",
@@ -421,6 +497,8 @@ __all__ = [
     "mlstm_init",
     "mlstm_state_init",
     "slstm_apply",
+    "slstm_cell",
+    "slstm_ffn",
     "slstm_init",
     "slstm_state_init",
 ]

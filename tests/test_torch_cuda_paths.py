@@ -636,3 +636,52 @@ def test_zoo_sharded_train_step_on_a_one_rank_mesh_on_card(cuda):
     for a, b in zip(got[1], want[1], strict=True):
         assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
     assert float((got[2] - want[2]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "arch", ["deepseek-v2-lite-16b-smoke", "jamba-1.5-large-398b-smoke",
+             "xlstm-125m-smoke"],
+)  # fmt: skip
+def test_mixers_sharded_on_a_one_rank_mesh_on_card(cuda, arch):
+    """chip_smoke's ``lm_mixers_mesh`` at smoke widths: MLA, Mamba, mLSTM
+    and sLSTM in their tensor-parallel regions on a one-rank NCCL mesh
+    (MLA's latent cache a sequence block read by the split-K combine)
+    against the mesh-less model: 2 train steps, a prefill and 2 decode
+    steps."""
+    from repro_torch.launch.mesh import one_rank_device_mesh
+
+    cfg = get_config(arch)
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (4, 35)), device=cuda)
+    batch = {"tokens": toks[:, :-3], "labels": toks[:, 1:-2]}
+
+    def run(mesh):
+        model = Model(cfg, cuda, mesh=mesh)
+        state = model.init_train_state(0)
+        lines = []
+        for _ in range(2):
+            state, m = model.train_step(state, batch)
+            lines.append((float(m["loss"]), float(m["grad_norm"])))
+        params = state["params"]
+        with torch.no_grad():
+            last, pre = model.prefill_step(params, {"tokens": batch["tokens"]})
+            caches = model.load_prefill(model.init_caches(4, 34), pre)
+            logits = [last]
+            for i in range(2):
+                step = {"tokens": toks[:, 32 + i : 33 + i],
+                        "pos": torch.full((4,), 32 + i, dtype=torch.int32, device=cuda)}
+                lg, caches = model.serve_step(params, caches, step)  # fmt: skip
+                logits.append(lg)
+        return lines, [t.detach().clone() for t in tree_leaves(params)], logits
+
+    torch.cuda.set_device(cuda.index or 0)
+    with one_rank_device_mesh("cuda") as mesh:
+        got = run(mesh)
+    want = run(None)
+    for (gl, gg), (wl, wg) in zip(got[0], want[0], strict=True):
+        assert gl == pytest.approx(wl, rel=1e-5) and gg == pytest.approx(wg, rel=1e-5)
+    for a, b in zip(got[1], want[1], strict=True):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+    for a, b in zip(got[2], want[2], strict=True):
+        assert float((a - b).abs().max()) <= 1e-4

@@ -26,17 +26,20 @@ whole on each rank between the sequence gather and its block).  Held: the loss, 
 (1e-5 relative), each rank's block of every gradient against the same
 block of the reference's (1e-5 of the leaf's scale), the params after 3
 steps (1e-4), the prefill's last logits and 4 decode steps' logits
-(1e-4), and each rank's parameter and AdamW bytes equal to the planner's
-``bytes_per_device``.
+(1e-4), each rank's parameter and AdamW bytes equal to the planner's
+``bytes_per_device``, and its cache bytes to ``cache_specs``' (qwen2-vl's
+2 kv heads do not divide over model 4: its kv cache is held in sequence
+blocks, read by the split-K combine, each block the reference's).
 
 Also: a one-rank gloo mesh runs the whole sharded body (every collective
 over groups of one) bit for bit the mesh-less step; ``launch.train``'s
 meshed body at ``{2, 2}`` prints the one-process run's lines and its
 ``--ckpt`` holds the whole params; ``--production-mesh`` refuses a world
 that is not 256 ranks.  ``python tests/test_torch_zoo_mesh.py port|ref
-...`` are the two sides' entry points.  The configs that split only their
-experts are held in ``tests/test_torch_zoo_mesh_whole.py`` on this
-file's harness.
+...`` are the two sides' entry points.  The configs with MLA and recurrent
+mixers are held on this file's harness in
+``tests/test_torch_mixers_mesh.py`` (against the reference) and
+``tests/test_torch_zoo_mesh_whole.py`` (against the one-process model).
 """
 
 import datetime
@@ -71,23 +74,49 @@ CASES = {
     "danube_s18": ("h2o-danube-3-4b-smoke", (1, 4), (4, 18), {}),
     "musicgen_2heads": ("musicgen-medium-smoke", (1, 4), (4, 32), {}),
 }  # fmt: skip
-# The configs that split only their experts (MLA and recurrent mixers
-# whole on each rank, on whole leaves), held to the mesh-less model on
-# {data 2, model 2} by tests/test_torch_zoo_mesh_whole.py: at capacity
-# factor 16 no pair drops and without the router loss the experts'
-# per-shard capacity and aux mean change no number, so the port's own
-# one-process run is the reference.
+# The configs with MLA and recurrent mixers, split as the planner plans
+# them, held to the mesh-less model on {data 2, model 2} by
+# tests/test_torch_zoo_mesh_whole.py: at capacity factor 16 no pair drops
+# and without the router loss the experts' per-shard capacity and aux
+# mean change no number, so the port's own one-process run is the
+# reference.
 WHOLE_MIXERS = {
     "deepseek": ("deepseek-v2-lite-16b-smoke", (2, 2), (4, 32), {}),
     "jamba": ("jamba-1.5-large-398b-smoke", (2, 2), (4, 32), {}),
     "xlstm": ("xlstm-125m-smoke", (2, 2), (4, 32), {}),
 }
+# The same configs with their own MoE settings against the reference's
+# meshed steps (tests/test_torch_mixers_mesh.py); deepseek_37: a decode
+# cache of 37 slots, which do not divide over model 4, so the latent
+# cache stays whole over model (the prefill's 32 are split); the 2-head
+# cases (CFG_OVERRIDES): MLA whole on each rank over a latent cache in
+# sequence blocks, and mLSTM's cell and sLSTM's recurrence whole between
+# channel-split projections and a split sLSTM FFN (d_model 192: d_inner
+# 384 and the FFN's 256 divide over model 4, 2 heads do not).
+MIXER_CASES = {
+    "deepseek_22": ("deepseek-v2-lite-16b-smoke", (2, 2), (4, 32), {}),
+    "jamba_22": ("jamba-1.5-large-398b-smoke", (2, 2), (4, 32), {}),
+    "xlstm_22": ("xlstm-125m-smoke", (2, 2), (4, 32), {}),
+    "deepseek_14": ("deepseek-v2-lite-16b-smoke", (1, 4), (4, 32), {}),
+    "jamba_14": ("jamba-1.5-large-398b-smoke", (1, 4), (4, 32), {}),
+    "xlstm_14": ("xlstm-125m-smoke", (1, 4), (4, 32), {}),
+    "deepseek_37": ("deepseek-v2-lite-16b-smoke", (1, 4), (4, 32), {}),
+    "deepseek_2heads": ("deepseek-v2-lite-16b-smoke", (1, 4), (4, 32), {}),
+    "xlstm_2heads": ("xlstm-125m-smoke", (1, 4), (4, 32), {}),
+}
+EXTRA_SLOTS = {"deepseek_37": 1}  # decode cache slots past S + DECODE
 NO_DROPS = dict(capacity_factor=16.0, router_aux_weight=0.0)
 # config changes: 2 heads do not divide over model 4, so the attention
 # runs whole on each rank between the sequence gather and its block
-CFG_OVERRIDES = {"musicgen_2heads": dict(n_heads=2, n_kv_heads=2)}
+CFG_OVERRIDES = {
+    "musicgen_2heads": dict(n_heads=2, n_kv_heads=2),
+    "deepseek_2heads": dict(n_heads=2, n_kv_heads=2),
+    "xlstm_2heads": dict(d_model=192, n_heads=2, n_kv_heads=2),
+}
 MESHES = sorted({mesh for _, mesh, _, _ in CASES.values()})
 STEPS, DECODE = 3, 4
+# the cache leaves compared after decoding: attention caches and states
+CACHE_LEAVES = ("k", "v", "ckv", "krope", "conv", "ssm", "c", "n", "m", "h")
 TRAIN_ARGS = ["--arch", "h2o-danube-3-4b-smoke", "--steps", "2", "--batch", "4",
               "--seq", "32", "--device", "cpu"]  # fmt: skip
 TIMEOUT = 420  # seconds for a world or a reference run, import included
@@ -114,10 +143,17 @@ def nest(flat: dict) -> dict:
     return out
 
 
+def _seed(name) -> int:
+    first = sorted({**CASES, **WHOLE_MIXERS})
+    if name in first:
+        return first.index(name)
+    return 50 + sorted(MIXER_CASES).index(name)
+
+
 def case_params(name, shapes: dict) -> dict:
     """Every leaf from numpy, by path in sorted order: norm scales near 1,
     vectors (biases, norm biases) 0.1 normals, matrices fan-in scaled."""
-    rng = np.random.default_rng(sorted({**CASES, **WHOLE_MIXERS}).index(name))
+    rng = np.random.default_rng(_seed(name))
     out = {}
     for path in sorted(shapes):
         shape = shapes[path]
@@ -137,7 +173,7 @@ def case_batch(name, cfg):
     embeds, labels, M-RoPE positions ``[3, B, S]`` with distinct
     coordinates, and per decode step its token (or embeds) and position."""
     _, _, (b, s), _ = _case(name)
-    rng = np.random.default_rng(100 + sorted({**CASES, **WHOLE_MIXERS}).index(name))
+    rng = np.random.default_rng(100 + _seed(name))
     v = cfg.vocab_size
     toks = rng.integers(0, v, (b, s + 1)).astype(np.int32)
     train = {"labels": toks[:, 1:]}
@@ -164,7 +200,14 @@ def case_batch(name, cfg):
 
 
 def _case(name):
-    return CASES[name] if name in CASES else WHOLE_MIXERS[name]
+    return {**CASES, **WHOLE_MIXERS, **MIXER_CASES}[name]
+
+
+def cache_slots(name) -> int:
+    """The decode caches' length: the prompt, the decode steps and any
+    extra slots."""
+    _, _, (_, s), _ = _case(name)
+    return s + DECODE + EXTRA_SLOTS.get(name, 0)
 
 
 def case_policy(policy_cls, name):
@@ -185,11 +228,11 @@ def case_config(get_config, name):
 def run_case(name, mesh) -> dict:
     """One case through ``Model(mesh=)`` (``mesh`` None: the one-process
     model): the loss's gradients, 3 train steps, the whole params after,
-    the prefill's last logits and 4 decode steps' logits, and (on a mesh)
-    the rank's state bytes beside the planner's."""
+    the prefill's last logits and 4 decode steps' logits, the attention
+    caches after decoding, and (on a mesh) the rank's state and cache
+    bytes beside the planner's."""
     from repro_torch.configs.base import get_config
-    from repro_torch.launch import serve
-    from repro_torch.launch.specs import bytes_per_device, state_specs
+    from repro_torch.launch.specs import bytes_per_device, cache_specs, state_specs
     from repro_torch.models.model import Model, meta_params, value_and_grad
     from repro_torch.models.sharding import ShardingPolicy, mesh_axes
 
@@ -234,11 +277,24 @@ def run_case(name, mesh) -> dict:
         pre = {k: torch.from_numpy(v) for k, v in prefill_np.items()}
         last, pre_caches = model.prefill_step(params, pre)
         res[f"{name}/logits/prefill"] = last.numpy()
-        caches = serve.load_prefill(model.init_caches(b, s + DECODE), pre_caches)
+        slots = cache_slots(name)
+        caches = model.init_caches(b, slots)
+        if mesh is not None:
+            axes = mesh_axes(mesh)
+            res[f"{name}/cache_bytes"] = np.float64(
+                sum(t.numel() * t.element_size() for t in flatten(caches).values())
+            )
+            res[f"{name}/planned_cache_bytes"] = np.float64(
+                bytes_per_device(cache_specs(cfg, b, slots, axes, policy), axes)
+            )
+        caches = model.load_prefill(caches, pre_caches)
         for i, step in enumerate(steps_np):
             step = {k: torch.from_numpy(v) for k, v in step.items()}
             logits, caches = model.serve_step(params, caches, step)
             res[f"{name}/logits/decode{i}"] = logits.numpy()
+        for k, v in flatten(caches).items():
+            if k.rsplit("/", 1)[-1] in CACHE_LEAVES:
+                res[f"{name}/cache/{k}"] = v.numpy()
     return res
 
 
@@ -299,7 +355,7 @@ def ref_main(name, out):
     from repro.models.sharding import ShardingPolicy
     from repro.optim.adamw import AdamWConfig, adamw_init
 
-    _, (nd, nm), (b, s), _ = CASES[name]
+    _, (nd, nm), (b, s), _ = _case(name)
     mesh = Mesh(np.array(jax.devices()[: nd * nm]).reshape(nd, nm), ("data", "model"))
     cfg = case_config(get_config, name)
     policy = case_policy(ShardingPolicy, name)
@@ -329,11 +385,14 @@ def ref_main(name, out):
     prefill = jax.jit(make_prefill_step(cfg, mesh=mesh, policy=policy))
     last, pre_caches = prefill(params, {k: jnp.asarray(v) for k, v in prefill_np.items()})
     res[f"{name}/logits/prefill"] = np.asarray(last)
-    caches = _load_prefill(cfg, init_caches(cfg, b, s + DECODE), pre_caches, s)
+    caches = _load_prefill(cfg, init_caches(cfg, b, cache_slots(name)), pre_caches, s)
     serve = jax.jit(make_serve_step(cfg, mesh=mesh, policy=policy))
     for i, st in enumerate(steps_np):
         logits, caches = serve(params, caches, {k: jnp.asarray(v) for k, v in st.items()})
         res[f"{name}/logits/decode{i}"] = np.asarray(logits)
+    for k, v in flatten(caches).items():
+        if k.rsplit("/", 1)[-1] in CACHE_LEAVES:
+            res[f"{name}/cache/{k}"] = np.asarray(v)
     np.savez(out, **res)
 
 
@@ -405,6 +464,34 @@ def runs(tmp_path_factory):
     return port, ref, ckpt
 
 
+def check_cache_blocks(port, ref, name):
+    """Each rank's caches after decoding (kv and latent caches, recurrent
+    states) are its blocks of the reference's under ``cache_pspec`` (1e-4
+    of the leaf's scale): a leaf held in sequence blocks has the rank's
+    slots only, a state the rank's channels or heads.  Returns the
+    leaves' specs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.sharding import ShardingPolicy, stored_cache_specs
+
+    _, (nd, nm), (b, _), _ = _case(name)
+    mesh_shape = {"data": nd, "model": nm}
+    cfg = case_config(get_config, name)
+    specs = stored_cache_specs(
+        cfg, b, cache_slots(name), mesh_shape, case_policy(ShardingPolicy, name)
+    )
+    keys = sorted(k for k in ref if k.startswith(f"{name}/cache/"))
+    assert keys
+    for r, got in enumerate(port[(nd, nm)]):
+        coord = {"data": r // nm, "model": r % nm}
+        assert keys == sorted(k for k in got if k.startswith(f"{name}/cache/"))
+        for k in keys:
+            spec = specs[k[len(f"{name}/cache/") :]]
+            block = _block(ref[k], spec, coord, mesh_shape)
+            assert got[k].shape == block.shape, (r, k, got[k].shape, block.shape)
+            _close_to_scale(got[k], block, 1e-4, (r, k))
+    return {k[len(f"{name}/cache/") :]: specs[k[len(f"{name}/cache/") :]] for k in keys}
+
+
 def _spec_of(name, path, mesh_shape):
     from repro_torch.configs.base import get_config
     from repro_torch.models.sharding import ShardingPolicy, param_specs
@@ -468,6 +555,23 @@ def _match(port, want, name, metrics=("loss", "aux", "n_tokens")):
             np.testing.assert_allclose(got[k], want[k], atol=1e-4, rtol=0, err_msg=k)
         for k in (k for k in want if k.startswith(f"{name}/logits/")):
             np.testing.assert_allclose(got[k], want[k], atol=1e-4, rtol=0, err_msg=k)
+
+
+def test_qwen2vl_kv_cache_is_held_in_sequence_blocks(runs):
+    """qwen2-vl-2b-smoke's 2 kv heads do not divide over model 4, so its
+    kv caches are split along the sequence (``cache_pspec``): each rank
+    holds a quarter of the 36 slots, its cache bytes equal the planner's
+    ``cache_specs``, and after prefill and 4 decode steps its blocks are
+    the reference's."""
+    port, ref, _ = runs
+    specs = check_cache_blocks(port, ref["qwen2vl"], "qwen2vl")
+    assert all(spec[2] == "model" for path, spec in specs.items()
+               if path.rsplit("/", 1)[-1] in ("k", "v"))  # fmt: skip
+    for got in port[(1, 4)]:
+        assert float(got["qwen2vl/cache_bytes"]) == float(
+            got["qwen2vl/planned_cache_bytes"]
+        )
+        assert got["qwen2vl/cache/groups/b0/k"].shape[2] == (32 + DECODE) // 4
 
 
 @pytest.mark.parametrize("name", list(CASES))

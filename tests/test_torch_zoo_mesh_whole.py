@@ -1,19 +1,21 @@
-"""The zoo's configs that split only their experts on a ``(data, model)``
-mesh.
+"""The zoo's configs with MLA and recurrent mixers on a ``(data, model)``
+mesh against the one-process model.
 
 deepseek-v2-lite-16b-smoke (MLA), jamba-1.5-large-398b-smoke (Mamba) and
-xlstm-125m-smoke (mLSTM, sLSTM) run their mixers whole on each rank on
-whole leaves and split only their experts
-(``models/sharding.py::tensor_parallel_config``), while the stream is
-batch-sharded over ``data`` and sequence-sharded over ``model`` and
-their attention and dense FFNs run tensor parallel on weights sliced at
-use.  On a gloo ``{data 2, model 2}`` world (one process a rank) they
-are held to the port's one-process model, run in a process of its own,
-at ``tests/test_torch_zoo_mesh.py``'s tolerances: at capacity factor 16
-no pair drops, and without the router loss neither the experts'
-per-shard capacity nor the mean of the shards' router losses changes a
-number.  ``python tests/test_torch_zoo_mesh_whole.py port|local ...``
-are the two sides' entry points.
+xlstm-125m-smoke (mLSTM, sLSTM) hold every leaf in its ``leaf_pspec``
+block and run their mixers tensor parallel over ``model`` (MLA over the
+rank's heads, the recurrences over its channels or heads, the latent
+cache and the states in their ``cache_pspec`` blocks), the stream
+batch-sharded over ``data`` and sequence-sharded over ``model``.  On a
+gloo ``{data 2, model 2}`` world (one process a rank) they are held to
+the port's one-process model, run in a process of its own, at
+``tests/test_torch_zoo_mesh.py``'s tolerances: at capacity factor 16 no
+pair drops, and without the router loss neither the experts' per-shard
+capacity nor the mean of the shards' router losses changes a number.
+``tests/test_torch_mixers_mesh.py`` holds the same configs at their own
+MoE settings against the reference.  ``python
+tests/test_torch_zoo_mesh_whole.py port|local ...`` are the two sides'
+entry points.
 """
 
 import os
