@@ -174,14 +174,26 @@ non-zero exit code and no result line:
    magnitude and non-zero on the card, the routers' included; an embeds
    config's unused token table excepted), one ``train_step`` each way,
    one at ``microbatches=2``; C a norm per mixer, per FFN and the final
-   one a forward (2L + 1 where every block has an FFN), D never; also
+   one a forward (2L + 1 where every block has an FFN) and, as every
+   train step here rematerialises per layer (``ShardingPolicy()``), each
+   group's norms again in the backward (``norms_recomputed``: its blocks
+   but the last, then each block), D never; also
    jamba-1.5-large-398b-smoke (Mamba, MoE) and xlstm-125m-smoke (mLSTM,
    sLSTM).
 19. lm_train_main — ``python -m repro_torch.launch.train`` for
    h2o-danube-3-4b at full width and depth in bfloat16 with float32
    moments, batch 2, seq 1024, 4 steps: finite losses, ``gnorm > 0``
-   every step, C (2L + 1) x 4 times, D never; wall, tokens a second and
-   peak memory printed.
+   every step, C (2L + 1 + 2L recomputed = 97) x 4 times, D never; wall,
+   tokens a second and peak memory printed.
+   lm_train_remat (after lm_train_main) — per-layer rematerialisation
+   at full width and depth: (a) danube's loss and gradients at batch 2,
+   seq 1024 from one init and batch without remat and with (loss 1e-5
+   relative, every gradient leaf 1e-4 of its scale, the max |delta| of
+   each printed; C 49 and 97, D never; each forward and backward's time
+   and peak); (b) ``launch.train`` at batch 4, seq 4096, 3 steps (finite
+   losses, ``gnorm > 0``, C 97 x 3, D never), its peak beside
+   ``dryrun.run_pair``'s estimates at that shape with remat and without
+   (the resident part of each at most the peak).
 20. zoo_window (after zoo_main) — the sliding-window prefill -> decode
    handoff at full width: h2o-danube-3-4b (window 4096), batch 1, a
    prompt of 4100 tokens (past the window, no multiple of it), 8 greedy
@@ -190,10 +202,10 @@ non-zero exit code and no result line:
 21. examples (after zoo_window) — the four ``examples/torch_*.py`` on the
    card, steps cut and widths never: ``torch_train_lm_125m`` (xlstm-125m
    at full width and depth, batch 4, seq 256, 3 steps, its checkpoint in
-   a temporary directory: finite losses, ``gnorm > 0``, C 13 x 3, D
-   never), ``torch_quickstart`` (the zoo, two agents through a hub, D's
-   scalar float32 route against its plain version within 2e-5: one
-   scalar launch), ``torch_adfll_deployment --fast`` and
+   a temporary directory: finite losses, ``gnorm > 0``, C (13 + 18
+   recomputed) x 3, D never), ``torch_quickstart`` (the zoo, two agents
+   through a hub, D's scalar float32 route against its plain version
+   within 2e-5: one scalar launch), ``torch_adfll_deployment --fast`` and
    ``torch_federated_lm`` at its steps (the per-style loss table);
    A = B over the phase, D exactly the quickstart's one scalar launch.
 22. planner — ``launch/dryrun.py::run_pair`` at one card on ``meta``:
@@ -250,8 +262,14 @@ non-zero exit code and no result line:
    step walls both ways (CUDA events), the peaks, the collectives a step
    with their bytes, one all-gather's and one reduce-scatter's time at
    an FFN weight (a copy through NCCL at one rank), C's and D's launches (C a norm per mixer, per FFN
-   and the final one a forward: 49 x 3 steps + 49 x 5 serving passes; D
-   24 for the prefill).  Then ``launch/train.py::train_on_mesh`` (the
+   and the final one a forward, the groups' again in a train step's
+   recompute: 97 x 3 steps + 49 x 5 serving passes; D 24 for the
+   prefill).  The meshed train steps also without remat
+   (``ShardingPolicy(remat=False)``: C 49 x 3), held to the same
+   tolerances, its peak and collectives beside the rematerialised run's:
+   the all-gathers a step must rise by exactly the recomputed ones, each
+   group's blocks' forward gathers as the plain step issues them (its
+   blocks but the last, then each block).  Then ``launch/train.py::train_on_mesh`` (the
    ``--production-mesh`` body) on the same mesh for 2 steps of
    h2o-danube-3-4b-smoke.  The multi-rank proof is
    ``tests/test_torch_zoo_mesh.py``, over gloo on the CPU.
@@ -269,13 +287,16 @@ non-zero exit code and no result line:
    ``block_apply(layout=)`` at batch 1, seq 1024 against the mesh-less
    block (no layer set with an MoE layer trains on one card); xlstm-125m
    at full width and depth, a prefill of batch 4 at prompt 256 and 4
-   decode steps, then 3 train steps (batch 4, seq 128).  lm_train_mesh's
+   decode steps, then 3 train steps at 4 of its 12 layers (batch 4, seq
+   128: the rematerialised step runs its host-bound token loops
+   again).  lm_train_mesh's
    tolerances (loss and grad norm 1e-5 relative, params and the block's output and gradients 1e-4 of
    scale, logits 3e-2); printed: the max |delta| of each, the step,
    prefill and decode walls both ways (CUDA events), the peaks, the
    collectives a step or a serving pass with their bytes, and C's and
    D's launches (C a norm per mixer, per FFN and the final one a
-   forward; D once an attention layer a prefill: deepseek's dense prefix
+   forward, and a train step's recomputed groups' norms; D once an
+   attention layer a prefill: deepseek's dense prefix
    layer and jamba's attention layer).  The multi-rank proof is
    ``tests/test_torch_mixers_mesh.py``, over gloo on the CPU.
 
@@ -285,7 +306,8 @@ reports it, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
 paths (main, baselines, sweep, topology, population, serve, fleet_mesh,
 table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
-lm_train_main, zoo_main for each arch, zoo_window, moe_ep, lm_train_mesh,
+lm_train_main, lm_train_remat, zoo_main for each arch, zoo_window, moe_ep,
+lm_train_mesh,
 lm_mixers_mesh and examples); the
 planner path launches none.  Every entry carries ``launches_by_path``
 and ``launches`` is its sum.
@@ -431,7 +453,9 @@ MIXERS_GEN = 4
 MIXERS = {
     "deepseek-v2-lite-16b": ((None, 2, 480), (6, 2, 1024)),
     "jamba-1.5-large-398b": ((4, 2, 480), None),
-    "xlstm-125m": ((None, 4, 256), (None, 4, 128)),
+    # xlstm trains at 4 of its 12 layers: its host-bound token loops run
+    # again in the rematerialised step's recompute
+    "xlstm-125m": ((None, 4, 256), (4, 4, 128)),
 }
 MAMBA_BLOCK = (1, 1024)  # batch, seq of jamba's (mamba, dense) block
 # zoo_window: danube's window handoff, a prompt past 4096 and no multiple of it
@@ -451,6 +475,8 @@ ZOO_F32_LAYERS = {
 ZOO_F32_PROMPTS = {"jamba-1.5-large-398b": 256}
 # lm_train_main: launch.train at full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 4
+# lm_train_remat (b): launch.train at 16,384 tokens a step, rematerialised
+REMAT_BATCH, REMAT_SEQ, REMAT_STEPS = 4, 4096, 3
 # examples: examples/torch_train_lm_125m.py (xlstm-125m at full width and
 # depth) for a few steps at the example's batch and sequence
 EXAMPLE_ARCH = "xlstm-125m"
@@ -524,6 +550,21 @@ def norms_per_forward(cfg) -> int:
     mixer, one before every FFN (xLSTM's blocks have none) and the final
     norm."""
     return sum(1 + (ffn != FFN_NONE) for _, ffn in cfg.layer_pattern) + 1
+
+
+def norms_recomputed(cfg) -> int:
+    """C launches a rematerialised train step (``ShardingPolicy.remat``,
+    the default) adds to a forward's: each group's recompute runs its
+    blocks but the last (the checkpoint stops once the last block's input
+    is saved), then each block's recompute its own norms; the dense prefix
+    and the final norm are not recomputed."""
+    per = [1 + (ffn != FFN_NONE) for _, ffn in cfg.pattern]
+    return cfg.n_groups * (2 * sum(per) - per[-1])
+
+
+def norms_per_train_forward(cfg) -> int:
+    """C launches of one rematerialised forward and its backward."""
+    return norms_per_forward(cfg) + norms_recomputed(cfg)
 
 
 def sector_bytes(base: int, offsets) -> int:
@@ -2283,8 +2324,9 @@ def phase_lm_train_chunk(dev) -> dict[str, int]:
     cannot see through would leave the norms and the attention
     projections without one; the routers' gradients come through the
     gates): every leaf but an embeds config's unused token table; C
-    launched :func:`norms_per_forward` times a forward (2L + 1 where
-    every block has an FFN; k times that with k microbatches), D never."""
+    launched :func:`norms_per_train_forward` times a forward and its
+    backward (2L + 1 where every block has an FFN, and the rematerialised
+    groups' norms again; k times that with k microbatches), D never."""
     rng = np.random.default_rng(6)
     reset_launches()
     rows = []
@@ -2386,7 +2428,7 @@ def lm_train_chunk_one(dev, cfg, label, batch) -> dict:
         "grad_max_rel_err": leaf_err,
         "zero_grad_leaves_on_card": zero_leaves,
         "unreached_leaves": unreached,
-        "rmsnorm_per_forward": norms_per_forward(cfg),
+        "rmsnorm_per_forward": norms_per_train_forward(cfg),
         "loss_fn_launches_cpu_gpu": [moved_c, moved_g],
         "train_step": {
             k: {kk: v for kk, v in step.items() if kk != "params"}
@@ -2440,17 +2482,12 @@ def train_lines(lines: list[str]) -> tuple[list, re.Match | None]:
     return steps, re.fullmatch(r"(\d+) steps in (\S+)s \((\d+) tok/s\)", last)
 
 
-def phase_lm_train_main(dev, measured: dict) -> dict[str, int]:
-    """``python -m repro_torch.launch.train`` at full width and depth:
-    h2o-danube-3-4b in bfloat16 with float32 moments (``opt_cfg_for``),
-    batch 2, seq 1024, 4 steps, weights from seed 0.  Its printed lines are
-    read back: every step's loss finite and ``gnorm > 0``; C launched
-    (2L + 1) x steps times, D never; the steps' wall and tokens a second,
-    each step's time by CUDA events, and the peak of device memory (kept
-    in ``measured`` for the planner phase)."""
-    cfg = get_config(ZOO_ARCH)
-    argv = ["--arch", ZOO_ARCH, "--steps", str(TRAIN_STEPS)]
-    argv += ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+def run_train_cli(argv: list[str]) -> dict:
+    """``launch.train``'s ``main(argv)`` in this process on the card, its
+    printed lines read back: the exit code, the lines, the ``(step, loss,
+    gnorm)`` lines and the last line's match, the wall, each step's
+    CUDA-event time, the peak of device memory and C's and D's launches;
+    the device memory freed after."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2467,10 +2504,47 @@ def phase_lm_train_main(dev, measured: dict) -> dict[str, int]:
     torch.cuda.empty_cache()
     lines = buf.getvalue().splitlines()
     steps, done = train_lines(lines)
-    want_rms = norms_per_forward(cfg) * TRAIN_STEPS
+    return {"rc": rc, "lines": lines, "steps": steps, "done": done, "wall_s": wall_s,
+            "step_ms": step_ms, "peak_gb": peak_gb, "launches": launches}  # fmt: skip
+
+
+def require_trained(run: dict, n_steps: int, want_rms: int, what: str) -> None:
+    """Every step printed with a finite loss and ``gnorm > 0``, C launched
+    ``want_rms`` times and D never."""
+    steps, launches = run["steps"], run["launches"]
+    require(
+        run["rc"] == 0 and run["done"] is not None,
+        f"{what}: exit {run['rc']}, lines {run['lines']}",
+    )
+    require([i for i, _, _ in steps] == list(range(n_steps)), f"{what}: steps {steps}")
+    require(
+        all(np.isfinite(loss) and gnorm > 0 for _, loss, gnorm in steps),
+        f"{what}: losses and grad norms {steps}",
+    )
+    require(
+        launches["rmsnorm"] == want_rms and launches["flash_attention"] == 0,
+        f"{what}: launches {launches}, want rmsnorm {want_rms} and no D",
+    )
+
+
+def phase_lm_train_main(dev, measured: dict) -> dict[str, int]:
+    """``python -m repro_torch.launch.train`` at full width and depth:
+    h2o-danube-3-4b in bfloat16 with float32 moments (``opt_cfg_for``),
+    batch 2, seq 1024, 4 steps, weights from seed 0, rematerialised per
+    layer (``ShardingPolicy()``, as the reference's ``launch/train.py``
+    trains).  Its printed lines are read back: every step's loss finite
+    and ``gnorm > 0``; C launched :func:`norms_per_train_forward` (2L +
+    1, and 2L again in the recompute) x steps times, D never; the steps'
+    wall and tokens a second, each step's time by CUDA events, and the
+    peak of device memory (kept in ``measured`` for the planner phase)."""
+    cfg = get_config(ZOO_ARCH)
+    argv = ["--arch", ZOO_ARCH, "--steps", str(TRAIN_STEPS)]
+    argv += ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    run = run_train_cli(argv)
+    step_ms, done, launches = run["step_ms"], run["done"], run["launches"]
     # the steps after the first (which also allocates the moments' use)
     measured["lm_train_main"] = {
-        "peak_gb": peak_gb,
+        "peak_gb": run["peak_gb"],
         "step_ms": float(np.median(step_ms[1:])) if len(step_ms) > 1 else float("nan"),
     }
     steps_s = float(done.group(2)) if done else float("nan")
@@ -2480,32 +2554,152 @@ def phase_lm_train_main(dev, measured: dict) -> dict[str, int]:
             "arch": ZOO_ARCH,
             "cuts": "none (full width and depth; random weights from seed 0)",
             "argv": argv,
-            "stdout": lines,
-            "steps": steps,
-            "wall_s": wall_s,
+            "stdout": run["lines"],
+            "steps": run["steps"],
+            "wall_s": run["wall_s"],
             # the driver's own clock over its steps, the first included
             "step_s": steps_s / TRAIN_STEPS,
             "tok_per_s": int(done.group(3)) if done else None,
             "step_ms_cuda_events": step_ms,
-            "peak_gb": peak_gb,
+            "peak_gb": run["peak_gb"],
             "launches": launches,
             "launches_by_route": {"rmsnorm": dict(rmsnorm.launches_by_route)},
         }
     )
-    require(rc == 0 and done is not None, f"lm train main: exit {rc}, lines {lines}")
-    require(
-        [i for i, _, _ in steps] == list(range(TRAIN_STEPS)),
-        f"lm train main: steps printed {steps}",
-    )
-    require(
-        all(np.isfinite(loss) and gnorm > 0 for _, loss, gnorm in steps),
-        f"lm train main: losses and grad norms {steps}",
-    )
-    require(
-        launches["rmsnorm"] == want_rms and launches["flash_attention"] == 0,
-        f"lm train main: launches {launches}, want rmsnorm {want_rms} and no D",
-    )
+    want_rms = norms_per_train_forward(cfg) * TRAIN_STEPS
+    require_trained(run, TRAIN_STEPS, want_rms, "lm train main")
     return {"rmsnorm": launches["rmsnorm"], "flash_attention": 0}
+
+
+def remat_loss_and_grads(cfg, params, batch, policy, keep_on_card: bool) -> dict:
+    """``make_loss_fn(policy=)``'s loss and gradients at ``params`` on the
+    card: the loss, the gradient leaves (bf16; on the host unless
+    ``keep_on_card``, so that a later run's peak does not hold them), the
+    forward and backward's CUDA-event time, its peak of device memory and
+    C's and D's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss_fn = make_loss_fn(cfg, loss_chunk=policy.loss_chunk, policy=policy)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    _, metrics, grads = model_module.value_and_grad(loss_fn, params, batch)
+    end.record()
+    end.synchronize()
+    grads = tree_leaves(grads)
+    return {
+        "loss": float(metrics["loss"]),
+        "grads": grads if keep_on_card else [g.cpu() for g in grads],
+        "ms": start.elapsed_time(end),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": read_launches(),
+    }
+
+
+def phase_lm_train_remat(dev) -> dict[str, int]:
+    """Per-layer rematerialisation (``ShardingPolicy.remat``) at full width
+    and depth, h2o-danube-3-4b in bfloat16 from seed 0.
+
+    (a) the loss and its gradients at batch 2, seq 1024 (lm_train_main's
+    shape) from the same params and batch, without remat and with: the
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    largest magnitude (lm_train_chunk's tolerances; the recompute runs the
+    same kernels at the same shapes), the max |delta| of each printed; C
+    :func:`norms_per_forward` times without remat and
+    :func:`norms_per_train_forward` with it (49 and 97), D never; each
+    forward and backward's time and peak.  (b) ``launch.train`` at batch
+    4, seq 4096 (16,384 tokens a step), 3 steps: every loss finite,
+    ``gnorm > 0``, C 97 x 3, D never; its peak beside
+    ``dryrun.run_pair``'s estimate at that shape with remat and without
+    (the latter only planned: it does not fit the card), the resident
+    part of each at most the peak."""
+    t_phase = time.perf_counter()
+    cfg = get_config(ZOO_ARCH)
+    model = Model(cfg, dev, opt_cfg=opt_cfg_for(cfg))
+    params = model.init_params(0)
+    del model
+    raw = next(token_batches(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0
+    )))  # fmt: skip
+    batch = {k: torch.tensor(raw[k] % cfg.vocab_size, device=dev)
+             for k in ("tokens", "labels")}  # fmt: skip
+    plain = remat_loss_and_grads(cfg, params, batch, ShardingPolicy(remat=False), False)
+    remat = remat_loss_and_grads(cfg, params, batch, ShardingPolicy(), True)
+    loss_rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    grad_abs, grad_rel = 0.0, 0.0
+    for a, b in zip(remat["grads"], plain["grads"], strict=True):
+        b = b.to(dev)
+        d = float((a.float() - b.float()).abs().max())
+        grad_abs = max(grad_abs, d)
+        grad_rel = max(grad_rel, d / max(float(b.float().abs().max()), 1e-30))
+    del params, batch, plain["grads"], remat["grads"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_a = (norms_per_forward(cfg), norms_per_train_forward(cfg))
+    got_a = (plain["launches"], remat["launches"])
+
+    argv = ["--arch", ZOO_ARCH, "--steps", str(REMAT_STEPS)]
+    argv += ["--batch", str(REMAT_BATCH), "--seq", str(REMAT_SEQ)]
+    run = run_train_cli(argv)
+    shape = InputShape("lm_train_remat", REMAT_SEQ, REMAT_BATCH, "train")
+    plans = {
+        name: planner_row(
+            f"lm_train_remat ({name})",
+            dryrun.run_pair(cfg, shape, mesh=make_local_mesh(), print_analyses=False,
+                            policy_overrides={"remat": on}),  # fmt: skip
+            run["peak_gb"],
+        )
+        for name, on in (("remat", True), ("no remat", False))
+    }
+    want_b = norms_per_train_forward(cfg) * REMAT_STEPS
+    emit(
+        {
+            "phase": "lm_train_remat",
+            "arch": ZOO_ARCH,
+            "cuts": "none (full width and depth; random weights from seed 0)",
+            "a": {
+                "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "loss": {"no_remat": plain["loss"], "remat": remat["loss"]},
+                "loss_rel_err": loss_rel,
+                "grad_max_abs_err": grad_abs,
+                "grad_max_err_of_scale": grad_rel,
+                "tol": {"loss_rel": 1e-5, "grad_of_scale": 1e-4},
+                "fwd_bwd_ms": {"no_remat": plain["ms"], "remat": remat["ms"]},
+                "peak_gb": {"no_remat": plain["peak_gb"], "remat": remat["peak_gb"]},
+                "launches": {"no_remat": plain["launches"], "remat": remat["launches"]},
+            },
+            "b": {
+                "argv": argv,
+                "stdout": run["lines"],
+                "steps": run["steps"],
+                "wall_s": run["wall_s"],
+                "step_ms_cuda_events": run["step_ms"],
+                "peak_gb": run["peak_gb"],
+                "launches": run["launches"],
+                "plans": plans,
+            },
+            "seconds": time.perf_counter() - t_phase,
+        }
+    )  # fmt: skip
+    require(loss_rel <= 1e-5, f"lm_train_remat: losses differ by {loss_rel} relative")
+    require(grad_rel <= 1e-4, f"lm_train_remat: a gradient off by {grad_rel} of scale")
+    for (c, d), got in zip(((want_a[0], 0), (want_a[1], 0)), got_a, strict=True):
+        require(
+            (got["rmsnorm"], got["flash_attention"]) == (c, d),
+            f"lm_train_remat: launches {got_a}, want C {want_a} and no D",
+        )
+    require_trained(run, REMAT_STEPS, want_b, "lm_train_remat (b)")
+    for row in plans.values():
+        require(
+            row["resident_gb"] <= row["measured_peak_gb"],
+            f"lm_train_remat: {row['path']} resident {row['resident_gb']} GB past "
+            f"the measured peak {row['measured_peak_gb']} GB",
+        )
+    return {
+        "rmsnorm": sum(r["launches"]["rmsnorm"] for r in (plain, remat, run)),
+        "flash_attention": 0,
+    }
 
 
 @contextmanager
@@ -3176,8 +3370,9 @@ def phase_examples(dev) -> tuple[dict[str, int], dict[str, int]]:
     - ``torch_train_lm_125m``: xlstm-125m at full width and depth (bf16
       params, f32 moments), batch 4, seq 256, 3 steps, its checkpoint
       written under a temporary directory: every loss finite, ``gnorm >
-      0``, C 13 a forward (a norm a mixer and the final one; nothing
-      recomputes a forward) x steps, D never; tok/s, each step's CUDA-event
+      0``, C 13 a forward (a norm a mixer and the final one) and 18 in
+      the rematerialised groups' recompute, x steps, D never; tok/s, each
+      step's CUDA-event
       time and the peak of device memory;
     - ``torch_quickstart``: the zoo section (qwen3-moe smoke, one train and
       one decode step), two DQN agents sharing an ERB and a weight
@@ -3209,7 +3404,7 @@ def phase_examples(dev) -> tuple[dict[str, int], dict[str, int]]:
     gc.collect()
     torch.cuda.empty_cache()
     steps, done = train_lines(lines)
-    want_rms = norms_per_forward(cfg) * EXAMPLE_STEPS
+    want_rms = norms_per_train_forward(cfg) * EXAMPLE_STEPS
     train = {
         "stdout": lines,
         "steps": steps,
@@ -3308,6 +3503,7 @@ def planner_row(path: str, plan: dict, measured_gb: float) -> dict:
         "grad_gb": mem["grad_bytes"] / 1e9,
         "cache_gb": mem["cache_bytes"] / 1e9,
         "act_gb": mem["act_bytes"] / 1e9,
+        "recompute_gb": mem["recompute_bytes"] / 1e9,
         "flops_global": plan["flops_global"],
         "roofline": plan["roofline"],
     }
@@ -3403,22 +3599,60 @@ def _per_step(calls: list, steps: int) -> dict:
             for k, v in out.items()}  # fmt: skip
 
 
-def lm_mesh_run(dev, mesh, batches, prompt, gen_tokens) -> dict:
+@contextmanager
+def forward_gathers(calls: list):
+    """The all-gathers (entries of ``calls``, as :func:`counted_collectives`
+    fills it) that each call of a group's block issues, in order.  Read
+    from a step without remat, these are the forward's; under remat the
+    recompute calls the blocks again."""
+    per_block: list[int] = []
+    real = model_module.block_apply
+
+    def block(*a, path="", **kw):
+        before = sum(name == "all_gather" for name, _ in calls)
+        out = real(*a, path=path, **kw)
+        if path.startswith("groups/"):
+            per_block.append(sum(name == "all_gather" for name, _ in calls) - before)
+        return out
+
+    model_module.block_apply = block
+    try:
+        yield per_block
+    finally:
+        model_module.block_apply = real
+
+
+def recomputed_gathers(cfg, per_block: list[int]) -> int:
+    """The all-gathers a rematerialised step issues again, from the plain
+    step's forward gathers of each block (:func:`forward_gathers`): each
+    group's recompute runs its blocks but the last, each block's its
+    own."""
+    n, out = len(cfg.pattern), 0
+    for i in range(0, len(per_block), n):
+        group = per_block[i : i + n]
+        out += sum(group) + sum(group[:-1])
+    return out
+
+
+def lm_mesh_run(
+    dev, mesh, batches, prompt, gen_tokens, policy=ShardingPolicy()
+) -> dict:
     """One run of lm_train_mesh's work: ``MESH_STEPS`` train steps of
-    h2o-danube-3-4b from seed 0 (``mesh`` None: the mesh-less model), the
-    prefill of ``prompt`` and ``MESH_GEN`` decode steps of ``gen_tokens``;
-    the losses, grad norms, step times, logits and final params to the
-    host, the peak, the launches and the collectives of the train steps;
-    the device memory freed."""
+    h2o-danube-3-4b from seed 0 (``mesh`` None: the mesh-less model) under
+    ``policy``, the prefill of ``prompt`` and ``MESH_GEN`` decode steps of
+    ``gen_tokens``; the losses, grad norms, step times, logits and final
+    params to the host, the peak, the launches and the collectives of the
+    train steps (and without remat each group's block's forward
+    all-gathers); the device memory freed."""
     cfg = get_config(ZOO_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    model = Model(cfg, dev, opt_cfg=opt_cfg_for(cfg), mesh=mesh)
+    model = Model(cfg, dev, opt_cfg=opt_cfg_for(cfg), mesh=mesh, policy=policy)
     state = model.init_train_state(0)
     lines, step_ms = [], []
-    with counted_collectives() as calls:
+    with counted_collectives() as calls, forward_gathers(calls) as per_block:
         for batch in batches:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
@@ -3431,16 +3665,18 @@ def lm_mesh_run(dev, mesh, batches, prompt, gen_tokens) -> dict:
     params = state["params"]
     logits = []
     with torch.no_grad():
-        b, s = prompt.shape
-        last, pre = model.prefill_step(params, {"tokens": prompt})
-        logits.append(last.float().cpu())
-        caches = serve.load_prefill(model.init_caches(b, s + MESH_GEN), pre)
-        del pre
-        for i in range(MESH_GEN):
-            step = {"tokens": gen_tokens[:, i : i + 1],
-                    "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev)}
-            lg, caches = model.serve_step(params, caches, step)  # fmt: skip
-            logits.append(lg.float().cpu())
+        if prompt is not None:  # None: the train steps alone
+            b, s = prompt.shape
+            last, pre = model.prefill_step(params, {"tokens": prompt})
+            logits.append(last.float().cpu())
+            caches = serve.load_prefill(model.init_caches(b, s + MESH_GEN), pre)
+            del pre
+            for i in range(MESH_GEN):
+                step = {"tokens": gen_tokens[:, i : i + 1],
+                        "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev)}
+                lg, caches = model.serve_step(params, caches, step)  # fmt: skip
+                logits.append(lg.float().cpu())
+            del caches
     torch.cuda.synchronize()
     out = {
         "lines": lines,
@@ -3449,10 +3685,11 @@ def lm_mesh_run(dev, mesh, batches, prompt, gen_tokens) -> dict:
         "train_launches": train_launches,
         "launches": read_launches(),
         "collectives": _per_step(calls, len(batches)),
-        "logits": torch.stack(logits),
+        "recomputed_gathers": recomputed_gathers(cfg, per_block) / len(batches),
+        "logits": torch.stack(logits) if logits else None,
         "params": {k: v.detach().cpu() for k, v in flatten_tree(params).items()},
     }
-    del model, state, params, caches
+    del model, state, params
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3507,6 +3744,9 @@ def phase_lm_train_mesh(dev) -> dict[str, int]:
     torch.cuda.set_device(dev.index or 0)
     with one_rank_device_mesh("cuda") as mesh:
         got = lm_mesh_run(dev, mesh, batches, prompt, gen_tokens)
+        plain = lm_mesh_run(
+            dev, mesh, batches, None, None, ShardingPolicy(remat=False)
+        )
         want = lm_mesh_run(dev, None, batches, prompt, gen_tokens)
         smoke = "h2o-danube-3-4b-smoke"
         argv = ["--arch", smoke, "--steps", "2", "--batch", "2", "--seq", "64",
@@ -3519,19 +3759,21 @@ def phase_lm_train_mesh(dev) -> dict[str, int]:
         cli_lines = buf.getvalue().splitlines()
         coll_ms = time_collectives(dev, mesh, cfg)
     cli_steps, _ = train_lines(cli_lines)
-    rel = max(
-        max(abs(a - b) / abs(b) for a, b in zip(g, w, strict=True))
-        for g, w in zip(got["lines"], want["lines"], strict=True)
-    )
-    param_err, param_rel = 0.0, 0.0
-    for k, w in want["params"].items():
-        d = float((got["params"][k].to(dev).float() - w.to(dev).float()).abs().max())
-        scale = max(float(w.float().abs().max()), 1e-30)
-        param_err, param_rel = max(param_err, d), max(param_rel, d / scale)
+    rel = _max_rel(got["lines"], want["lines"])
+    param_err, param_rel = _err_of_scale(got["params"], want["params"], dev)
     logits_err = float((got["logits"] - want["logits"]).abs().max())
+    plain_rel = _max_rel(plain["lines"], want["lines"])
+    _, plain_param_rel = _err_of_scale(plain["params"], want["params"], dev)
     n_attn = sum(mixer == ATTN for mixer, _ in cfg.layer_pattern)
     norms = norms_per_forward(cfg)
-    want_c = norms * (MESH_STEPS + 1 + MESH_GEN)
+    serving_c = norms * (1 + MESH_GEN)
+    want_c = serving_c + norms_per_train_forward(cfg) * MESH_STEPS
+    plain_c = norms * MESH_STEPS  # its train steps alone
+    gathers = {
+        name: run["collectives"].get("all_gather", {}).get("count", 0)
+        for name, run in (("remat", got), ("no_remat", plain))
+    }
+    extra_gathers = plain["recomputed_gathers"]
     emit(
         {
             "phase": "lm_train_mesh",
@@ -3549,11 +3791,19 @@ def phase_lm_train_mesh(dev) -> dict[str, int]:
             "logits_max_abs_err": logits_err,
             "tol": {"rel": MESH_REL, "param_of_scale": MESH_PARAM_TOL,
                     "logits": MESH_LOGITS_TOL},  # fmt: skip
-            "step_ms": {"mesh": got["step_ms"], "meshless": want["step_ms"]},
-            "peak_gb": {"mesh": got["peak_gb"], "meshless": want["peak_gb"]},
+            "step_ms": {"mesh": got["step_ms"], "meshless": want["step_ms"],
+                        "mesh_no_remat": plain["step_ms"]},
+            "peak_gb": {"mesh": got["peak_gb"], "meshless": want["peak_gb"],
+                        "mesh_no_remat": plain["peak_gb"]},
             "collectives_per_step": got["collectives"],
+            "collectives_per_step_no_remat": plain["collectives"],
+            "all_gathers_per_step": gathers,
+            "recomputed_gathers_per_step_predicted": extra_gathers,
+            "mesh_no_remat": {"loss_gnorm_max_rel_err": plain_rel,
+                              "param_max_err_of_scale": plain_param_rel},
             "collective_ms": coll_ms,
-            "launches": {"mesh": got["launches"], "meshless": want["launches"]},
+            "launches": {"mesh": got["launches"], "meshless": want["launches"],
+                         "mesh_no_remat": plain["launches"]},
             "train_on_mesh": {"argv": argv, "rc": rc, "stdout": cli_lines,
                               "launches": cli_launches},  # fmt: skip
             "seconds": time.perf_counter() - t_phase,
@@ -3565,14 +3815,24 @@ def phase_lm_train_mesh(dev) -> dict[str, int]:
         f"lm_train_mesh: params off by {param_rel} of their scale",
     )
     require(logits_err <= MESH_LOGITS_TOL, f"lm_train_mesh: logits off by {logits_err}")
+    require(
+        plain_rel <= MESH_REL and plain_param_rel <= MESH_PARAM_TOL,
+        f"lm_train_mesh without remat: off by {plain_rel} rel, {plain_param_rel} of "
+        "scale",
+    )
     require(got["collectives"], "lm_train_mesh: the sharded body issued no collective")
-    for run in (got, want):
+    require(
+        extra_gathers > 0 and gathers["remat"] - gathers["no_remat"] == extra_gathers,
+        f"lm_train_mesh: all-gathers a step {gathers}, want {extra_gathers} more "
+        "with remat",
+    )
+    runs = ((got, want_c, n_attn), (want, want_c, n_attn), (plain, plain_c, 0))
+    for run, c, d in runs:
         require(
-            run["launches"]["rmsnorm"] == want_c
-            and run["launches"]["flash_attention"] == n_attn,
-            f"lm_train_mesh: launches {run['launches']}, want C {want_c}, D {n_attn}",
+            run["launches"]["rmsnorm"] == c and run["launches"]["flash_attention"] == d,
+            f"lm_train_mesh: launches {run['launches']}, want C {c}, D {d}",
         )
-    smoke_c = norms_per_forward(get_config(smoke)) * 2
+    smoke_c = norms_per_train_forward(get_config(smoke)) * 2
     require(
         rc == 0
         and [i for i, _, _ in cli_steps] == [0, 1]
@@ -3581,8 +3841,9 @@ def phase_lm_train_mesh(dev) -> dict[str, int]:
         f"lm_train_mesh: train_on_mesh rc {rc}, lines {cli_lines}, {cli_launches}",
     )
     return {
-        "rmsnorm": got["launches"]["rmsnorm"] + cli_launches["rmsnorm"],
-        "flash_attention": got["launches"]["flash_attention"],
+        "rmsnorm": sum(r["launches"]["rmsnorm"] for r in (got, plain))
+        + cli_launches["rmsnorm"],
+        "flash_attention": sum(r["launches"]["flash_attention"] for r in (got, plain)),
     }
 
 
@@ -3803,7 +4064,7 @@ def phase_lm_mixers_mesh(dev) -> dict[str, int]:
                 tw = mixers_train(dev, tcfg, None, batches)
                 rel = _max_rel(tg["lines"], tw["lines"])
                 err, of_scale = _err_of_scale(tg["params"], tw["params"], dev)
-                want_c = norms_per_forward(tcfg) * MESH_STEPS
+                want_c = norms_per_train_forward(tcfg) * MESH_STEPS
                 row["train"] = {
                     "layers": tcfg.n_layers, "batch": tb, "seq": ts, "steps": MESH_STEPS,
                     "mesh_lines": tg["lines"], "meshless_lines": tw["lines"],
@@ -3901,6 +4162,7 @@ def main() -> int:
     measured: dict = {}  # peaks and step times the planner is set beside
     zoo_paths = {"lm_train_chunk": phase_lm_train_chunk(dev)}
     zoo_paths["lm_train_main"] = phase_lm_train_main(dev, measured)
+    zoo_paths["lm_train_remat"] = phase_lm_train_remat(dev)
     by_route = None
     for arch in ZOO_ARCHS:
         zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch, measured)

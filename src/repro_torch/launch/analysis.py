@@ -18,13 +18,19 @@ walks a jaxpr and parses XLA's optimized HLO; PyTorch has neither, so:
   definition of it would trace to (:data:`_FUSED`).  Comparisons,
   casts, copies, gathers and scatters count nothing, as in the
   reference.  Recomputation is counted where it runs: the port's
-  checkpoints (a query chunk of the attention, a chunk of the cross
-  entropy, of the recurrences) recompute their forward in the backward,
-  as the reference's ``jax.checkpoint`` bodies do.  The reference also
-  checkpoints each kv step inside a query chunk, so its training counts
-  one more ``Q K^T`` product a block than the port's, which does not
+  checkpoints (under ``remat`` each group of layers and each block in
+  it; a query chunk of the attention, a chunk of the cross entropy, of
+  the recurrences) recompute their forward in the backward, as the
+  reference's ``jax.checkpoint`` bodies do.  A group's recompute stops
+  where its last block's input is saved (torch's early stop), as JAX's
+  drops the last block's forward that nothing reads, so the two count
+  the same products.  The reference also checkpoints each kv step
+  inside a query chunk, so its training counts one more ``Q K^T``
+  product a block than the port's, which does not
   (``tests/test_torch_planner.py`` holds the two counts together with
-  that term, and a dead product of the reference's sLSTM scan, added).
+  that term, and a dead product of the reference's sLSTM scan, added;
+  both are products of a backward, which runs once whatever the
+  rematerialisation, so each counts the same with and without it).
 * collective bytes: the reference parses the per-device collectives out
   of the compiled HLO (``parse_collectives``, ``top_collectives``).  The
   port compiles no SPMD program, so :func:`collective_bytes` models them
@@ -277,9 +283,14 @@ class SavedBytes:
             loss = loss_fn(params, batch)
         sb.bytes
 
-    A checkpointed region saves its own tensors under its own hooks (and
-    recomputes them in the backward), so what it holds past its end is
-    what the operations after it save."""
+    A non-reentrant checkpoint saves its inputs through the hooks in
+    force where it is called (``_CheckpointFrame.save_inputs``), so an
+    outermost checkpoint's inputs are counted here (under ``remat``: each
+    group's input of the residual stream); the tensors its region saves,
+    a nested checkpoint's inputs among them, go to its own hooks and are
+    recomputed in the backward, so they are not.  What the recompute
+    holds while a region's backward runs is not seen here
+    (``launch/dryrun.py::recompute_bytes`` sizes it)."""
 
     def __init__(self):
         self.bytes = 0

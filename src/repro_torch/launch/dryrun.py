@@ -22,7 +22,10 @@ knew (``cost_analysis``, ``lower_s``, ``compile_s``) has no key.  In
 place of ``memory_analysis``, ``memory_estimate`` sizes one card: params,
 optimizer, gradients, caches and io from the specs, plus the activations
 autograd saves in the meta run, divided as the reference divides its
-``act_dev``; ``fits`` compares the sum with the card's memory.
+``act_dev``, and under ``remat`` what the backward's recompute holds at
+its peak (:func:`recompute_bytes`); ``fits`` compares the sum with the
+card's memory.  ``--set remat=false`` plans the step without per-layer
+rematerialisation.
 """
 
 from __future__ import annotations
@@ -120,6 +123,7 @@ def _walk(cfg: ModelConfig, shape: InputShape, policy: ShardingPolicy, opt_cfg):
             opt_cfg,
             loss_chunk=policy.loss_chunk,
             microbatches=policy.microbatches,
+            policy=policy,  # no mesh: the step reads its remat
         )
         args = (state, batch)
     elif shape.mode == "prefill":
@@ -156,7 +160,15 @@ def plan_step(
     Every group runs the same operations at the same shapes, so this
     equals the full walk but for a few scalar operations a parameter leaf
     (the gradient norm's partial sums), counted once a group instead of
-    once (``tests/test_torch_planner.py`` holds the two together)."""
+    once (``tests/test_torch_planner.py`` holds the two together).
+
+    The step is walked at ``policy.remat``.  Rematerialised, a group
+    saves its input for the backward (the checkpoint saves its inputs
+    through the ambient hooks, so :class:`~analysis.SavedBytes` counts
+    them; a block's checkpoint nested in it, and whatever the blocks
+    save, go to the group's own hooks and are recomputed), and the
+    shortcut stays exact: no group saves the embeddings' output once (the
+    final norm's input), one group once more."""
     g = cfg.n_groups
     if not group_shortcut or g <= 1:
         return _walk(cfg, shape, policy, opt_cfg)
@@ -168,6 +180,31 @@ def plan_step(
         for k in sorted(set(k0) | set(k1))
     }
     return kinds, s0 + g * (s1 - s0)
+
+
+def recompute_bytes(
+    cfg: ModelConfig, shape: InputShape, policy: ShardingPolicy, opt_cfg
+) -> float:
+    """Global bytes the backward's recompute holds beyond the saved
+    activations at its peak, under ``policy.remat`` in training (0
+    otherwise): while a group's backward runs, its recompute has saved
+    the inputs of its blocks after the first (``len(pattern) - 1``
+    residual-stream tensors ``[B, S, D]``), and the block whose backward
+    runs holds its own saved activations.  Those are the largest of the
+    pattern's block kinds', each walked alone without remat (a config of
+    that one block, less the same walk without it)."""
+    if shape.mode != "train" or not policy.remat or not cfg.n_groups:
+        return 0.0
+    plain = replace(policy, remat=False)
+    bare = replace(cfg, n_layers=cfg.first_k_dense)
+    _, s0 = _walk(bare, shape, plain, opt_cfg)
+    blocks = []
+    for kind in dict.fromkeys(cfg.pattern):
+        one = replace(bare, pattern=(kind,), n_layers=cfg.first_k_dense + 1)
+        blocks.append(_walk(one, shape, plain, opt_cfg)[1] - s0)
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    stream = shape.global_batch * shape.seq_len * cfg.d_model * itemsize
+    return (len(cfg.pattern) - 1) * stream + max(blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +289,7 @@ def run_pair(
     opt_dev = bytes_per_device(opt, mesh) if opt is not None else 0.0
 
     kinds, saved = plan_step(cfg, shape, policy, opt_cfg)
+    recompute = recompute_bytes(cfg, shape, policy, opt_cfg)
     flops_global = float(sum(kinds.values()))
     plan_s = time.time() - t0
 
@@ -321,9 +359,10 @@ def run_pair(
         "io_bytes": io_dev,
         "act_bytes": saved / act_div,
         "act_bytes_global": float(saved),
+        "recompute_bytes": recompute / act_div,
     }
     memory["resident_bytes"] = param_dev + opt_dev + cache_dev
-    parts = ("params", "opt", "grad", "cache", "io", "act")
+    parts = ("params", "opt", "grad", "cache", "io", "act", "recompute")
     memory["total_bytes"] = sum(memory[f"{k}_bytes"] for k in parts)
     memory["device_bytes"] = device_memory_bytes()
     memory["fits"] = memory["total_bytes"] <= memory["device_bytes"]
@@ -380,7 +419,8 @@ def main(argv=None) -> int:
     if args.set:
         for kv in args.set.split(","):
             k, v = kv.split("=")
-            overrides[k] = (v == "True") if v in ("True", "False") else int(v)
+            flag = v.lower() in ("true", "false")
+            overrides[k] = (v.lower() == "true") if flag else int(v)
 
     if args.all:
         jobs = [(a, s) for a in ASSIGNED for s in INPUT_SHAPES]

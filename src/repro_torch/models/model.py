@@ -6,10 +6,13 @@ the reference's: the per-group leaves are stacked on a leading ``[G, ...]``
 axis, so converting reference params is a dtype change, and ``forward``
 loops over the groups in Python where the reference scans.  Of the
 reference's ``ShardingPolicy`` (``models/sharding.py``) the train step
-reads ``loss_chunk``, ``microbatches`` and, on a mesh, the layout fields
-(``batch_axes``, ``fsdp_axes``, ``seq_shard``, ``tensor_parallel``,
-``hoist_dense_gathers``); per-layer rematerialisation (``remat``) is not
-done.  Training attends through ``chunked_attention``
+reads ``loss_chunk``, ``microbatches``, ``remat`` and, on a mesh, the
+layout fields (``batch_axes``, ``fsdp_axes``, ``seq_shard``,
+``tensor_parallel``, ``hoist_dense_gathers``).  Under ``remat`` (the
+default) the train step rematerialises as the reference does: each
+group of layers is checkpointed, and each block inside it again, so the
+backward keeps one residual-stream tensor a group and recomputes the
+rest (:func:`forward`).  Training attends through ``chunked_attention``
 (``attn_impl="chunked"``), as the reference trains through its XLA path;
 serving's prefill through the ``flash_attention`` kernel.
 
@@ -269,6 +272,7 @@ def forward(
     caches: dict[str, Any] | None = None,
     attn_impl: str = "kernel",
     layout=None,
+    remat: bool = False,
 ):
     """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S] (or
     M-RoPE's [3,B,S]).
@@ -285,7 +289,17 @@ def forward(
     ``layout`` (``models/spmd.py::Layout``): on a mesh, ``inputs`` and
     ``positions`` are this rank's rows, ``params`` and ``caches`` its
     blocks, and ``hidden`` its part of the stream (``[B/d, S/m, D]``
-    where the stream is sequence-sharded)."""
+    where the stream is sequence-sharded).
+
+    ``remat`` (``ShardingPolicy.remat``; read in train mode under
+    autograd only): each group runs inside one non-reentrant checkpoint
+    and each of its blocks inside another, the reference's
+    ``jax.checkpoint`` of the scanned group body around one of every
+    block.  The backward then holds each group's input and recomputes
+    the group's blocks but the last (the checkpoint's early stop: the
+    group's recompute ends where the last block's input is saved), then
+    each block's internals while its own backward runs.  The dense prefix
+    and the final norm stay outside, as in the reference."""
     L = layout
     if inputs.dtype in (torch.int32, torch.int64):
         if L is None:
@@ -310,20 +324,25 @@ def forward(
                 path=f"prefix/{name}", **kw,
             )  # fmt: skip
             handed["prefix"][name] = nc
+    groups = _unbind(params["groups"], cfg.n_groups)
     in_groups = {f"b{j}": [] for j in range(len(cfg.pattern))}
-    for g, gp in enumerate(_unbind(params["groups"], cfg.n_groups)):
-        for j, (mixer, ffn) in enumerate(cfg.pattern):
-            c = _index(caches["groups"][f"b{j}"], g) if caches is not None else None
-            x, nc, a = block_apply(
-                cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, cache=c,
-                path=f"groups/b{j}", **kw,
-            )  # fmt: skip
-            if mode == "decode" and nc is not c:
-                # a recurrent mixer's next state, into the caches in place
-                _put(caches["groups"][f"b{j}"], nc, g)
-            in_groups[f"b{j}"].append(nc)
-            if a is not None:
-                aux = aux + a
+    if remat and mode == "train" and torch.is_grad_enabled():
+        for gp in groups:
+            x, aux = _remat(_group_train, cfg, gp, x, aux=aux, kw=kw)
+    else:
+        for g, gp in enumerate(groups):
+            for j, (mixer, ffn) in enumerate(cfg.pattern):
+                c = _index(caches["groups"][f"b{j}"], g) if caches is not None else None
+                x, nc, a = block_apply(
+                    cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, cache=c,
+                    path=f"groups/b{j}", **kw,
+                )  # fmt: skip
+                if mode == "decode" and nc is not c:
+                    # a recurrent mixer's next state, into the caches in place
+                    _put(caches["groups"][f"b{j}"], nc, g)
+                in_groups[f"b{j}"].append(nc)
+                if a is not None:
+                    aux = aux + a
     final = params["final_norm"]
     if L is not None:
         final = use_tree(L, final, "final_norm", L.vary_stream)
@@ -332,6 +351,29 @@ def forward(
         handed["groups"] = {k: _stack(v) for k, v in in_groups.items() if v}
         return x, aux, handed
     return x, aux, caches
+
+
+def _remat(fn, *args, **kw):
+    """``fn(*args, **kw)`` under a non-reentrant checkpoint.  The zoo's
+    forward draws no random numbers, so no generator state is stashed
+    for the recompute (``preserve_rng_state=False``)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _group_train(cfg: ModelConfig, gp: dict, x, *, aux, kw: dict):
+    """One group's blocks in train mode, each rematerialised: ``(x, aux)``
+    after them (the router losses added in the order the plain loop adds
+    them, so the two give the same bits).  ``aux`` comes as a keyword:
+    the checkpoint saves its positional tensors, and the group's one saved
+    input is the stream ``x``."""
+    for j, (mixer, ffn) in enumerate(cfg.pattern):
+        x, _, a = _remat(
+            block_apply, cfg, gp[f"b{j}"], x, mixer=mixer, ffn=ffn, path=f"groups/b{j}",
+            **kw,
+        )  # fmt: skip
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def logits_fn(cfg: ModelConfig, params: dict[str, Any], hidden: torch.Tensor):
@@ -519,9 +561,11 @@ def make_loss_fn(
     """``(params, batch{tokens|embeds, labels[, positions]}) -> (total,
     {"loss", "aux", "n_tokens"})``: the mean next-token loss over the
     labels >= 0, plus the router loss (0 without MoE) at the config's
-    weight.  On a ``mesh`` the batch is the global one (every rank the
-    same; each keeps its rows), ``params`` this rank's blocks, and the
-    loss and ``n_tokens`` are the global batch's on every rank.
+    weight.  ``policy.remat``: the forward rematerialises per group and
+    per block (:func:`forward`).  On a ``mesh`` the batch is the global
+    one (every rank the same; each keeps its rows), ``params`` this rank's
+    blocks, and the loss and ``n_tokens`` are the global batch's on every
+    rank.
     ``hoist``: paths whose leaves arrive gathered over the FSDP axes
     (the train step's ``hoist_dense_gathers``)."""
     specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
@@ -540,8 +584,9 @@ def make_loss_fn(
         else:
             labels = batch["labels"]
         hidden, aux, _ = forward(
-            cfg, params, inputs, positions, mode="train", attn_impl=attn_impl, layout=L
-        )
+            cfg, params, inputs, positions, mode="train", attn_impl=attn_impl,
+            layout=L, remat=policy.remat,
+        )  # fmt: skip
         nll, n = chunked_xent(
             cfg, params, hidden, labels, loss_chunk=loss_chunk, layout=L
         )
@@ -809,11 +854,12 @@ def make_serve_step(
 class Model:
     """The functional API bound to a config, a device (``None`` = the CUDA
     card; raises without one), a sharding policy and an optimizer config.
-    Of the policy the loss reads ``loss_chunk`` and the train step
-    ``loss_chunk`` and ``microbatches``; ``remat`` is not read: the port does
-    not rematerialise per layer (ROADMAP queue 1 item 2); it checkpoints
-    the attention's query chunks, the cross entropy's chunks and the
-    recurrences' chunks.
+    Of the policy the loss reads ``loss_chunk`` and ``remat`` and the
+    train step those and ``microbatches``.  Under ``remat`` (the default,
+    as in the reference) the train step checkpoints each group of layers
+    and each block inside it (:func:`forward`); with or without it, it
+    checkpoints the attention's query chunks, the cross entropy's chunks
+    and the recurrences' chunks.
 
     ``mesh``: a ``(data, model)`` ``DeviceMesh`` of the process group this
     rank joined (every rank builds the same ``Model``).  Then each rank

@@ -44,16 +44,17 @@ FLEET = "fleet"  # the stacked agent axis of the fleet engine
 @dataclass(frozen=True)
 class ShardingPolicy:
     """The reference's policy, field for field.  Every run reads
-    ``loss_chunk`` and ``microbatches`` (the train step's ``chunked_xent``
-    chunk and gradient accumulation); a run on a mesh also the layout
+    ``loss_chunk``, ``microbatches`` and ``remat`` (the train step's
+    ``chunked_xent`` chunk, gradient accumulation and per-layer
+    rematerialisation); a run on a mesh also the layout
     fields (``batch_axes``, ``model_axis``, ``fsdp_axes``, ``seq_shard``,
     ``tensor_parallel``) and ``hoist_dense_gathers`` (the dense-FFN
     weights gathered once a step, not once a microbatch).  ``q_chunk``
     and ``kv_chunk`` are carried as in the reference, whose model does
     not read them either (its attention runs at their defaults, 512 and
-    1024).  ``remat`` (per-layer rematerialisation) is a planning field:
-    the port's train step does not rematerialise per layer (ROADMAP
-    queue 1 item 2)."""
+    1024).  ``remat`` (default on, as in the reference): the train step
+    checkpoints each group of layers and each block inside it
+    (``models/model.py::forward``), and the planner walks the step so."""
 
     batch_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"

@@ -39,7 +39,14 @@ imports JAX, so the tests run where the card is.
   against the CPU (every leaf's gradient non-zero on the card: a kernel
   output that autograd cannot see through would cut the norms' and the
   attention projections' gradients to zero), C launched ``2L + 1``
-  times a forward, D never; and D refusing a gradient on the card.
+  times a forward and the rematerialised groups' norms again in the
+  backward (:func:`norms_recomputed`), D never; and D refusing a
+  gradient on the card.
+* per-layer rematerialisation (chip_smoke's ``lm_train_remat`` (a) at
+  h2o-danube-3-4b-smoke's widths, bf16): the loss and every gradient
+  leaf with remat against without on the card (1e-5 relative, 1e-4 of
+  the leaf's scale), C ``2L + 1`` without and ``2L + 1 + 2L`` with it,
+  D never.
 * the zoo's Mamba path: jamba-1.5-large-398b's reduced float32 config
   (Mamba with MoE and dense FFNs, one attention layer without rope),
   the teacher-forced forward, a prefill and 4 decode steps on the card
@@ -49,7 +56,8 @@ imports JAX, so the tests run where the card is.
 * the examples' paths: D's scalar route at the quickstart's float32
   ``[1, 128, 4|2, 32]`` (one launch, 2e-5 of the plain version), and
   xlstm-125m's train step at full width and depth (every leaf's
-  gradient non-zero, a finite loss, C 13 launches a forward, D none).
+  gradient non-zero, a finite loss, C 13 launches a forward and the
+  rematerialised groups' again, D none).
 
 * expert-parallel MoE on a one-rank NCCL ``(data 1, model 1)`` mesh
   (chip_smoke's ``moe_ep`` (b) at qwen3-moe-smoke's widths): the
@@ -84,7 +92,7 @@ from repro_torch.core.erb import TaskTag, erb_add, erb_init, flat_columns  # noq
 from repro_torch.core.replay import SelectiveReplaySampler  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import FFN_NONE, get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -95,7 +103,7 @@ from repro_torch.models.model import (  # noqa: E402
     make_loss_fn,
 )
 from repro_torch.optim.adamw import leaves, tree_leaves  # noqa: E402
-from repro_torch.models.sharding import FleetMesh  # noqa: E402
+from repro_torch.models.sharding import FleetMesh, ShardingPolicy  # noqa: E402
 from repro_torch.rl.fleet import FleetEngine, FleetSteps, unpack_stats  # noqa: E402
 from repro_torch.serve import TrafficSpec, build_session, run_session  # noqa: E402
 from repro_torch.telemetry import Telemetry  # noqa: E402
@@ -109,6 +117,14 @@ TINY = DQNConfig(
     batch_size=4,
     max_episode_steps=4,
 )
+
+
+def norms_recomputed(cfg) -> int:
+    """C launches a rematerialised train step adds to a forward's: each
+    group's recompute runs its blocks but the last (the checkpoint stops
+    once the last block's input is saved), then each block's its own."""
+    per = [1 + (ffn != FFN_NONE) for _, ffn in cfg.pattern]
+    return cfg.n_groups * (2 * sum(per) - per[-1])
 
 
 @pytest.fixture
@@ -451,7 +467,8 @@ def test_lm_loss_and_grads_card_match_cpu(cuda):
         moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
         out[str(dev)] = (float(total), [g.cpu() for g in grads], moved)
     (loss_c, grads_c, moved_c), (loss_g, grads_g, moved_g) = out["cpu"], out["cuda"]
-    assert moved_c == (0, 0) and moved_g == (2 * cfg.n_layers + 1, 0)
+    assert moved_c == (0, 0)
+    assert moved_g == (2 * cfg.n_layers + 1 + norms_recomputed(cfg), 0)
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for gc, gg in zip(grads_c, grads_g, strict=True):
         scale = float(gc.abs().max())
@@ -554,8 +571,40 @@ def test_xlstm_125m_train_step_on_card(cuda):
     state, metrics = model.train_step(state, batch)
     torch.cuda.synchronize()
     moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
-    assert moved == (len(cfg.layer_pattern) + 1, 0)
+    assert moved == (len(cfg.layer_pattern) + 1 + norms_recomputed(cfg), 0)
     assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+@pytest.mark.cuda
+def test_remat_loss_and_grads_match_plain_on_card(cuda):
+    """chip_smoke's ``lm_train_remat`` (a) at h2o-danube-3-4b-smoke's widths
+    in bf16: the loss and every gradient leaf from the same params and
+    batch with ``ShardingPolicy()`` against ``ShardingPolicy(remat=False)``,
+    loss 1e-5 relative and gradients 1e-4 of each leaf's scale; C a
+    forward's norms without remat and those and the recompute's with it,
+    D never."""
+    from repro_torch.models.model import value_and_grad
+
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b-smoke"), dtype="bfloat16")
+    params = Model(cfg, cuda).init_params(0)
+    rng = np.random.default_rng(4)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 129)), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for policy in (ShardingPolicy(remat=False), ShardingPolicy()):
+        before = rmsnorm.launches, flash_attention.launches
+        _, m, grads = value_and_grad(make_loss_fn(cfg, policy=policy), params, batch)
+        torch.cuda.synchronize()
+        moved = (rmsnorm.launches - before[0], flash_attention.launches - before[1])
+        out.append((float(m["loss"]), tree_leaves(grads), moved))
+    (loss0, g0, moved0), (loss1, g1, moved1) = out
+    forward_norms = 2 * cfg.n_layers + 1
+    assert moved0 == (forward_norms, 0)
+    assert moved1 == (forward_norms + norms_recomputed(cfg), 0)
+    assert loss1 == pytest.approx(loss0, rel=1e-5)
+    for a, b in zip(g1, g0, strict=True):
+        scale = max(float(b.float().abs().max()), 1e-30)
+        assert float((a.float() - b.float()).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.cuda

@@ -4,8 +4,8 @@ The port's FLOP counter (``launch/analysis.py::FlopCounter``, the port's
 own step walked on ``meta`` tensors) against the reference's
 ``repro.launch.analysis.count_flops`` (its jaxpr walk) for every
 assigned config's reduced variant, in training (``make_train_step``,
-the reference at ``ShardingPolicy(remat=False)``: the port does not
-rematerialise per layer), prefill and decode, at batch 2 and 64 tokens:
+both at ``ShardingPolicy(remat=False)`` and both rematerialising per
+layer at ``ShardingPolicy()``), prefill and decode, at batch 2 and 64 tokens:
 the matrix-product FLOPs are identical and the totals within 3 % (the
 elementwise counts differ where one side fuses what the other spells
 out: a softmax, a SiLU, a backward formula).  In training the two
@@ -16,7 +16,13 @@ checkpoint, so its backward computes the scores ``Q K^T`` once more
 (``2 B Hq S S d_qk`` an attention layer; the port checkpoints the
 query chunk only), and its sLSTM scan computes the cotangent of the
 zero initial hidden state (one ``[B, 4, H, dh] x [4, H, dh, dh]``
-product an sLSTM layer), which the port's token loop skips.  Also: the
+product an sLSTM layer), which the port's token loop skips.  Both are
+products of a backward, and a backward runs once with or without the
+rematerialisation: a rematerialised forward is recomputed by both
+sides alike (the group's blocks but the last, then each block's own:
+the port's early stop and JAX's dead-code elimination cut the same
+last block), and neither term's product is in a forward, so each keeps
+its count at ``remat=True``.  Also: the
 group shortcut against the full walk, ``analytic_hbm_bytes`` against
 the reference's, the collective model's arithmetic, and ``run_pair`` in
 each mode.
@@ -95,11 +101,11 @@ def ref_matmul(ref, jaxpr, mult: float = 1.0) -> float:
     return total
 
 
-def ref_step(ref, arch: str, mode: str):
+def ref_step(ref, arch: str, mode: str, remat: bool = False):
     """(fn, abstract args) of the reference's step at batch B, S tokens."""
     cfg = ref.get_config(arch)
     jnp = ref.jnp
-    policy = ref.policy(remat=False)
+    policy = ref.policy(remat=remat)
     opt = ref.AdamWConfig(opt_dtype=opt_cfg_for(get_config(arch)).opt_dtype)
     key = ref.jax.random.PRNGKey(0)
     state = ref.jax.eval_shape(lambda: ref.model.init_train_state(cfg, key, opt))
@@ -158,13 +164,39 @@ def test_flops_match_reference(ref, arch):
         want_total = ref.analysis._jaxpr_flops(jaxpr)
         want_mm = ref_matmul(ref, jaxpr)
         shape = InputShape(mode, S, B, mode)
-        kinds, _ = dryrun.plan_step(cfg, shape, ShardingPolicy(), opt_cfg_for(cfg))
-        got_mm = kinds.get("matmul", 0.0) + kinds.get("conv", 0.0)
-        if mode == "train":
-            got_mm += scores_recompute(cfg) + slstm_initial_cotangent(cfg)
-        assert got_mm == want_mm, (mode, got_mm, want_mm)
-        total = sum(kinds.values())
-        assert total == pytest.approx(want_total, rel=TOTAL_RTOL), mode
+        pol = ShardingPolicy(remat=False)
+        kinds, _ = dryrun.plan_step(cfg, shape, pol, opt_cfg_for(cfg))
+        check_counts(cfg, mode, kinds, want_mm, want_total)
+
+
+def check_counts(cfg, mode, kinds, want_mm, want_total):
+    got_mm = kinds.get("matmul", 0.0) + kinds.get("conv", 0.0)
+    if mode == "train":
+        got_mm += scores_recompute(cfg) + slstm_initial_cotangent(cfg)
+    assert got_mm == want_mm, (mode, got_mm, want_mm)
+    total = sum(kinds.values())
+    assert total == pytest.approx(want_total, rel=TOTAL_RTOL), mode
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_train_flops_match_reference_rematerialised(ref, arch):
+    """The train step at ``ShardingPolicy()`` on both sides: each group
+    and each block checkpointed (prefill and decode do not read
+    ``remat``).  The same two terms, at the same counts, close the
+    products; the totals within 3 %."""
+    name = f"{arch}-smoke"
+    cfg = get_config(name)
+    fn, args = ref_step(ref, name, "train", remat=True)
+    jaxpr = ref.jax.make_jaxpr(fn)(*args).jaxpr
+    want_total = ref.analysis._jaxpr_flops(jaxpr)
+    want_mm = ref_matmul(ref, jaxpr)
+    shape = InputShape("train", S, B, "train")
+    kinds, _ = dryrun.plan_step(cfg, shape, ShardingPolicy(), opt_cfg_for(cfg))
+    check_counts(cfg, "train", kinds, want_mm, want_total)
+    plain, _ = dryrun.plan_step(
+        cfg, shape, ShardingPolicy(remat=False), opt_cfg_for(cfg)
+    )
+    assert kinds["matmul"] > plain["matmul"]  # the recompute is counted
 
 
 def test_the_two_product_differences_are_the_accounted_ones(ref):
@@ -176,11 +208,13 @@ def test_the_two_product_differences_are_the_accounted_ones(ref):
         ("h2o-danube-3-4b-smoke", scores_recompute),
     ):
         cfg = get_config(arch)
-        fn, args = ref_step(ref, arch, "train")
-        want = ref_matmul(ref, ref.jax.make_jaxpr(fn)(*args).jaxpr)
-        shape = InputShape("t", S, B, "train")
-        kinds, _ = dryrun.plan_step(cfg, shape, ShardingPolicy(), opt_cfg_for(cfg))
-        assert want - kinds["matmul"] == term(cfg) > 0, arch
+        for remat in (False, True):
+            fn, args = ref_step(ref, arch, "train", remat=remat)
+            want = ref_matmul(ref, ref.jax.make_jaxpr(fn)(*args).jaxpr)
+            shape = InputShape("t", S, B, "train")
+            pol = ShardingPolicy(remat=remat)
+            kinds, _ = dryrun.plan_step(cfg, shape, pol, opt_cfg_for(cfg))
+            assert want - kinds["matmul"] == term(cfg) > 0, (arch, remat)
 
 
 @pytest.mark.parametrize(
@@ -195,13 +229,14 @@ def test_group_shortcut_matches_the_full_walk(arch, n_layers):
     """Walking no group and one, times the groups, is the full walk: the
     products exactly, the totals but for the gradient norm's few scalar
     additions a parameter leaf (below 1e-7 of the whole), the saved
-    activations exactly."""
+    activations exactly; training with and without ``remat``."""
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     assert cfg.n_groups >= 2
     opt = opt_cfg_for(cfg)
-    for mode in MODES:
+    cases = [(m, ShardingPolicy()) for m in MODES]
+    cases.append(("train", ShardingPolicy(remat=False)))
+    for mode, pol in cases:
         shape = InputShape(mode, 32, 2, mode)
-        pol = ShardingPolicy()
         full, saved_full = dryrun.plan_step(cfg, shape, pol, opt, group_shortcut=False)
         short, saved_short = dryrun.plan_step(cfg, shape, pol, opt)
         assert short["matmul"] == full["matmul"], mode
