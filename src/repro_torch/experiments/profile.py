@@ -28,6 +28,14 @@ the live service (a warm-up wave), once for the unprofiled wall and once
 under the profiler, each wave from the same requests on the same params;
 it reports wall and device busy time per tick, the idle share and device
 operations per tick.
+
+The profiled training run (not a serving session's) carries a
+:class:`~repro_torch.telemetry.Telemetry` on its fleet engine, and its
+section adds ``idle_by_span``: the device's idle gaps of 5 us or more
+summed by the innermost program wall span (``fleet.collect``,
+``fleet.plan``, ``fleet.flush``, ``fleet.sync``) open at each gap's
+middle, or ``(no span)``: what the host was doing while the card
+waited.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from repro_torch.experiments.registry import get_scenario
 from repro_torch.experiments.runner import build, evaluate_into
 from repro_torch.rl.fleet import FleetSteps
 from repro_torch.serve.traffic import synthetic_requests
+from repro_torch.telemetry import Telemetry
 
 ACTIVITIES = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 # the profiled scenarios and their cuts (chip_smoke.py's main and
@@ -60,7 +69,65 @@ SCENARIOS = {
 }
 
 
-def device_summary(prof, wall_s: float) -> dict:
+GAP_MIN_US = 5.0  # shorter idle gaps are launch jitter, not named
+
+
+def _on_device(e) -> bool:
+    """A device interval: a kernel, copy or set on the card (not a CUDA
+    user annotation, which only marks a host range on the device row)."""
+    return e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+        e, "is_user_annotation", False
+    )
+
+
+def idle_by_span(events, tracer, trace_start_ns: int) -> dict[str, float]:
+    """Seconds of the device's idle gaps of ``GAP_MIN_US`` or more (between
+    the merged intervals of ``events``, a profiler's ``FunctionEvent``s)
+    by the name of the innermost wall span of ``tracer`` open at each
+    gap's middle, or ``"(no span)"``; largest first.  ``trace_start_ns``
+    is the profile's ``kineto_results.trace_start_ns()``."""
+    intervals = sorted(
+        (e.time_range.start, e.time_range.end) for e in events if _on_device(e)
+    )
+    merged: list[list[float]] = []
+    for t0, t1 in intervals:
+        if merged and t0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t1)
+        else:
+            merged.append([t0, t1])
+    mids = [
+        (0.5 * (a1 + b0), b0 - a1)
+        for (_, a1), (b0, _) in zip(merged, merged[1:])
+        if b0 - a1 >= GAP_MIN_US
+    ]
+    # the spans' starts and ends in time order (a start before an end at
+    # the same time), swept with the gaps: wall spans nest, so the
+    # innermost one open is the last one opened
+    spans = [e for e in tracer.events if e["kind"] == "span" and e["clock"] == "wall"]
+    bounds = []
+    for i, e in enumerate(spans):
+        bounds.append((tracer.to_profiler_us(e["t0"], trace_start_ns), 0, i))
+        bounds.append((tracer.to_profiler_us(e["t1"], trace_start_ns), 1, i))
+    bounds.sort()
+    out: dict[str, float] = {}
+    open_spans: list[int] = []
+    k = 0
+    for mid, gap_us in mids:
+        while k < len(bounds) and bounds[k][0] <= mid:
+            _, ends, i = bounds[k]
+            if ends:
+                open_spans.remove(i)
+            else:
+                open_spans.append(i)
+            k += 1
+        name = spans[open_spans[-1]]["name"] if open_spans else "(no span)"
+        out[name] = out.get(name, 0.0) + gap_us / 1e6
+    return dict(sorted(out.items(), key=lambda kv: kv[1], reverse=True))
+
+
+def device_summary(prof, wall_s: float, telemetry: Telemetry | None = None) -> dict:
+    """The device side of a profile over ``wall_s`` seconds; with the
+    ``telemetry`` that traced the profiled work, ``idle_by_span``."""
     rows = [
         e
         for e in prof.key_averages()
@@ -68,7 +135,7 @@ def device_summary(prof, wall_s: float) -> dict:
     ]
     busy_s = sum(e.self_device_time_total for e in rows) / 1e6
     top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    return {
+    out = {
         "profiled_wall_s": wall_s,
         "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / wall_s,
@@ -82,6 +149,10 @@ def device_summary(prof, wall_s: float) -> dict:
             for e in top
         ],
     }
+    if telemetry is not None:
+        start_ns = prof.profiler.kineto_results.trace_start_ns()
+        out["idle_by_span"] = idle_by_span(prof.events(), telemetry.tracer, start_ns)
+    return out
 
 
 def _timed(fn) -> tuple[object, float]:
@@ -196,19 +267,25 @@ def profile_main_path(name: str = "paper_fig2") -> dict:
         system = build(spec, device="cuda")
         report, run_s = _timed(system.run)
         _, eval_s = _timed(lambda: evaluate_into(report, system, spec))
-    # the same run (same seeds, same work) under the profiler
+    # the same run (same seeds, same work) under the profiler, its fleet
+    # engine traced (the engine's telemetry alone: a system-wide bundle
+    # would turn on the observatory and change the work; a serving
+    # session builds its engine inside the run, untraced)
     system = build(spec, device="cuda")
+    serving = spec.system == "serve"
+    tel = None
+    if not serving:
+        tel = system.engine.telemetry = Telemetry()
     with profile(activities=ACTIVITIES) as prof_run:
         report, prun_s = _timed(system.run)
     with profile(activities=ACTIVITIES) as prof_eval:
         _, peval_s = _timed(lambda: evaluate_into(report, system, spec))
-    serving = spec.system == "serve"
     engine = system.session.engine if serving else system.engine
     out["run"] = {
         "wall_s": run_s,
         "agent_steps": engine.n_steps_trained,
         "stacked_steps": engine.n_chunk_steps,
-        **device_summary(prof_run, prun_s),
+        **device_summary(prof_run, prun_s, tel),
     }
     out["eval"] = {"wall_s": eval_s, **device_summary(prof_eval, peval_s)}
     out["step"] = _profile_steps(spec.dqn, max(engine.flush_sizes))

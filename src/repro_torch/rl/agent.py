@@ -41,6 +41,7 @@ from repro_torch.core.replay import SelectiveReplaySampler
 from repro_torch.rl.dqn import dqn_apply
 from repro_torch.rl.env import LandmarkEnv
 from repro_torch.rl.fleet import FleetEngine, TrainFuture, collect_fleet, tree_map
+from repro_torch.telemetry import NO_SPAN
 
 
 @dataclass
@@ -130,19 +131,26 @@ class DQNAgent:
         self, n_steps: int, current: ERB | None, incoming: Sequence[ERB]
     ) -> TrainFuture:
         """Plan n minibatches (host index selection) and queue them as
-        one fleet job."""
-        plans = [
-            self.sampler.plan(
-                self.rng,
-                self.cfg.batch_size,
-                current,
-                personal=self.personal_erbs,
-                incoming=incoming,
-            )
-            for _ in range(n_steps)
-        ]
-        self.step_count += n_steps
-        return self.engine.submit(self.slot, plans)
+        one fleet job: a ``fleet.plan`` wall span with enabled telemetry
+        (a flush that the submit forces nests in it)."""
+        tel = self.engine.telemetry
+        with (
+            tel.wall_span("fleet.plan", "fleet", steps=n_steps)
+            if tel.enabled
+            else NO_SPAN
+        ):
+            plans = [
+                self.sampler.plan(
+                    self.rng,
+                    self.cfg.batch_size,
+                    current,
+                    personal=self.personal_erbs,
+                    incoming=incoming,
+                )
+                for _ in range(n_steps)
+            ]
+            self.step_count += n_steps
+            return self.engine.submit(self.slot, plans)
 
     def train_steps(
         self, n_steps: int, current: ERB | None, incoming: Sequence[ERB] = ()

@@ -39,6 +39,18 @@ The PyTorch counterpart of ``src/repro/rl/fleet.py``:
   batched greedy-act program: each request gathers its own parameter
   row and the batch runs as one stacked forward.
 
+Enabled telemetry on the engine (``FleetEngine.telemetry``) traces the
+host loop as nested wall spans on the ``fleet`` track:
+``fleet.collect`` (one a :func:`collect_fleet` call: ``agents``,
+``env_steps``, ``rows``, and ``syncs`` and ``sync_s``, its environment
+steps' blocking copies and their seconds), ``fleet.plan`` (one a
+``DQNAgent._submit_steps``: ``steps``), ``fleet.flush`` (``jobs``,
+``k_steps``, ``devices``) and ``fleet.sync`` around every other
+blocking host<->device copy: a cohort's gather index and a flush's
+copies (``dir`` ``h2d`` or ``d2h``, ``bytes``).  A flush forced by a
+read nests in the span that read.  With telemetry off each span site
+costs one attribute check.
+
 Fleet-axis sharding: given a 1-D device mesh
 (:func:`repro_torch.models.sharding.make_fleet_mesh`, or a
 :class:`~repro_torch.models.sharding.FleetMesh` built by hand), the
@@ -62,6 +74,7 @@ resident ones), so a tensor handed out by ``get_params`` or
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from collections.abc import Callable, Sequence
 from dataclasses import dataclass, fields, replace
@@ -77,7 +90,7 @@ from repro_torch.kernels.replay_gather import replay_gather
 from repro_torch.models.sharding import FleetMesh, FleetSharding
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
 from repro_torch.rl.dqn import dqn_apply_stacked, dqn_init
-from repro_torch.telemetry import NULL
+from repro_torch.telemetry import NO_SPAN, NULL
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -284,6 +297,12 @@ class CollectSteps:
         return dqn_apply_stacked(self.cfg, stacked, obs, loc)
 
 
+def _sync_span(tel, direction: str, nbytes: int):
+    """A ``fleet.sync`` wall span around one blocking host<->device copy
+    (it waits for every operation queued before it)."""
+    return tel.wall_span("fleet.sync", "fleet", dir=direction, bytes=int(nbytes))
+
+
 def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
     """Collect one round of experience for a cohort of fleet agents:
     one stacked q-value forward per environment step for the cohort, or
@@ -299,6 +318,23 @@ def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
     """
     if not agents:
         return
+    tel = agents[0].engine.telemetry
+    if not tel.enabled:
+        _collect(agents, envs, erbs, n_episodes, tel)
+        return
+    with tel.wall_span("fleet.collect", "fleet", agents=len(agents)) as span:
+        env_steps, rows, syncs, sync_s = _collect(agents, envs, erbs, n_episodes, tel)
+        span["args"].update(env_steps=env_steps, rows=rows, syncs=syncs, sync_s=sync_s)
+
+
+def _collect(agents, envs, erbs, n_episodes: int, tel) -> tuple[int, int, int, float]:
+    """:func:`collect_fleet`'s body; returns the environment steps taken,
+    the transitions written, and the blocking copies of the steps (obs
+    and loc up a part, q-values down) and their seconds, timed with
+    enabled telemetry (a span each would fill the tracer's cap in
+    minutes)."""
+    traced = tel.enabled
+    sync_s = 0.0
     engine = agents[0].engine
     cfg = agents[0].cfg
     steps = CollectSteps(cfg)
@@ -322,25 +358,33 @@ def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
         for r, i in enumerate(pos):
             lane[i] = (p, r, offset + r)
         offset += len(pos)
+    env_steps = n_rows = 0
     for _ in range(cfg.max_episode_steps):
         live = [i for i in range(n) if alive[i].any()]
         if not live:
             break
+        env_steps += 1
         for i in live:
             p, r, _ = lane[i]
             bufs[p][0][r] = envs[i].observe(locs[i])
             bufs[p][1][r] = envs[i].norm_loc(locs[i])
-        qs = [
-            steps.qvals(
-                stacked, torch.from_numpy(obs).to(dev), torch.from_numpy(loc).to(dev)
-            )
-            for (dev, _, stacked), (obs, loc) in zip(parts, bufs)
-        ]
+        qs = []
+        for (dev, _, stacked), (obs, loc) in zip(parts, bufs):
+            c0 = time.perf_counter() if traced else 0.0
+            obs_d = torch.from_numpy(obs).to(dev)
+            loc_d = torch.from_numpy(loc).to(dev)
+            if traced:
+                sync_s += time.perf_counter() - c0
+            qs.append(steps.qvals(stacked, obs_d, loc_d))
         if len(qs) == 1:
-            q = qs[0].cpu().numpy()
+            q_d = qs[0]
         else:
             home = engine.device
-            q = torch.cat([x.to(home, non_blocking=True) for x in qs]).cpu().numpy()
+            q_d = torch.cat([x.to(home, non_blocking=True) for x in qs])
+        c0 = time.perf_counter() if traced else 0.0
+        q = q_d.cpu().numpy()
+        if traced:
+            sync_s += time.perf_counter() - c0
         for i in live:
             agent, env, erb = agents[i], envs[i], erbs[i]
             p, r, row = lane[i]
@@ -362,8 +406,10 @@ def collect_fleet(agents, envs, erbs, n_episodes: int) -> None:
                 "done": done[idx].astype(np.float32),
             }
             erb_add(erb, batch)
+            n_rows += len(idx)
             locs[i] = new
             alive[i] &= ~done
+    return env_steps, n_rows, env_steps * (2 * len(parts) + 1), sync_s
 
 
 class ActSteps:
@@ -673,13 +719,15 @@ class FleetEngine:
         tensors."""
         for s in set(slots):
             self.ensure_flushed(s)
+        tel = self.telemetry
         rows_all = list(range(self._rows_per_shard()))
         out = []
         for j, positions, rows in self.sharding.groups(slots):
             dev = self.sharding.devices[j]
             params = self._shards[j].params
             if rows != rows_all:
-                g = torch.tensor(rows, device=dev)
+                with _sync_span(tel, "h2d", 8 * len(rows)) if tel.enabled else NO_SPAN:
+                    g = torch.tensor(rows, device=dev)
                 params = tree_map(lambda x: x.index_select(0, g), params)
             out.append((dev, positions, params))
         return out
@@ -718,8 +766,11 @@ class FleetEngine:
             cache.move_to_end(key)
             self.telemetry.count("fleet.erb_cache.hits", 1)
             return hit
-        self.telemetry.count("fleet.erb_cache.misses", 1)
-        flat = torch.from_numpy(erb_flatten(erb)).to(dev)
+        tel = self.telemetry
+        tel.count("fleet.erb_cache.misses", 1)
+        host = erb_flatten(erb)
+        with _sync_span(tel, "h2d", host.nbytes) if tel.enabled else NO_SPAN:
+            flat = torch.from_numpy(host).to(dev)
         cache[key] = flat
         nbytes = self._erb_cache_nbytes.get(dev, 0) + flat.numel() * flat.element_size()
         while len(cache) > 1 and (
@@ -818,7 +869,35 @@ class FleetEngine:
 
     def _flush_group(self, jobs: list[_Job]) -> None:
         tel = self.telemetry
-        wall0 = tel.wall() if tel.enabled else 0.0
+        n_jobs = len(jobs)
+        if not tel.enabled:
+            losses = self._train_group(jobs)
+        else:
+            k_steps = jobs[0].n_steps
+            with tel.wall_span(
+                "fleet.flush",
+                "fleet",
+                jobs=n_jobs,
+                k_steps=k_steps,
+                devices=self.sharding.size,
+            ) as span:
+                losses = self._train_group(jobs)
+            if self.sim_clock is not None:
+                # the same flush pinned to simulated time, so trace views
+                # can correlate host cost with scheduler progress
+                tel.instant("fleet.flush", "fleet", self.sim_clock(), jobs=n_jobs)
+            tel.count("fleet.flushes", 1)
+            tel.count("fleet.steps_trained", n_jobs * k_steps)
+            tel.observe("fleet.flush.jobs", n_jobs)
+            tel.observe("fleet.flush.wall_s", span["t1"] - span["t0"])
+        for jpos, job in enumerate(jobs):
+            job.future.resolve(float(losses[-1, jpos]))
+
+    def _train_group(self, jobs: list[_Job]) -> np.ndarray:
+        """Train one group of jobs of equal K as one stacked chunk (per
+        shard); returns the host copy of the losses ``[K, jobs]``."""
+        tel = self.telemetry
+        traced = tel.enabled
         n_jobs = len(jobs)
         k_steps = jobs[0].n_steps
         batch = jobs[0].eidx.shape[1]
@@ -848,7 +927,6 @@ class FleetEngine:
         groups = self.sharding.groups(slots)
         pools: dict[torch.device, torch.Tensor] = {}
         outs = []
-        resident = True
         for j, positions, rows in groups:
             dev = self.sharding.devices[j]
             pool = pools.get(dev)
@@ -868,11 +946,12 @@ class FleetEngine:
             # state, so autograd gives each lane its own gradient; only
             # lane 0's state and output columns are kept.
             lone = len(rows) == 1 and self.sharding.size > 1
-            resident &= whole and not lone
             if whole and not lone:
                 sub = shard
             else:
-                g = torch.tensor(rows * 2 if lone else rows, device=dev)
+                rows_g = rows * 2 if lone else rows
+                with _sync_span(tel, "h2d", 8 * len(rows_g)) if traced else NO_SPAN:
+                    g = torch.tensor(rows_g, device=dev)
                 sub = shard.map(lambda x: x.index_select(0, g))
             if lone:
                 idx_j = np.ascontiguousarray(idx[:, positions * 2])
@@ -880,7 +959,9 @@ class FleetEngine:
                 idx_j = idx
             else:
                 idx_j = np.ascontiguousarray(idx[:, positions])
-            new, out = chunk(sub, pool, torch.from_numpy(idx_j).to(dev))
+            with _sync_span(tel, "h2d", idx_j.nbytes) if traced else NO_SPAN:
+                idx_d = torch.from_numpy(idx_j).to(dev)
+            new, out = chunk(sub, pool, idx_d)
             if lone:
                 new = new.map(lambda x: x[:1].clone())
                 out = out[:, :1]
@@ -894,12 +975,15 @@ class FleetEngine:
         # the statistics packed beside them, each shard's columns put
         # back in job order
         if len(outs) == 1:
-            host = outs[0].cpu().numpy()
+            cols, order = outs[0], None
         else:
             home = self.device
             cols = torch.cat([o.to(home, non_blocking=True) for o in outs], 1)
             order = np.argsort(np.concatenate([pos for _, pos, _ in groups]))
-            host = cols.cpu().numpy()[:, order]
+        with _sync_span(tel, "d2h", cols.nbytes) if traced else NO_SPAN:
+            host = cols.cpu().numpy()
+        if order is not None:
+            host = host[:, order]
         if obs is None:
             losses_np = host
         else:
@@ -912,31 +996,7 @@ class FleetEngine:
         self.n_chunk_steps += k_steps
         self.n_shard_steps += k_steps * len(groups)
         self.flush_sizes.append(n_jobs)
-        if tel.enabled:
-            wall1 = tel.wall()
-            tel.span(
-                "fleet.flush",
-                "fleet",
-                wall0,
-                wall1,
-                clock="wall",
-                jobs=n_jobs,
-                k_steps=k_steps,
-                batch=batch,
-                pool_rows=total,
-                devices=self.sharding.size,
-                resident=resident,
-            )
-            if self.sim_clock is not None:
-                # the same flush pinned to simulated time, so trace views
-                # can correlate host cost with scheduler progress
-                tel.instant("fleet.flush", "fleet", self.sim_clock(), jobs=n_jobs)
-            tel.count("fleet.flushes", 1)
-            tel.count("fleet.steps_trained", n_jobs * k_steps)
-            tel.observe("fleet.flush.jobs", n_jobs)
-            tel.observe("fleet.flush.wall_s", wall1 - wall0)
-        for jpos, job in enumerate(jobs):
-            job.future.resolve(float(losses_np[-1, jpos]))
+        return losses_np
 
 
 __all__ = [

@@ -20,9 +20,10 @@ from __future__ import annotations
 from .dashboard import dashboard_from_telemetry, render_dashboard, write_dashboard
 from .export import load_trace, to_perfetto, write_jsonl, write_perfetto, write_trace
 from .registry import MetricsRegistry, NullRegistry
-from .trace import NULL, JsonlTraceSink, NullTracer, Telemetry, Tracer
+from .trace import NO_SPAN, NULL, JsonlTraceSink, NullTracer, Telemetry, Tracer
 
 __all__ = [
+    "NO_SPAN",
     "NULL",
     "JsonlTraceSink",
     "MetricsRegistry",

@@ -12,13 +12,16 @@ across timelines:
 Timestamps are microseconds (the ``trace_event`` unit): sim seconds and
 zero-based wall seconds both scale by 1e6.  Metric totals ride along as
 ``repro.metrics`` metadata on the trace-level ``otherData`` dict so the
-Perfetto JSON alone round-trips the registry snapshot.
+Perfetto JSON alone round-trips the registry snapshot; the tracer's
+clock anchor rides as ``repro.clock_anchor``, and a wall span's ``id``
+and ``parent`` in its ``args``.
 
 JSONL layout
 ------------
-One JSON object per line: first a header row (``{"kind": "header"}``),
-then every trace event verbatim, then one row per metric series — the
-shape :class:`repro_torch.sweeps.store.ReportStore` artifacts use, greppable
+One JSON object per line: first a header row (``{"kind": "header"}``,
+with the tracer's ``clock_anchor``), then every trace event verbatim,
+then one row per metric series — the shape
+:class:`repro_torch.sweeps.store.ReportStore` artifacts use, greppable
 and streamable.  ``load_trace`` sniffs either format back into the
 common event-dict list.
 """
@@ -88,12 +91,15 @@ def to_perfetto(tel: Telemetry) -> dict[str, Any]:
         ts = e["t0"] * 1e6
         base = {"name": e["name"], "pid": pid, "tid": tid, "ts": ts}
         if e["kind"] == "span":
+            args = e["args"]
+            if "id" in e:  # a wall span's nesting rides in its args
+                args = {**args, "id": e["id"], "parent": e["parent"]}
             events.append(
                 {
                     **base,
                     "ph": "X",
                     "dur": max(e["t1"] - e["t0"], 0.0) * 1e6,
-                    "args": e["args"],
+                    "args": args,
                 }
             )
         elif e["kind"] == "counter":
@@ -109,6 +115,7 @@ def to_perfetto(tel: Telemetry) -> dict[str, Any]:
         "otherData": {
             "repro.metrics": tel.registry.summary(),
             "repro.dropped_events": tel.tracer.n_dropped,
+            "repro.clock_anchor": tel.tracer.anchor,
         },
     }
 
@@ -129,6 +136,7 @@ def write_jsonl(tel: Telemetry, path: str | Path) -> Path:
             "format": "repro.telemetry/v1",
             "n_events": len(tel.tracer.events),
             "n_dropped_events": tel.tracer.n_dropped,
+            "clock_anchor": tel.tracer.anchor,
         }
         f.write(json.dumps(header) + "\n")
         for e in tel.tracer.events:

@@ -5,9 +5,22 @@ A :class:`Tracer` records a flat list of events.  Every event carries a
 
 - ``"sim"``   — simulated scheduler seconds (:class:`repro_torch.core.scheduler.
   Scheduler` time).  Round phases, gossip exchanges, availability windows.
-- ``"wall"``  — host ``perf_counter`` seconds.  Fleet flushes, serve
-  ticks — things that cost real time regardless of the
-  simulated clock.
+- ``"wall"``  — host ``perf_counter`` seconds from the tracer's zero.
+  Fleet collection, replay planning, flushes and blocking copies, serve
+  ticks — things that cost real time regardless of the simulated clock.
+
+Every wall span carries an ``id`` and the ``id`` of its ``parent``: the
+innermost wall span still open on the same thread when it started (None
+at the top).  :meth:`Tracer.wall_span` opens its span where its body
+starts, so spans recorded inside it nest under it; a span recorded
+whole (``span(..., clock="wall")``) nests under the span open when it is
+recorded.  A layer's self time is its span less the children it covers.
+
+The tracer's ``anchor`` pairs its wall zero with the same instant on the
+clock ``torch.profiler`` stamps its events with (Unix-epoch nanoseconds:
+``time.time_ns()``, the domain of ``kineto_results.trace_start_ns()``),
+so :meth:`Tracer.to_profiler_us` lays any wall span on a profiler's
+event timeline.
 
 Event kinds mirror the Chrome ``trace_event`` phases they export to:
 
@@ -30,10 +43,12 @@ attribute check and pay nothing when telemetry is off.
 
 from __future__ import annotations
 
+import itertools
 import json
+import threading
 import time
 from collections.abc import Iterator
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import Any
 
@@ -41,6 +56,29 @@ from .registry import MetricsRegistry, NullRegistry
 
 #: default byte cap for streaming JSONL sinks (64 MiB)
 DEFAULT_STREAM_MAX_BYTES = 64 * 1024 * 1024
+
+#: what an instrumented call site enters when telemetry is off:
+#: ``with tel.wall_span(...) if tel.enabled else NO_SPAN:``
+NO_SPAN = nullcontext()
+
+
+_ANCHOR_TRIES = 5  # clock brackets clock_anchor reads, keeping the tightest
+
+
+def clock_anchor() -> dict[str, float | int]:
+    """One instant on the host's ``perf_counter`` (seconds) and on the
+    torch profiler's event clock (``time.time_ns()``, Unix-epoch ns):
+    the profiler clock is read between two ``perf_counter`` reads and
+    paired with their midpoint, from the tightest of ``_ANCHOR_TRIES``
+    brackets (a thread preempted inside one would skew it)."""
+    best = None
+    for _ in range(_ANCHOR_TRIES):
+        p0 = time.perf_counter()
+        unix_ns = time.time_ns()
+        p1 = time.perf_counter()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, 0.5 * (p0 + p1), unix_ns)
+    return {"perf_counter_s": best[1], "unix_ns": best[2]}
 
 
 class JsonlTraceSink:
@@ -50,7 +88,8 @@ class JsonlTraceSink:
     accumulating in the tracer's in-memory list, so a multi-hour soak
     has O(1) memory for tracing.  The file is the same
     ``repro.telemetry/v1`` JSONL layout ``load_trace`` reads back:
-    header row first, one event per line, metric rows appended at
+    header row first (with ``anchor``, the tracer's
+    :func:`clock_anchor`), one event per line, metric rows appended at
     :meth:`close`.
 
     ``max_bytes`` caps the event portion of the file; past the cap,
@@ -61,7 +100,11 @@ class JsonlTraceSink:
     """
 
     def __init__(
-        self, path: str | Path, *, max_bytes: int = DEFAULT_STREAM_MAX_BYTES
+        self,
+        path: str | Path,
+        *,
+        anchor: dict,
+        max_bytes: int = DEFAULT_STREAM_MAX_BYTES,
     ):
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
@@ -69,7 +112,12 @@ class JsonlTraceSink:
         self.n_written = 0
         self.n_dropped = 0
         self._f = self.path.open("w")
-        header = {"kind": "header", "format": "repro.telemetry/v1", "streaming": True}
+        header = {
+            "kind": "header",
+            "format": "repro.telemetry/v1",
+            "streaming": True,
+            "clock_anchor": anchor,
+        }
         line = json.dumps(header) + "\n"
         self._f.write(line)
         self._nbytes = len(line)
@@ -108,6 +156,9 @@ class Tracer:
     instead of accumulating in ``events`` — memory stays O(1) and the
     sink's byte cap replaces ``max_events`` as the bound; sink-refused
     events are tallied in the same ``n_dropped``.
+
+    ``anchor`` (:func:`clock_anchor`, taken at creation) holds the wall
+    clock's zero on both clocks.
     """
 
     enabled = True
@@ -119,7 +170,10 @@ class Tracer:
         self.events: list[dict[str, Any]] = []
         self.n_dropped = 0
         self.sink = sink
-        self._wall0 = time.perf_counter()
+        self.anchor = clock_anchor()
+        self._wall0 = self.anchor["perf_counter_s"]
+        self._ids = itertools.count(1)  # next() is atomic across threads
+        self._local = threading.local()  # .open: ids of open wall spans
 
     # -- clocks --------------------------------------------------------------
     def wall(self) -> float:
@@ -131,6 +185,20 @@ class Tracer:
         tracer's zero-based wall clock (for call sites that already hold
         perf_counter timestamps, e.g. the serve request plane)."""
         return perf_t - self._wall0
+
+    def to_profiler_us(self, t_wall: float, trace_start_ns: int) -> float:
+        """A wall-clock time in the microseconds of a torch profiler's
+        event timeline (``FunctionEvent.time_range``), whose zero is the
+        profiler's ``kineto_results.trace_start_ns()``."""
+        return (self.anchor["unix_ns"] - trace_start_ns) / 1e3 + t_wall * 1e6
+
+    # -- wall-span nesting ---------------------------------------------------
+    def _open_spans(self) -> list[int]:
+        """This thread's open wall spans' ids, innermost last."""
+        stack = getattr(self._local, "open", None)
+        if stack is None:
+            stack = self._local.open = []
+        return stack
 
     # -- record --------------------------------------------------------------
     def _emit(self, ev: dict[str, Any]) -> None:
@@ -153,18 +221,22 @@ class Tracer:
         clock: str = "sim",
         **args,
     ) -> None:
-        """Record a complete span ``[t0, t1]`` on ``track``."""
-        self._emit(
-            {
-                "kind": "span",
-                "name": name,
-                "track": track,
-                "clock": clock,
-                "t0": float(t0),
-                "t1": float(t1),
-                "args": args,
-            }
-        )
+        """Record a complete span ``[t0, t1]`` on ``track``; on the wall
+        clock it nests under the innermost wall span open now."""
+        ev = {
+            "kind": "span",
+            "name": name,
+            "track": track,
+            "clock": clock,
+            "t0": float(t0),
+            "t1": float(t1),
+            "args": args,
+        }
+        if clock == "wall":
+            stack = self._open_spans()
+            ev["id"] = next(self._ids)
+            ev["parent"] = stack[-1] if stack else None
+        self._emit(ev)
 
     def instant(
         self, name: str, track: str, t: float, *, clock: str = "sim", **args
@@ -199,13 +271,32 @@ class Tracer:
         )
 
     @contextmanager
-    def wall_span(self, name: str, track: str, **args) -> Iterator[None]:
-        """Context manager recording a wall-clock span around its body."""
-        t0 = self.wall()
+    def wall_span(self, name: str, track: str, **args) -> Iterator[dict[str, Any]]:
+        """Context manager recording a wall-clock span around its body.
+
+        The span is open while the body runs, so wall spans started in
+        it take it as their parent.  It yields the span's event: the body
+        may add to its ``args``, and reads ``t0`` and ``t1`` once the
+        block has closed."""
+        stack = self._open_spans()
+        ev = {
+            "kind": "span",
+            "name": name,
+            "track": track,
+            "clock": "wall",
+            "t0": self.wall(),
+            "t1": 0.0,
+            "args": args,
+            "id": next(self._ids),
+            "parent": stack[-1] if stack else None,
+        }
+        stack.append(ev["id"])
         try:
-            yield
+            yield ev
         finally:
-            self.span(name, track, t0, self.wall(), clock="wall", **args)
+            ev["t1"] = self.wall()
+            stack.pop()
+            self._emit(ev)
 
     # -- reads ---------------------------------------------------------------
     def spans(self, name: str | None = None) -> list[dict[str, Any]]:
@@ -264,9 +355,11 @@ class Telemetry:
         self.enabled = bool(enabled)
         self.sink: JsonlTraceSink | None = None
         if self.enabled:
+            self.tracer: Tracer = Tracer(max_events=max_events)
             if stream_path is not None:
-                self.sink = JsonlTraceSink(stream_path, max_bytes=stream_max_bytes)
-            self.tracer: Tracer = Tracer(max_events=max_events, sink=self.sink)
+                self.sink = self.tracer.sink = JsonlTraceSink(
+                    stream_path, max_bytes=stream_max_bytes, anchor=self.tracer.anchor
+                )
             self.registry: MetricsRegistry = MetricsRegistry(max_series=max_series)
         else:
             self.tracer = NullTracer()
@@ -339,6 +432,7 @@ NULL = Telemetry(enabled=False)
 
 __all__ = [
     "DEFAULT_STREAM_MAX_BYTES",
+    "NO_SPAN",
     "NULL",
     "JsonlTraceSink",
     "NullTracer",

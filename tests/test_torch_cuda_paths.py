@@ -72,6 +72,10 @@ imports JAX, so the tests run where the card is.
   the same init, losses and grad norms within 1e-5 relative, params
   within 1e-4 of their scale, logits within 1e-4.
 
+* the tracer's clock anchor: a kernel synchronised inside a wall span
+  lies inside the span on the profiler's timeline
+  (``Tracer.to_profiler_us``), within 50 us at each end.
+
 Run on a machine with a card:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_paths.py -m cuda
 """
@@ -734,3 +738,35 @@ def test_mixers_sharded_on_a_one_rank_mesh_on_card(cuda, arch):
         assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
     for a, b in zip(got[2], want[2], strict=True):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wall_span_holds_its_kernel_on_the_profiler_timeline_on_card(cuda):
+    tel = Telemetry()
+    a = torch.randn(4096, 4096, device=cuda)
+    b = a @ a  # cuBLAS's first call (its set-up) before the profile
+    torch.cuda.synchronize(cuda)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        with tel.wall_span("matmul", "test") as span:
+            for _ in range(4):
+                b = a @ b
+            torch.cuda.synchronize(cuda)
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    kernels = [
+        e
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    assert len(kernels) >= 4
+    lo = tel.tracer.to_profiler_us(span["t0"], start_ns)
+    hi = tel.tracer.to_profiler_us(span["t1"], start_ns)
+    first = min(e.time_range.start for e in kernels)
+    last = max(e.time_range.end for e in kernels)
+    assert lo - 50.0 <= first and last <= hi + 50.0, (lo, first, last, hi)
+    # and no clock offset hides inside the span: the closing
+    # synchronisation returns just after the last kernel ends (30-60 us on
+    # an H100; the first kernel trails the span's start by the profiler's
+    # set-up of its first launch, milliseconds, so that end says nothing)
+    assert hi - last <= 1000.0, (lo, first, last, hi)

@@ -12,9 +12,10 @@ sides) from the reference's init (``test_torch_baselines.reference_init``):
   same names, and the payloads are equal outside what enabled telemetry
   adds: the observatory's learning statistics and the telemetry summary's
   values agree within 1e-5 (float32 losses from two frameworks), the
-  summary less its host-clock histograms (``*wall_s``) and the
+  summary less its host-clock histograms (``*wall_s``), the
   reference's jit-compile counter and instants (JAX compiles, eager
-  PyTorch does not).
+  PyTorch does not) and the port's host-loop wall spans
+  (``fleet.collect``, ``fleet.plan``, ``fleet.sync``).
 """
 
 import dataclasses
@@ -73,11 +74,19 @@ def _run_both(tmp_path, monkeypatch, capsys, observed: bool):
     return ours, theirs
 
 
+# what one side traces and the other has not: the reference's jit
+# compiles, and the port's host-loop wall spans (collection, replay
+# planning, blocking copies; the reference's jitted loop has no such
+# boundaries on the host)
+ONE_SIDED = ("instant:fleet.compile", "span:fleet.collect", "span:fleet.plan",
+             "span:fleet.sync")  # fmt: skip
+
+
 def _comparable(telemetry: dict) -> dict:
     """A telemetry summary less its host-clock histograms and the
-    reference's jit-compile entries."""
+    entries only one side traces (``ONE_SIDED``)."""
     events = dict(telemetry["events_by_name"])
-    dropped = events.pop("instant:fleet.compile", 0)
+    dropped = sum(events.pop(name, 0) for name in ONE_SIDED)
     metrics = [
         m
         for m in telemetry["metrics"]

@@ -76,6 +76,7 @@ from repro_torch.telemetry import (  # noqa: E402
     write_dashboard,
 )
 from repro_torch.telemetry.__main__ import main as tel_main  # noqa: E402
+from repro_torch.telemetry.trace import clock_anchor  # noqa: E402
 from test_torch_baselines import reference_init  # noqa: E402
 from test_torch_fleet import _pool  # noqa: E402
 
@@ -496,7 +497,7 @@ def test_streaming_sink_byte_cap_drops_and_counts(tmp_path):
 
 
 def test_sink_refuses_after_close(tmp_path):
-    sink = JsonlTraceSink(tmp_path / "s.jsonl")
+    sink = JsonlTraceSink(tmp_path / "s.jsonl", anchor=clock_anchor())
     assert sink.write({"kind": "instant", "name": "a"})
     sink.close()
     assert not sink.write({"kind": "instant", "name": "b"})
