@@ -45,7 +45,8 @@ host loop as nested wall spans on the ``fleet`` track:
 ``env_steps``, ``rows``, and ``syncs`` and ``sync_s``, its environment
 steps' blocking copies and their seconds), ``fleet.plan`` (one a
 ``DQNAgent._submit_steps``: ``steps``), ``fleet.flush`` (``jobs``,
-``k_steps``, ``devices``) and ``fleet.sync`` around every other
+``k_steps``, ``devices``, and ``graph``: how its chunks ran, below) and
+``fleet.sync`` around every other
 blocking host<->device copy: a cohort's gather index and a flush's
 copies (``dir`` ``h2d`` or ``d2h``, ``bytes``).  A flush forced by a
 read nests in the span that read.  With telemetry off each span site
@@ -67,6 +68,34 @@ come to the host in one copy.  A mesh may repeat a device, which runs
 every part of this path on one card (or on the CPU); copies between
 cards and overlap across them need a host with several.
 
+CUDA graphs: a flush's chunk is a fixed chain of a few hundred small
+launches a stacked step, at shapes that recur from flush to flush, and
+on the card its host dispatch, not the device, sets the pace.  So the
+engine replays it.  A chunk's key is what the engine observes in its
+operands: its shape (device, rows N, steps K, batch B, statistics on or
+off) and the row capacity of the device's replay pool.  The first chunk
+of a shape runs eagerly (it warms cuDNN's algorithm choice, the
+allocator and the kernel library); the second is run once on a side
+stream and captured there into a :class:`torch.cuda.CUDAGraph` (one
+private memory pool per device, shared by its graphs: each replay's
+outputs are copied out before the next replay); every later chunk of
+the key replays it.  Other device types never capture.  A captured
+chunk reads fixed addresses: the replay pool is one buffer per device
+whose row capacity is a power of two, reallocated with room for four
+times the rows when the pool outgrows it (the union of a flush's ERBs
+grows as ERBs are shared), which is a new key for every shape, so each shape's next chunk
+captures again, with no second warm-up, and replays its new graph for
+its result; the index goes into a static ``[K, N, B]`` buffer, the
+chunk's state into static tensors, and the outputs are copied out after
+the replay.  The work inside is the eager chunk's, launch for launch:
+one ``replay_gather`` and one ``fused_td`` a stacked step per shard,
+whose ``launches`` counters a replay advances by what its capture
+launched.  ``n_graph_captures`` and ``n_graph_replays`` count chunks;
+with enabled telemetry so do ``fleet.graph.captures`` and
+``fleet.graph.replays``, and a flush span's ``graph`` is ``"eager"``
+where some chunk ran eagerly, else ``"capture"`` where one was captured,
+else ``"replay"``.
+
 State updates are functional (new tensors, never writes into the
 resident ones), so a tensor handed out by ``get_params`` or
 ``stacked_params`` stays a valid snapshot.
@@ -74,6 +103,7 @@ resident ones), so a tensor handed out by ``get_params`` or
 
 from __future__ import annotations
 
+import gc
 import time
 from collections import OrderedDict
 from collections.abc import Callable, Sequence
@@ -85,7 +115,7 @@ import torch
 from repro_torch.configs.adfll_dqn import DQNConfig
 from repro_torch.core.erb import ERB, erb_add, erb_flatten, flat_columns, flat_width
 from repro_torch.device import resolve_device
-from repro_torch.kernels.fused_td import td_loss
+from repro_torch.kernels.fused_td import fused_td, td_loss
 from repro_torch.kernels.replay_gather import replay_gather
 from repro_torch.models.sharding import FleetMesh, FleetSharding
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
@@ -530,6 +560,23 @@ def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+class _ChunkGraph:
+    """One key's chunk as a CUDA graph: the static operands it reads
+    (``state``, ``idx``; the device's replay pool besides), the graph,
+    the outputs it writes (``new``, ``out``), and the ``replay_gather``
+    and ``fused_td`` launches it holds."""
+
+    __slots__ = ("state", "idx", "graph", "new", "out", "launches")
+
+    def __init__(self, state: FleetState, idx: torch.Tensor):
+        self.state = state
+        self.idx = idx
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.new: FleetState | None = None
+        self.out: torch.Tensor | None = None
+        self.launches = (0, 0)
+
+
 # bounds of the device cache of flattened ERBs: entries and total bytes
 ERB_CACHE_SIZE = 128
 ERB_CACHE_BYTES = 256 * 1024**2
@@ -560,8 +607,9 @@ class FleetEngine:
     order passes its resident state straight through the chunk (no
     gather in, no scatter out); any other shard with jobs gathers the
     rows of its jobs, and only those, and scatters them back.  Cohorts
-    and flushes are not padded: eager PyTorch compiles nothing per
-    shape.
+    and flushes are not padded; only each device's replay pool is, to a
+    power of two of rows, so that its captured chunks keep their key
+    while the pool grows (the module's docstring: CUDA graphs).
 
     ``n_chunk_steps`` counts stacked train steps and ``n_shard_steps``
     the per-shard steps they ran: each of those launches the
@@ -608,6 +656,20 @@ class FleetEngine:
         self.n_chunk_steps = 0
         self.n_shard_steps = 0
         self.flush_sizes: list[int] = []
+        # per device: the replay pool's buffer, and (erb key, row offset)
+        # of each ERB copied into it since it was allocated
+        self._pool_bufs: dict[torch.device, torch.Tensor] = {}
+        self._pool_held: dict[torch.device, set] = {}
+        # CUDA graphs of the chunk: shapes run once, shapes captured once
+        # (warm on the capture stream), the graphs of the pools' current
+        # capacities, and per device their memory pool and capture stream
+        self._graph_shapes: set = set()
+        self._graph_warm: set = set()
+        self._graphs: dict[tuple, _ChunkGraph] = {}
+        self._graph_pools: dict[torch.device, tuple] = {}
+        self._graph_streams: dict[torch.device, torch.cuda.Stream] = {}
+        self.n_graph_captures = 0
+        self.n_graph_replays = 0
         # observability (observe-only)
         self.telemetry = NULL
         self.sim_clock: Callable[[], float] | None = None
@@ -782,6 +844,125 @@ class FleetEngine:
         self._erb_cache_nbytes[dev] = nbytes
         return flat
 
+    def _fill_pool(
+        self, dev: torch.device, erbs: list[ERB], total: int
+    ) -> torch.Tensor:
+        """The replay pool of a flush on ``dev``: ``erbs`` back to back
+        from row 0 of the device's one pool buffer (one copy, as a
+        concatenation makes).  When ``total`` outgrows the buffer it is
+        reallocated at the power of two of rows that holds four times
+        ``total``: the pool is the union of the flush's ERBs, which grows
+        as ERBs are shared, and each new buffer is a new key for every
+        chunk shape of the device, so its old graphs go and the next
+        chunk of each shape captures again (a capture costs the host
+        about three eager chunks, so the rows may grow fourfold before
+        the next one)."""
+        buf = self._pool_bufs.get(dev)
+        if buf is None or buf.shape[0] < total:
+            feat = self.steps.feat
+            buf = torch.empty(_pow2(4 * total), feat, dtype=torch.float32, device=dev)
+            self._pool_bufs[dev] = buf
+            for key in [k for k in self._graphs if k[0] == dev]:
+                del self._graphs[key]
+            # the next graphs take a new memory pool: the old one is freed
+            # once its graphs are, and capture may not share a dead pool
+            self._graph_pools.pop(dev, None)
+        torch.cat([self._flat_erb(e, dev) for e in erbs], out=buf[:total])
+        return buf
+
+    # -- CUDA graphs of the chunk ---------------------------------------------
+    def _graph_mode(self, key: tuple) -> str:
+        """How the chunk of ``key`` runs: ``"eager"`` off CUDA and the
+        first time its shape (the key less the pool's capacity) runs,
+        ``"capture"`` the second time and the first at each new capacity,
+        ``"replay"`` once its graph is captured."""
+        if key[0].type != "cuda":
+            return "eager"
+        if key in self._graphs:
+            return "replay"
+        if key[:-1] in self._graph_shapes:
+            return "capture"
+        self._graph_shapes.add(key[:-1])
+        return "eager"
+
+    def _graph_for(self, key: tuple, shard: FleetState, idx: np.ndarray) -> _ChunkGraph:
+        """The captured graph of ``key``, or static operands for one."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            dev, n = key[0], key[1]
+            state = shard.map(lambda x: x.new_empty((n, *x.shape[1:])))
+            static_idx = torch.empty(idx.shape, dtype=torch.int32, device=dev)
+            graph = _ChunkGraph(state, static_idx)
+        return graph
+
+    def _capture(
+        self, graph: _ChunkGraph, chunk: Callable, pool: torch.Tensor, key: tuple
+    ) -> tuple[FleetState, torch.Tensor]:
+        """Capture ``chunk`` on the graph's static operands on the
+        device's capture stream, into the device's graph memory pool.
+        The first capture of a shape runs the chunk there first (the
+        warm-up ``torch.cuda.graph`` asks for), and its outputs are this
+        chunk's result; a shape captured before, at a smaller pool, is
+        warm, so its new graph is replayed for the result instead (the
+        caller copies the static state out)."""
+        dev = pool.device
+        stream = self._graph_streams.get(dev)
+        if stream is None:
+            stream = self._graph_streams[dev] = torch.cuda.Stream(dev)
+        if dev not in self._graph_pools:
+            self._graph_pools[dev] = torch.cuda.graph_pool_handle()
+        warm = key[:-1] in self._graph_warm
+        if not warm:
+            current = torch.cuda.current_stream(dev)
+            stream.wait_stream(current)
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                new, out = chunk(graph.state, pool, graph.idx)
+            current.wait_stream(stream)
+            self._graph_warm.add(key[:-1])
+        launched = (replay_gather.launches, fused_td.launches)
+        cuda_graph = torch.cuda.CUDAGraph()
+        # no garbage collection while capturing: a collection that frees
+        # another engine's graph destroys it mid-capture, which the
+        # capture does not survive
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev), torch.cuda.graph(
+                cuda_graph, pool=self._graph_pools[dev], stream=stream
+            ):
+                graph.new, graph.out = chunk(graph.state, pool, graph.idx)
+        finally:
+            if collecting:
+                gc.enable()
+        # a capture launches nothing: each replay counts what it holds
+        graph.launches = (
+            replay_gather.launches - launched[0],
+            fused_td.launches - launched[1],
+        )
+        replay_gather.launches, fused_td.launches = launched
+        graph.graph = cuda_graph
+        self._graphs[key] = graph
+        self.n_graph_captures += 1
+        self.telemetry.count("fleet.graph.captures", 1)
+        if warm:
+            return self._launch(graph)
+        return new, out
+
+    def _replay(self, graph: _ChunkGraph) -> tuple[FleetState, torch.Tensor]:
+        """Replay a captured chunk; returns its static state (the caller
+        copies it out) and a copy of its losses or statistics."""
+        self.n_graph_replays += 1
+        self.telemetry.count("fleet.graph.replays", 1)
+        return self._launch(graph)
+
+    @staticmethod
+    def _launch(graph: _ChunkGraph) -> tuple[FleetState, torch.Tensor]:
+        with torch.cuda.device(graph.idx.device):
+            graph.graph.replay()
+        replay_gather.launches += graph.launches[0]
+        fused_td.launches += graph.launches[1]
+        return graph.new, graph.out.clone()
+
     # -- one step now (the stepwise backend) -----------------------------------
     def train_step(self, slot: int, plan) -> float:
         """Train ``slot`` one step on ``plan`` now, in its own dispatch on
@@ -871,7 +1052,7 @@ class FleetEngine:
         tel = self.telemetry
         n_jobs = len(jobs)
         if not tel.enabled:
-            losses = self._train_group(jobs)
+            losses, _ = self._train_group(jobs)
         else:
             k_steps = jobs[0].n_steps
             with tel.wall_span(
@@ -881,7 +1062,8 @@ class FleetEngine:
                 k_steps=k_steps,
                 devices=self.sharding.size,
             ) as span:
-                losses = self._train_group(jobs)
+                losses, mode = self._train_group(jobs)
+                span["args"]["graph"] = mode
             if self.sim_clock is not None:
                 # the same flush pinned to simulated time, so trace views
                 # can correlate host cost with scheduler progress
@@ -893,9 +1075,10 @@ class FleetEngine:
         for jpos, job in enumerate(jobs):
             job.future.resolve(float(losses[-1, jpos]))
 
-    def _train_group(self, jobs: list[_Job]) -> np.ndarray:
+    def _train_group(self, jobs: list[_Job]) -> tuple[np.ndarray, str]:
         """Train one group of jobs of equal K as one stacked chunk (per
-        shard); returns the host copy of the losses ``[K, jobs]``."""
+        shard); returns the host copy of the losses ``[K, jobs]`` and how
+        the chunks ran (the flush span's ``graph``)."""
         tel = self.telemetry
         traced = tel.enabled
         n_jobs = len(jobs)
@@ -927,13 +1110,12 @@ class FleetEngine:
         groups = self.sharding.groups(slots)
         pools: dict[torch.device, torch.Tensor] = {}
         outs = []
+        modes = set()
         for j, positions, rows in groups:
             dev = self.sharding.devices[j]
             pool = pools.get(dev)
             if pool is None:
-                parts = [self._flat_erb(e, dev) for e in erbs]
-                pool = parts[0] if len(parts) == 1 else torch.cat(parts)
-                pools[dev] = pool
+                pool = pools[dev] = self._fill_pool(dev, erbs, total)
             shard = self._shards[j]
             # resident fast path: the shard's jobs cover its rows in
             # order, so its resident state IS the chunk operand
@@ -946,28 +1128,55 @@ class FleetEngine:
             # state, so autograd gives each lane its own gradient; only
             # lane 0's state and output columns are kept.
             lone = len(rows) == 1 and self.sharding.size > 1
-            if whole and not lone:
-                sub = shard
-            else:
-                rows_g = rows * 2 if lone else rows
-                with _sync_span(tel, "h2d", 8 * len(rows_g)) if traced else NO_SPAN:
-                    g = torch.tensor(rows_g, device=dev)
-                sub = shard.map(lambda x: x.index_select(0, g))
+            rows_g = rows * 2 if lone else rows
             if lone:
                 idx_j = np.ascontiguousarray(idx[:, positions * 2])
             elif len(groups) == 1:
                 idx_j = idx
             else:
                 idx_j = np.ascontiguousarray(idx[:, positions])
+            key = (dev, len(rows_g), k_steps, batch, obs is not None, pool.shape[0])
+            mode = self._graph_mode(key)
+            modes.add(mode)
+            graph = None if mode == "eager" else self._graph_for(key, shard, idx_j)
+            # the chunk's operands: the resident shard itself or its jobs'
+            # rows gathered, and the index; a graph's go into its static
+            # tensors
+            if whole and not lone:
+                if graph is None:
+                    sub = shard
+                else:
+                    sub = graph.state.map(lambda s, x: s.copy_(x), shard)
+            else:
+                with _sync_span(tel, "h2d", 8 * len(rows_g)) if traced else NO_SPAN:
+                    g = torch.tensor(rows_g, device=dev)
+                if graph is None:
+                    sub = shard.map(lambda x: x.index_select(0, g))
+                else:
+                    sub = shard.map(
+                        lambda x, s: torch.index_select(x, 0, g, out=s), graph.state
+                    )
             with _sync_span(tel, "h2d", idx_j.nbytes) if traced else NO_SPAN:
-                idx_d = torch.from_numpy(idx_j).to(dev)
-            new, out = chunk(sub, pool, idx_d)
+                if graph is None:
+                    idx_d = torch.from_numpy(idx_j).to(dev)
+                else:
+                    idx_d = graph.idx.copy_(torch.from_numpy(idx_j))
+            if mode == "replay":
+                new, out = self._replay(graph)
+            elif mode == "capture":
+                new, out = self._capture(graph, chunk, pool, key)
+            else:
+                new, out = chunk(sub, pool, idx_d)
+            # a replay's state is the graph's own, overwritten by its next
+            # replay: copied out here (index_copy, a clone) before that
+            static = graph is not None and new is graph.new
             if lone:
                 new = new.map(lambda x: x[:1].clone())
                 out = out[:, :1]
                 g = g[:1]
+                static = False
             if whole:
-                self._shards[j] = new
+                self._shards[j] = new.map(torch.clone) if static else new
             else:
                 self._shards[j] = shard.map(lambda s, ns: s.index_copy(0, g, ns), new)
             outs.append(out)
@@ -996,7 +1205,8 @@ class FleetEngine:
         self.n_chunk_steps += k_steps
         self.n_shard_steps += k_steps * len(groups)
         self.flush_sizes.append(n_jobs)
-        return losses_np
+        mode = next(m for m in ("eager", "capture", "replay") if m in modes)
+        return losses_np, mode
 
 
 __all__ = [

@@ -33,6 +33,14 @@ imports JAX, so the tests run where the card is.
   and an observed ``paper_fig2`` against the unobserved one on the card
   (identical records, as far as two unobserved runs agree), A = B =
   stacked steps with the observatory on.
+* the fleet engine's CUDA graphs: flushes of 1-4 of 4 slots (the
+  resident and the gathered path), statistics off and on, eager, then
+  captured, then replayed, against direct ``train_chunk`` and
+  ``train_chunk_stats`` calls on the same state, pool and index, bit for
+  bit, through a growth of the replay pool that captures again (warm,
+  its new graph replayed for the flush's result); a
+  snapshot taken before a replay unchanged by it; graphs that turn to
+  garbage during another engine's capture are not collected inside it.
 * the zoo's LM train step: C's backward (``RMSNorm``) against autograd
   through ``rmsnorm_plain`` at the danube train shape; a reduced
   float32 h2o-danube-3-4b's ``loss_fn`` and its gradients on the card
@@ -92,7 +100,7 @@ from repro_torch.configs.adfll_dqn import DQNConfig  # noqa: E402
 from repro_torch.core.experiment import ChurnEvent, HubFailure  # noqa: E402
 from repro_torch.experiments import registry  # noqa: E402
 from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
-from repro_torch.core.erb import TaskTag, erb_add, erb_init, flat_columns  # noqa: E402
+from repro_torch.core.erb import TaskTag, erb_add, erb_flatten, erb_init, flat_columns  # noqa: E402
 from repro_torch.core.replay import SelectiveReplaySampler  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
@@ -379,6 +387,170 @@ def test_train_chunk_stats_on_card(cuda):
     for name in ("loss", "td_abs", "q_max", "grad_norm"):
         np.testing.assert_allclose(stats[name], want[name], atol=1e-4, rtol=0)
     assert stats["params_finite"].all() and want["params_finite"].all()
+
+
+def _random_rows(rng, n):
+    box = TINY.box_size
+    return {
+        "obs": rng.standard_normal((n, *box)).astype(np.float32),
+        "loc": rng.random((n, 3)).astype(np.float32),
+        "action": rng.integers(0, TINY.n_actions, n).astype(np.int32),
+        "reward": rng.standard_normal(n).astype(np.float32),
+        "next_obs": rng.standard_normal((n, *box)).astype(np.float32),
+        "next_loc": rng.random((n, 3)).astype(np.float32),
+        "done": (rng.random(n) < 0.1).astype(np.float32),
+    }
+
+
+class _Stats:
+    """An observatory that keeps each flush's statistics."""
+
+    def __init__(self):
+        self.flushes = []
+
+    def on_flush(self, slots, stats, n_jobs, sim_t):
+        self.flushes.append(stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True], ids=["plain", "stats"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_engine_graphs_match_direct_chunks_on_card(cuda, n, stats):
+    """Flushes of ``n`` of 4 slots (4: the resident path; fewer: the
+    gathered one), 5 steps each, through the engine, against direct
+    ``train_chunk`` (or ``train_chunk_stats``) calls on the same state,
+    pool and index: state, losses and statistics bit for bit.  One key
+    flushes four times (eager, capture, replay, replay), then the ERB
+    outgrows the pool's 512 rows, and the shape's key at the new 4096
+    captures again at once, warm, and replays twice.  A snapshot from ``get_params`` and
+    ``stacked_params`` taken before a replay is unchanged after it; A
+    and B count one launch a stacked step, replays included."""
+    k_steps = 5
+    rng = np.random.default_rng(n)
+    erb = erb_init(1024, TINY.box_size, task=TaskTag("t1", "axial", "HGG"))
+    erb_add(erb, _random_rows(rng, 100))
+    engine = FleetEngine(TINY, device=cuda)
+    engine.telemetry = Telemetry(enabled=True)
+    if stats:
+        engine.observatory = _Stats()
+    for seed in range(4):
+        engine.add_slot(seed)
+    steps = engine.steps
+    chunk = steps.train_chunk_stats if stats else steps.train_chunk
+    sampler = SelectiveReplaySampler()
+    ref = engine.state.map(torch.clone)
+    for flush in range(7):
+        if flush == 4:  # 600 rows: the pool grows to 4096
+            erb_add(erb, _random_rows(rng, 500))
+        plans = [
+            [sampler.plan(rng, TINY.batch_size, erb) for _ in range(k_steps)]
+            for _ in range(n)
+        ]
+        idx = np.stack(
+            [
+                np.stack([np.concatenate([r for _, r in p.picks])[p.perm] for p in job])
+                for job in plans
+            ],
+            1,
+        ).astype(np.int32)
+        pool = torch.from_numpy(erb_flatten(erb)).to(cuda)
+        rows = torch.arange(n, device=cuda)
+        want, want_out = chunk(
+            ref.map(lambda x: x.index_select(0, rows)), pool, torch.from_numpy(idx).to(cuda)
+        )
+        ref = ref.map(lambda s, w: s.index_copy(0, rows, w), want)
+        if flush == 3:  # before a replay
+            snap = engine.get_params(0)
+            stacked = engine.stacked_params()
+            snap_copy = [t.clone() for t in leaves(snap)]
+            stacked_copy = [t.clone() for t in leaves(stacked)]
+        futures = [engine.submit(slot, job) for slot, job in enumerate(plans)]
+        replay_gather.launches = fused_td.launches = 0
+        engine.flush()
+        torch.cuda.synchronize()
+        assert replay_gather.launches == fused_td.launches == k_steps
+        got = engine.state
+        for a, b in zip(leaves(got.params), leaves(ref.params), strict=True):
+            assert torch.equal(a, b), flush
+        for part in ("target", "opt"):
+            for a, b in zip(
+                tree_leaves(getattr(got, part)), tree_leaves(getattr(ref, part)), strict=True
+            ):
+                assert torch.equal(a, b), (flush, part)
+        assert torch.equal(got.count, ref.count)
+        host = want_out.cpu().numpy()
+        last = unpack_stats(host, k_steps)["loss"][-1] if stats else host[-1]
+        assert [f.loss for f in futures] == [float(x) for x in last]
+        if stats:
+            seen = engine.observatory.flushes[-1]
+            for name, value in unpack_stats(host, k_steps).items():
+                assert np.array_equal(seen[name], value), (flush, name)
+        if flush == 3:
+            for a, b in zip(leaves(snap), snap_copy, strict=True):
+                assert torch.equal(a, b)
+            for a, b in zip(leaves(stacked), stacked_copy, strict=True):
+                assert torch.equal(a, b)
+    modes = [e["args"]["graph"] for e in engine.telemetry.tracer.spans("fleet.flush")]
+    assert modes == ["eager", "capture", "replay", "replay", "capture", "replay", "replay"]
+    assert engine.n_graph_captures == 2 and engine.n_graph_replays == 4
+    registry = engine.telemetry.registry
+    assert registry.counter_value("fleet.graph.captures") == 2
+    assert registry.counter_value("fleet.graph.replays") == 4
+    assert [b.shape[0] for b in engine._pool_bufs.values()] == [4096]
+
+
+@pytest.mark.cuda
+def test_capture_outlives_a_collected_graph_on_card(cuda):
+    """Graphs of another engine that turn to cyclic garbage while an
+    engine captures are not collected inside that capture (the garbage
+    collector is off while capturing; a graph destroyed then would abort
+    the capture): the capture and its replay succeed."""
+    import gc
+
+    rng = np.random.default_rng(7)
+    erb = erb_init(1024, TINY.box_size, task=TaskTag("t1", "axial", "HGG"))
+    erb_add(erb, _random_rows(rng, 100))
+    sampler = SelectiveReplaySampler()
+
+    def flush(engine):
+        for slot in range(2):
+            engine.submit(slot, [sampler.plan(rng, TINY.batch_size, erb) for _ in range(3)])
+        engine.flush()
+
+    engines = []
+    for _ in range(2):
+        engine = FleetEngine(TINY, device=cuda)
+        for seed in range(2):
+            engine.add_slot(seed)
+        flush(engine)  # eager
+        flush(engine)  # captured
+        engines.append(engine)
+    old, new = engines
+    assert old.n_graph_captures == new.n_graph_captures == 1
+    erb_add(erb, _random_rows(rng, 500))  # new's pool grows: a warm capture
+    chunk = new.steps.train_chunk
+
+    def releasing(*args):
+        # old's graphs held by a cycle, which only a collection frees
+        box = {"graphs": list(old._graphs.values())}
+        box["self"] = box
+        old._graphs.clear()
+        del box
+        return chunk(*args)
+
+    new.steps.train_chunk = releasing
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        flush(new)
+    finally:
+        gc.set_threshold(*thresholds)
+    new.steps.train_chunk = chunk
+    flush(new)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert new.n_graph_captures == 2 and new.n_graph_replays == 1
+    assert all(torch.isfinite(t).all() for t in leaves(new.get_params(0)))
 
 
 def _records(report):

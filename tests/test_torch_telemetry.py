@@ -426,7 +426,8 @@ def test_flush_forced_inside_collection_nests_under_it():
     assert all(c["args"]["agents"] == 1 and c["args"]["env_steps"] for c in collects)
     assert plan[0]["parent"] is None and plan[0]["args"] == {"steps": 2}
     assert flush[0]["parent"] == collects[1]["id"]
-    assert flush[0]["args"] == {"jobs": 1, "k_steps": 2, "devices": 1}
+    # the CPU never captures a chunk: every flush runs it eagerly
+    assert flush[0]["args"] == {"jobs": 1, "k_steps": 2, "devices": 1, "graph": "eager"}
     # the flush's own copies nest under it, not under the collection
     under = [e for e in _wall(tel, "fleet.sync") if e["parent"] == flush[0]["id"]]
     assert [e["args"]["dir"] for e in under][-1] == "d2h"
