@@ -116,7 +116,14 @@ non-zero exit code and no result line:
    each must move its route's launch count.  rmsnorm's backward
    (``RMSNorm``: the kernel forward, a plain float32 backward) against
    autograd through the plain version at the train shape, bf16 and f32
-   (3e-2 and 1e-5 of each output's largest magnitude).
+   (3e-2 and 1e-5 of each output's largest magnitude).  Then ``kda_step``
+   (E, Kimi Delta Attention's fused decode step) against its plain
+   version at Kimi-Linear's decode shape (B 128, H 32, d 128) in bf16 and
+   float32 and at a ragged one (B 3, H 5, d 72), three steps each from
+   one state (the state within 1e-5 of its largest magnitude, ``o``
+   within 2**-7 in bf16 and 1e-5 in float32), the bf16 call timed like
+   phase 3 (no library call computes it) against its bytes' bound (543
+   MB at B 128 over 3.35 TB/s).
 14. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
@@ -143,7 +150,12 @@ non-zero exit code and no result line:
    arch: on a second generation at capacity factor 16, where no pair is
    dropped; the timed one runs at the published 1.25 and prints the
    pairs it dropped at prefill and at decode).  Init, peak memory,
-   prefill and decode times printed for each.
+   prefill and decode times printed for each.  Then
+   kimi-linear-48b-a3b-ep4 (KDA, NoPE MLA, the sigmoid router; one card's
+   64 of 256 experts a layer, full depth) the same way at prompt 1024:
+   E 20 x 32 (one a KDA layer a decode step, none at prefill), C a norm
+   per mixer, per FFN, the final one and KDA's output norm, (55 + 20) x
+   33, all ``cta``, D never; finite logits.
 16. observatory (run after the Table 2 sweep, before phase 13) —
    ``paper_fig2 --fast`` at ``DQNConfig()`` (4 agents, ``share_planes``
    as registered; evaluation cut to one patient) twice with telemetry
@@ -308,7 +320,7 @@ table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
 lm_train_main, lm_train_remat, zoo_main for each arch, zoo_window, moe_ep,
 lm_train_mesh,
-lm_mixers_mesh and examples); the
+lm_mixers_mesh and examples), ``kda_step`` on Kimi-Linear's zoo_main; the
 planner path launches none.  Every entry carries ``launches_by_path``
 and ``launches`` is its sum.
 """
@@ -343,6 +355,7 @@ from repro_torch.configs.base import (  # noqa: E402
     FFN_DENSE,
     FFN_MOE,
     FFN_NONE,
+    KDA,
     MAMBA,
     InputShape,
     get_config,
@@ -363,6 +376,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     route,
 )
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
+from repro_torch.kernels.kda_step import kda_step, kda_step_plain  # noqa: E402
 from repro_torch.kernels.launch_cost import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather,
@@ -435,6 +449,8 @@ ZOO_ARCHS = (
     "xlstm-125m",
 )
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
+# served apart from ZOO_ARCHS (the planner refuses KDA and a held share)
+KIMI_ARCH = "kimi-linear-48b-a3b-ep4"
 # zoo_main's cuts (launch/profile_serve.py): deepseek-v2-lite at prompt
 # 480, qwen3-moe at 8 of its 94 layers, jamba-1.5-large at 4 of its 72
 ZOO_PROMPTS, ZOO_LAYERS = profile_serve.PROMPTS, profile_serve.LAYERS
@@ -488,7 +504,7 @@ CLI_SCENARIOS = ("churn_addition_fig4", "gossip_hetero")
 ROOT = Path(__file__).resolve().parent
 BENCH_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_experiments.json"
 RMS_EPS = get_config(ZOO_ARCH).norm_eps
-KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention)
+KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step)
 FLEET_KERNELS = ("replay_gather", "fused_td")
 # Table 1 / FedAvg scenarios: (n_rounds, stacked train steps) at --fast
 BASELINES = {
@@ -2073,6 +2089,77 @@ def check_flash_attention(dev) -> dict:
     return main
 
 
+def kda_step_bytes(b: int, h: int, d: int, act_bytes: int) -> int:
+    """The least a ``kda_step`` launch moves: per (sequence, head) the
+    float32 d x d state read and written, q, k and v read and o written in
+    the activations' dtype, the float32 decay and beta read."""
+    return b * h * (2 * d * d * 4 + 4 * d * act_bytes + (d + 1) * 4)
+
+
+def check_kda_step(dev) -> dict:
+    """E (``kda_step``) against ``kda_step_plain`` on the card: Kimi-Linear's
+    decode call at batch 128 (B 128, H 32, d 128) in bf16, the same in
+    float32, and a ragged one (B 3, H 5, d 72: fewer columns than lanes),
+    each three steps in a row from one state, one launch a step.
+    Tolerances as tests/test_torch_cuda_paths.py's card test: the float32
+    state within 1e-5 of the plain state's largest magnitude (float32 both
+    sides, sums in another order), ``o`` within 2**-7 (bf16: its rounding,
+    twice) or 1e-5 (float32) of its largest.  The bf16 decode call timed
+    like phase 3 (no library call computes the step); bound: bytes."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = (
+        ("decode", 128, 32, 128, torch.bfloat16, 2**-7),
+        ("decode_f32", 128, 32, 128, torch.float32, 1e-5),
+        ("ragged", 3, 5, 72, torch.bfloat16, 2**-7),
+    )
+    worst, timed = 0.0, {}
+    for name, b, h, d, dtype, o_rtol in cases:
+        state = torch.randn(b, h, d, d, generator=gen, device=dev) * 0.1
+        mine, plain = state.clone(), state.clone()
+        for _ in range(3):
+            qkv = torch.randn(b, 3, h, d, generator=gen, device=dev).to(dtype)
+            g = -torch.exp(torch.randn(b, h, d, generator=gen, device=dev))
+            beta = torch.rand(b, h, generator=gen, device=dev)
+            before = kda_step.launches
+            o = kda_step(mine, qkv, g, beta, d**-0.5)
+            want = kda_step_plain(plain, qkv, g, beta, d**-0.5)
+            torch.cuda.synchronize()
+            require(
+                kda_step.launches == before + 1,
+                f"kda_step {name}: {kda_step.launches - before} launches, not 1",
+            )
+            err = float((o.float() - want.float()).abs().max())
+            require(
+                err <= o_rtol * float(want.float().abs().max()),
+                f"kda_step {name} [{b}, {h}, {d}] {dtype}: o max|d|={err}",
+            )
+            worst = max(worst, err)
+            err = float((mine - plain).abs().max())
+            require(
+                err <= 1e-5 * float(plain.abs().max()),
+                f"kda_step {name} [{b}, {h}, {d}] {dtype}: state max|d|={err}",
+            )
+        if name != "decode":
+            continue
+        out = torch.empty(b, h, d, dtype=dtype, device=dev)
+        timed = {
+            **timings(
+                lambda: kda_step(mine, qkv, g, beta, d**-0.5),
+                None,
+                lambda: torch.mul(out, 2.0),
+            ),
+            "plain_ms": cuda_ms(
+                lambda: kda_step_plain(plain, qkv, g, beta, d**-0.5), reps=20, warmup=2
+            ),
+            "bound_ms": bound_ms(kda_step_bytes(b, h, d, qkv.element_size())),
+            "bound_by": "bytes",
+            "shape": [b, h, d, str(dtype).removeprefix("torch.")],
+        }
+    main = {"max_abs_err": worst, **timed}
+    emit({"phase": "kernel", "name": "kda_step", **main})
+    return main
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -3091,6 +3178,81 @@ def phase_zoo_main(
         f"max|logit|={scale}",
     )
     return launches, by_route
+
+
+def phase_kimi_main(dev) -> dict[str, int]:
+    """Kimi-Linear-48B-A3B's serving path at full width and depth on one
+    card's expert share (``KIMI_ARCH``: experts 0-63 of each layer's 256,
+    every other weight whole), as zoo_main serves (random weights from seed
+    0 in bfloat16, batch 4, 32 greedy steps) at prompt 1024 (the
+    ``perfbench`` cell's longer prompt); launches read around the
+    generation alone.  E once a KDA layer a decode step (20 x 32), never at
+    prefill (the chunked form is plain PyTorch); C a norm per mixer, per
+    FFN and the final one, and KDA's gated output norm, a forward (55 + 20,
+    x 33; the prefill's KDA runs the 4 rows as one slice), all on the
+    ``cta`` route; D never (MLA attends through ``chunked_attention``).
+    Finite logits; init, prefill and decode times and the peak printed.
+    The model's logits are held to a plain reference by the cell's check
+    (``perfbench/reference/kimi-linear-48b-a3b-ep4.py``)."""
+    prompt_len = ZOO_PROMPTS[KIMI_ARCH]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, prompt = serve.setup(KIMI_ARCH, ZOO_BATCH, prompt_len, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_kda = sum(mixer == KDA for mixer, _ in cfg.layer_pattern)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = serve.generate(model, params, prompt, ZOO_GEN)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rms_routes = dict(rmsnorm.launches_by_route)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(out.logits).all())
+    want_rms = (norms_per_forward(cfg) + n_kda) * (ZOO_GEN + 1)
+    emit(
+        {
+            "phase": "zoo_main",
+            "arch": KIMI_ARCH,
+            "cuts": "64 of 256 experts a layer held (one card of expert parallel 4)",
+            "weights": "random from seed 0",
+            "n_layers": cfg.n_layers,
+            "kda_layers": n_kda,
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "batch": ZOO_BATCH,
+            "prompt": prompt_len,
+            "gen": ZOO_GEN,
+            "init_s": init_s,
+            "prefill_s": out.prefill_s,
+            "decode_s": out.decode_s,
+            "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
+            "peak_gb": peak_gb,
+            "launches": launches,
+            "launches_by_route": {"rmsnorm": rms_routes},
+            "sample_ids": out.tokens[0, :8].tolist(),
+        }
+    )
+    del model, params, prompt, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(finite, f"zoo main {KIMI_ARCH}: non-finite logits")
+    require(
+        launches["kda_step"] == n_kda * ZOO_GEN,
+        f"{KIMI_ARCH}: kda_step launched {launches['kda_step']} times, "
+        f"not {n_kda} x {ZOO_GEN}",
+    )
+    require(
+        launches["flash_attention"] == 0,
+        f"{KIMI_ARCH}: flash_attention launched {launches['flash_attention']} times",
+    )
+    require(
+        rms_routes == {"cta": want_rms, "masked": 0},
+        f"{KIMI_ARCH}: rmsnorm routes {rms_routes}, not {want_rms} on cta",
+    )
+    return {k: launches[k] for k in ("rmsnorm", "flash_attention", "kda_step")}
 
 
 def phase_zoo_window(dev) -> dict[str, int]:
@@ -4157,6 +4319,7 @@ def main() -> int:
     by_path["cli"] = phase_cli(dev)
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)
+    results["kda_step"] = check_kda_step(dev)
     phase_zoo_chunk(dev)
     # the zoo's paths, C and D launches read around each alone
     measured: dict = {}  # peaks and step times the planner is set beside
@@ -4167,6 +4330,7 @@ def main() -> int:
     for arch in ZOO_ARCHS:
         zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch, measured)
         by_route = by_route or routes  # danube's: the zoo's reference path
+    zoo_paths[f"zoo_main:{KIMI_ARCH}"] = phase_kimi_main(dev)
     zoo_paths["zoo_window"] = phase_zoo_window(dev)
     zoo_paths["moe_ep"] = phase_moe_ep(dev)
     zoo_paths["lm_train_mesh"] = phase_lm_train_mesh(dev)
@@ -4175,9 +4339,11 @@ def main() -> int:
     zoo_paths["planner"] = phase_planner(dev, measured)
     by_path["planner"] = {k: 0 for k in FLEET_KERNELS}
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
-    for name in ("rmsnorm", "flash_attention"):
-        launches[name] = sum(p[name] for p in zoo_paths.values())
-        results[name]["launches_by_path"] = {p: n[name] for p, n in zoo_paths.items()}
+    for name in ("rmsnorm", "flash_attention", "kda_step"):
+        launches[name] = sum(p.get(name, 0) for p in zoo_paths.values())
+        results[name]["launches_by_path"] = {
+            p: n.get(name, 0) for p, n in zoo_paths.items()
+        }
     meta = {
         "replay_gather": (
             "src/repro_torch/csrc/replay_gather.cu",
@@ -4195,6 +4361,7 @@ def main() -> int:
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:106",
         ),
+        "kda_step": ("src/repro_torch/csrc/kda_step.cu", "none: new in the port"),
     }
     kernels = [
         {

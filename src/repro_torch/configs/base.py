@@ -9,7 +9,13 @@ the published hyper-parameters and registers it under its id.
 ``reduced()`` derives the CPU-smoke variant (2 layers, d_model<=512,
 <=4 experts) from the same config, so the CPU tests run the code path of
 the full-width run.  The port registers every architecture the
-reference assigns (:data:`ASSIGNED`).
+reference assigns (:data:`ASSIGNED`), and the port's own
+(:data:`PORT_ONLY`: Kimi-Linear, ``configs/kimi_linear.py``), which need
+fields the reference's config lacks: a dense prefix whose mixer is not
+attention (``prefix_mixer``), unrolled layers after the groups
+(``suffix``), the KDA mixer (``kda``), a sigmoid router and a held share
+of the experts (``MoEConfig.router``, ``routed_scale``, ``n_held``,
+``held_offset``).  Each defaults to what the reference's configs run.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ MLA = "mla"  # DeepSeek multi-head latent attention mixer
 MAMBA = "mamba"  # Mamba-1 selective SSM mixer
 SLSTM = "slstm"  # xLSTM sLSTM block (scalar memory, strictly recurrent)
 MLSTM = "mlstm"  # xLSTM mLSTM block (matrix memory, parallelizable)
+KDA = "kda"  # Kimi Delta Attention (gated delta rule, per-channel decay)
 
 FFN_DENSE = "dense"
 FFN_MOE = "moe"
@@ -39,6 +46,16 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     router_jitter: float = 0.0
+    # --- the port's own (defaults: the reference's softmax router, every
+    # expert held) -------------------------------------------------------------
+    router: str = "softmax"  # softmax | sigmoid (DeepSeek-V3's, with a selection bias)
+    routed_scale: float = 1.0  # the sigmoid router's gates are scaled by it
+    n_held: int = 0  # experts held here, 0 => all n_experts (one card's share)
+    held_offset: int = 0  # the first expert held
+
+    @property
+    def held(self) -> int:
+        return self.n_held or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -70,6 +87,20 @@ class XLSTMConfig:
 
 
 @dataclass(frozen=True)
+class KDAConfig:
+    """Kimi Delta Attention (``models/kda.py``): ``n_heads`` heads of
+    ``head_dim`` keys and values, short causal convolutions of
+    ``conv_width``, low-rank decay and output-gate projections of
+    ``gate_rank``, the prefill's chunk of ``chunk`` tokens."""
+
+    n_heads: int = 32
+    head_dim: int = 128
+    conv_width: int = 4
+    gate_rank: int = 128
+    chunk: int = 64
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | audio | vlm
@@ -87,6 +118,10 @@ class ModelConfig:
     pattern: tuple[tuple[str, str], ...] = ((ATTN, FFN_DENSE),)
     first_k_dense: int = 0
     first_k_dense_d_ff: int = 0
+    # the port's own: the dense prefix's mixer, and layers unrolled after
+    # the groups (a layer list that does not tile, Kimi-Linear's)
+    prefix_mixer: str = ATTN
+    suffix: tuple[tuple[str, str], ...] = ()
     # --- attention ---------------------------------------------------------
     qkv_bias: bool = False
     sliding_window: int | None = None
@@ -98,6 +133,7 @@ class ModelConfig:
     mla: MLAConfig | None = None
     ssm: SSMConfig = field(default_factory=SSMConfig)
     xlstm: XLSTMConfig = field(default_factory=XLSTMConfig)
+    kda: KDAConfig | None = None
     # --- io ------------------------------------------------------------------
     # "tokens": int32 token ids; "embeds": precomputed frontend embeddings
     # (audio codec frames / vision patches) — the one allowed stub.
@@ -121,17 +157,20 @@ class ModelConfig:
 
     @property
     def layer_pattern(self) -> tuple[tuple[str, str], ...]:
-        """Full per-layer (mixer, ffn) list, prefix + tiled pattern."""
-        body = self.n_layers - self.first_k_dense
+        """Full per-layer (mixer, ffn) list: prefix + tiled pattern +
+        suffix."""
+        body = self.n_layers - self.first_k_dense - len(self.suffix)
         p = len(self.pattern)
         if body % p != 0:
             raise ValueError(f"{self.name}: pattern period {p} !| {body}")
-        prefix = ((ATTN, FFN_DENSE),) * self.first_k_dense
-        return prefix + self.pattern * (body // p)
+        prefix = ((self.prefix_mixer, FFN_DENSE),) * self.first_k_dense
+        return prefix + self.pattern * (body // p) + self.suffix
 
     @property
     def n_groups(self) -> int:
-        return (self.n_layers - self.first_k_dense) // len(self.pattern)
+        return (self.n_layers - self.first_k_dense - len(self.suffix)) // len(
+            self.pattern
+        )
 
     def reduced(self) -> "ModelConfig":
         """CPU smoke variant of the same family: 2 pattern periods,
@@ -148,6 +187,11 @@ class ModelConfig:
                 n_shared_experts=min(1, moe.n_shared_experts),
                 d_ff_expert=min(128, moe.d_ff_expert),
             )
+        if moe.n_held:  # a held share keeps one: 4 of 8 experts
+            moe = replace(moe, n_experts=8, n_held=4, held_offset=0)
+        kda = self.kda
+        if kda is not None:
+            kda = replace(kda, n_heads=min(kda.n_heads, 2), head_dim=32, gate_rank=16)
         mla = self.mla
         if mla is not None:
             mla = replace(
@@ -162,11 +206,15 @@ class ModelConfig:
         # (mixer, ffn) combos so the smoke variant stays <=4 layers while
         # still exercising every block kind of the family
         pattern = tuple(dict.fromkeys(self.pattern))[:4]
-        n_layers = self.first_k_dense + len(pattern) * max(1, 2 // len(pattern))
+        suffix = tuple(dict.fromkeys(self.suffix))
+        n_layers = (
+            self.first_k_dense + len(pattern) * max(1, 2 // len(pattern)) + len(suffix)
+        )
         return replace(
             self,
             name=self.name + "-smoke",
             pattern=pattern,
+            suffix=suffix,
             n_layers=n_layers,
             d_model=d_model,
             n_heads=n_heads,
@@ -178,6 +226,7 @@ class ModelConfig:
             sliding_window=(64 if self.sliding_window else None),
             moe=moe,
             mla=mla,
+            kda=kda,
             ssm=replace(self.ssm, d_state=8, chunk=16),
             mrope_sections=tuple(
                 s * (d_model // n_heads) // self.resolved_head_dim or 1
@@ -245,6 +294,12 @@ ASSIGNED = (
     "starcoder2-15b",
     "qwen2-vl-2b",
 )
+# the port's own architectures (no copy of the reference's; kept out of
+# ASSIGNED, which is the reference's list)
+PORT_ONLY = (
+    "kimi-linear-48b-a3b",
+    "kimi-linear-48b-a3b-ep4",
+)
 
 
 def _ensure_loaded() -> None:
@@ -265,12 +320,26 @@ def _ensure_loaded() -> None:
         "qwen3_moe_235b",
         "starcoder2_15b",
         "qwen2_vl_2b",
+        "kimi_linear",
     ):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
+def refuse_unplanned(cfg: ModelConfig, what: str) -> None:
+    """Raise for a config that ``what`` (the mesh paths, the planner) does
+    not support yet: a KDA mixer, or a held share of the experts (one
+    card's expert-parallel slice, which the mesh paths would split
+    again)."""
+    if any(m == KDA for m, _ in cfg.layer_pattern) or cfg.moe.n_held:
+        raise NotImplementedError(
+            f"{what} does not support {cfg.name}: the KDA mixer and a held "
+            "share of the experts run on one card only (Model without a mesh)"
+        )
+
+
 def param_count(cfg: ModelConfig) -> tuple[int, int]:
-    """(total params, active params per token) — analytic, for roofline."""
+    """(total params, active params per token) — analytic, for roofline.
+    A held share counts the experts held here."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     active = total
@@ -305,6 +374,18 @@ def param_count(cfg: ModelConfig) -> tuple[int, int]:
         elif mixer == SLSTM:
             dff = int(cfg.xlstm.slstm_ffn_factor * d)
             m = 4 * d * d + 4 * d + 2 * d * dff
+        elif mixer == KDA:
+            k = cfg.kda
+            hk, r = k.n_heads * k.head_dim, k.gate_rank
+            m = (
+                3 * d * hk  # q, k, v
+                + 3 * k.conv_width * hk  # their short convolutions
+                + d * r + r * hk + hk  # the decay's low rank and dt_bias
+                + d * k.n_heads + k.n_heads  # beta, A_log
+                + d * r + r * hk + hk  # the output gate and its bias
+                + k.head_dim  # the gated norm's scale
+                + hk * d  # out
+            )
         else:
             raise ValueError(mixer)
         total += m
@@ -316,7 +397,7 @@ def param_count(cfg: ModelConfig) -> tuple[int, int]:
         elif ffn == FFN_MOE:
             fe = 3 * d * cfg.moe.d_ff_expert
             total += (
-                fe * (cfg.moe.n_experts + cfg.moe.n_shared_experts)
+                fe * (cfg.moe.held + cfg.moe.n_shared_experts)
                 + d * cfg.moe.n_experts
             )
             active += (

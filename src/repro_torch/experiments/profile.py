@@ -127,12 +127,15 @@ def idle_by_span(events, tracer, trace_start_ns: int) -> dict[str, float]:
 
 def device_summary(prof, wall_s: float, telemetry: Telemetry | None = None) -> dict:
     """The device side of a profile over ``wall_s`` seconds; with the
-    ``telemetry`` that traced the profiled work, ``idle_by_span``."""
-    rows = [
-        e
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total
-    ]
+    ``telemetry`` that traced the profiled work, ``idle_by_span``.  Named
+    ranges (``record_function``, e.g. the zoo's ``models/layers.py::named_ranges``)
+    leave a device-side annotation spanning their kernels and the gaps
+    between them: they are no operations, and where the profile holds any
+    they are listed apart under ``ranges``."""
+    rows, ranges = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+            (ranges if getattr(e, "is_user_annotation", False) else rows).append(e)
     busy_s = sum(e.self_device_time_total for e in rows) / 1e6
     top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     out = {
@@ -149,6 +152,12 @@ def device_summary(prof, wall_s: float, telemetry: Telemetry | None = None) -> d
             for e in top
         ],
     }
+    if ranges:
+        ranges.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        out["ranges"] = [
+            {"name": e.key, "count": e.count, "ms": e.self_device_time_total / 1e3}
+            for e in ranges
+        ]
     if telemetry is not None:
         start_ns = prof.profiler.kineto_results.trace_start_ns()
         out["idle_by_span"] = idle_by_span(prof.events(), telemetry.tracer, start_ns)

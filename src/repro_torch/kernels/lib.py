@@ -22,13 +22,15 @@ only what a launch needs:
   to a module-level handle (:data:`replay_gather_f32`,
   :data:`fused_td_f32`, :data:`rmsnorm_f32`, :data:`rmsnorm_bf16`,
   :data:`flash_attention_f32`, :data:`flash_attention_bf16`,
-  :data:`flash_attention_bf16_wgmma`); a wrapper calls the handle, with
+  :data:`flash_attention_bf16_wgmma`, :data:`kda_step_f32`,
+  :data:`kda_step_bf16`); a wrapper calls the handle, with
   no ``load()`` or ``getattr`` on the library per call.
 * An entry point takes one argument: a pointer to a C struct of the
   launch's arguments, which the wrapper packs into ``bytes`` with a
   precompiled ``struct.Struct`` (:data:`REPLAY_GATHER_ARGS`,
   :data:`FUSED_TD_ARGS`, :data:`RMSNORM_ARGS`,
-  :data:`FLASH_ATTENTION_ARGS`), through its kernel module's ``launch_args``,
+  :data:`FLASH_ATTENTION_ARGS`, :data:`KDA_STEP_ARGS`), through its kernel
+  module's ``launch_args``,
   the one place that packs it.  ``ctypes`` converts each declared argument on
   its own, at a few hundred nanoseconds each; one packed buffer costs one
   conversion and the pack.  :func:`load` checks each format's size
@@ -68,7 +70,13 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("replay_gather.cu", "fused_td.cu", "rmsnorm.cu", "flash_attention.cu")
+SOURCES = (
+    "replay_gather.cu",
+    "fused_td.cu",
+    "rmsnorm.cu",
+    "flash_attention.cu",
+    "kda_step.cu",
+)
 HEADERS = ("launch.cuh",)  # included by the sources; part of the build's hash
 
 
@@ -107,6 +115,9 @@ RMSNORM_ARGS = struct.Struct("@4P7if")
 # flash_attention.cu FlashAttentionArgs: q, k, v, o, stream; device, b, s,
 # hq, hkv, d, causal, window; scale, softcap.
 FLASH_ATTENTION_ARGS = struct.Struct("@5P8i2f")
+# kda_step.cu KdaStepArgs: state, qkv, g, beta, o, stream; device, bh, h,
+# d; scale, eps.
+KDA_STEP_ARGS = struct.Struct("@6P4i2f")
 # each entry point, and the sizeof function of the struct it takes
 ENTRY_POINTS = {
     "replay_gather_f32": ("replay_gather_args_size", REPLAY_GATHER_ARGS),
@@ -119,6 +130,8 @@ ENTRY_POINTS = {
         "flash_attention_args_size",
         FLASH_ATTENTION_ARGS,
     ),
+    "kda_step_f32": ("kda_step_args_size", KDA_STEP_ARGS),
+    "kda_step_bf16": ("kda_step_args_size", KDA_STEP_ARGS),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -130,6 +143,8 @@ rmsnorm_bf16 = None
 flash_attention_f32 = None
 flash_attention_bf16 = None
 flash_attention_bf16_wgmma = None
+kda_step_f32 = None
+kda_step_bf16 = None
 raw_stream = None  # device index -> its current stream as a cudaStream_t
 
 
@@ -193,7 +208,7 @@ def load() -> ctypes.CDLL:
     entry points' module-level handles."""
     global _LIB, replay_gather_f32, fused_td_f32, rmsnorm_f32, rmsnorm_bf16
     global flash_attention_f32, flash_attention_bf16, flash_attention_bf16_wgmma
-    global raw_stream
+    global kda_step_f32, kda_step_bf16, raw_stream
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, (size_name, fmt) in ENTRY_POINTS.items():
@@ -211,6 +226,7 @@ def load() -> ctypes.CDLL:
         flash_attention_f32 = lib.flash_attention_f32
         flash_attention_bf16 = lib.flash_attention_bf16
         flash_attention_bf16_wgmma = lib.flash_attention_bf16_wgmma
+        kda_step_f32, kda_step_bf16 = lib.kda_step_f32, lib.kda_step_bf16
         raw_stream = torch._C._cuda_getCurrentRawStream
         _LIB = lib
     return _LIB
@@ -251,6 +267,7 @@ __all__ = [
     "FLASH_ATTENTION_ARGS",
     "FUSED_TD_ARGS",
     "HEADERS",
+    "KDA_STEP_ARGS",
     "REPLAY_GATHER_ARGS",
     "RMSNORM_ARGS",
     "SOURCES",

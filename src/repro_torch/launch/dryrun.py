@@ -47,6 +47,7 @@ from repro_torch.configs.base import (
     ModelConfig,
     get_config,
     param_count,
+    refuse_unplanned,
 )
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import (
@@ -150,7 +151,9 @@ def plan_step(
     *,
     group_shortcut: bool = True,
 ):
-    """(FLOPs by kind, saved activation bytes) of the port's step, global.
+    """(FLOPs by kind, saved activation bytes) of the port's step, global;
+    raises for a config the planner does not support (the KDA mixer, a
+    held share of the experts).
 
     With ``group_shortcut`` and more than one group of layers, the step is
     walked at no group and at one (the dense prefix, embeddings, loss and
@@ -169,6 +172,7 @@ def plan_step(
     save, go to the group's own hooks and are recomputed), and the
     shortcut stays exact: no group saves the embeddings' output once (the
     final norm's input), one group once more."""
+    refuse_unplanned(cfg, "the planner")
     g = cfg.n_groups
     if not group_shortcut or g <= 1:
         return _walk(cfg, shape, policy, opt_cfg)
@@ -257,6 +261,7 @@ def run_pair(
     ``arch`` is a registered name or a config (a depth cut); ``shape`` a
     name of ``INPUT_SHAPES`` or an :class:`InputShape`."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
+    refuse_unplanned(cfg, "the planner")
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     name = cfg.name
     if optimized:

@@ -55,6 +55,7 @@ from repro_torch.models.layers import dense_apply, dense_init, torch_dtype
 
 F32 = torch.float32
 ATTN_IMPLS = ("kernel", "chunked")
+SCORE_BYTES = 2 << 30  # float32 scores of one query chunk, batch and heads
 
 
 def _q_block(qi, qblk, k, v, *, causal, window, scale, kv_chunk, softcap):
@@ -114,10 +115,23 @@ def chunked_attention(
     window and softcap masking, accumulated in float32.  Under autograd
     each query chunk is checkpointed (the reference's ``jax.checkpoint``
     of its ``q_step``), so the backward holds one chunk's scores at a
-    time.  S must be a multiple of both chunks (after ``min(chunk, S)``)."""
+    time.  S must be a multiple of both chunks (after ``min(chunk, S)``).
+
+    Where one query chunk's float32 scores over the whole batch would pass
+    :data:`SCORE_BYTES`, the batch runs in slices of rows that stay under
+    it (Kimi-Linear's prefill at batch 128: 8.6 GB a chunk whole)."""
     b, s, hq, _ = q.shape
-    g = hq // k.shape[2]
     qc, kc = min(q_chunk, s), min(kv_chunk, s)
+    rows = max(1, SCORE_BYTES // (hq * qc * kc * 4))
+    if b > rows:
+        kw = dict(causal=causal, window=window, scale=scale, q_chunk=q_chunk,
+                  kv_chunk=kv_chunk, softcap=softcap)  # fmt: skip
+        parts = [
+            chunked_attention(*(t[lo : lo + rows] for t in (q, k, v)), **kw)
+            for lo in range(0, b, rows)
+        ]
+        return torch.cat(parts)
+    g = hq // k.shape[2]
     if s % qc or s % kc:
         raise ValueError(
             f"chunked_attention: S={s} is no multiple of the chunks ({qc}, {kc})"
@@ -396,7 +410,9 @@ def mla_cache_init(
 
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, the rope's
-    cos/sin), H the heads of the weights (on a mesh, the rank's)."""
+    cos/sin), H the heads of the weights (on a mesh, the rank's).  With
+    ``cfg.rope == "none"`` the rope part stays a plain projection and
+    cos/sin are None."""
     a = cfg.mla
     b, s, _ = x.shape
     if a.q_lora_rank:
@@ -406,6 +422,8 @@ def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     q = q.reshape(b, s, -1, a.nope_head_dim + a.rope_head_dim)
     q_nope, q_rope = q[..., : a.nope_head_dim], q[..., a.nope_head_dim :]
     cs = rope_lib.cos_sin_for(cfg, positions, head_dim=a.rope_head_dim)
+    if cs is None:  # rope "none" (Kimi-Linear's mla_use_nope): nothing rotated
+        return q_nope, q_rope, None
     return q_nope, rope_lib.apply_rope(q_rope, *cs), cs
 
 
@@ -433,7 +451,9 @@ def mla_apply(
     q_nope, q_rope, cs = _mla_q(cfg, p, x, positions)
     ckv = dense_apply(p["w_dkv"], x)  # [B, S, r]
     krope = dense_apply(p["w_krope"], x)[:, :, None, :]
-    krope = rope_lib.apply_rope(krope, *cs)[:, :, 0]  # [B, S, rope]
+    if cs is not None:
+        krope = rope_lib.apply_rope(krope, *cs)
+    krope = krope[:, :, 0]  # [B, S, rope]
 
     if mode in ("train", "prefill"):
         # expanded path: per-head k/v materialised from the latent

@@ -1,8 +1,9 @@
 """Decoder block: a (mixer, ffn) pair from the config's pattern.
 
 The port of the reference's ``models/blocks.py``: the GQA, MLA, Mamba,
-mLSTM and sLSTM mixers, and the dense, MoE or no FFN.  A block without
-an FFN (xLSTM's, whose mixers carry their own projections) has no
+mLSTM and sLSTM mixers, the port's own KDA (``models/kda.py``; one card
+only: the mesh paths refuse it), and the dense, MoE or no FFN.  A block
+without an FFN (xLSTM's, whose mixers carry their own projections) has no
 second norm either, as in the reference.
 """
 
@@ -15,13 +16,14 @@ from repro_torch.configs.base import (
     FFN_DENSE,
     FFN_MOE,
     FFN_NONE,
+    KDA,
     MAMBA,
     MLA,
     MLSTM,
     SLSTM,
     ModelConfig,
 )
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, kda, ssm
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.moe import moe_apply, moe_init, moe_stream
 from repro_torch.models.sharding import _map_with_path, axis_size
@@ -45,12 +47,14 @@ _MIXER_INIT = {
     MAMBA: ssm.mamba_init,
     MLSTM: ssm.mlstm_init,
     SLSTM: ssm.slstm_init,
+    KDA: kda.kda_init,
 }
 # the recurrent mixers: their decode cache is a state of fixed size
 _STATE_INIT = {
     MAMBA: ssm.mamba_state_init,
     MLSTM: ssm.mlstm_state_init,
     SLSTM: ssm.slstm_state_init,
+    KDA: kda.kda_state_init,
 }
 FFNS = (FFN_DENSE, FFN_MOE, FFN_NONE)
 
@@ -155,6 +159,8 @@ def block_apply(
         y, new_cache = ssm.mamba_apply(cfg, p["mixer"], h, mode=mode, state=cache)
     elif mixer == MLSTM:
         y, new_cache = ssm.mlstm_apply(cfg, p["mixer"], h, mode=mode, state=cache)
+    elif mixer == KDA:
+        y, new_cache = kda.kda_apply(cfg, p["mixer"], h, mode=mode, state=cache)
     else:
         y, new_cache = ssm.slstm_apply(cfg, p["mixer"], h, mode=mode, state=cache)
     x = x + y

@@ -12,10 +12,37 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import RMSNorm
 
 F32 = torch.float32
+# Named ranges on the profiler's timeline (``torch.profiler.record_function``)
+# around the zoo's own mixers and dispatch: "kda.prefill", "kda.step" and
+# "moe.held" (a layer's local dispatch over the experts the card holds:
+# all of them unless the config holds a share).  Off unless a profiling entry point opens
+# :func:`named_ranges` (``launch/profile_serve.py``): the profiler records
+# each range as a device-side annotation too, which a reader of device
+# operations would count as one.
+_RANGES: ContextVar[bool] = ContextVar("zoo_named_ranges", default=False)
+
+
+@contextmanager
+def named_ranges():
+    """The zoo's named ranges on for the work inside the block, and off
+    again (as they were) when it ends."""
+    token = _RANGES.set(True)
+    try:
+        yield
+    finally:
+        _RANGES.reset(token)
+
+
+def span(name: str):
+    """``record_function(name)`` inside :func:`named_ranges`, else nothing."""
+    return torch.profiler.record_function(name) if _RANGES.get() else nullcontext()
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -141,8 +168,10 @@ __all__ = [
     "embed_init",
     "mlp_apply",
     "mlp_init",
+    "named_ranges",
     "norm_apply",
     "norm_init",
+    "span",
     "torch_dtype",
     "truncated_normal",
     "unembed_apply",

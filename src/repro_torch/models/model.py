@@ -39,7 +39,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, FFN_DENSE, ModelConfig
+from repro_torch.configs.base import FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init
@@ -167,9 +167,11 @@ def init_params(
 ) -> dict[str, Any]:
     """Fresh params on the generator's device, with the reference's names,
     shapes and init scales (its distributions, not its bits): the
-    unrolled dense prefix (``first_k_dense`` layers of attention and a
-    dense FFN of ``first_k_dense_d_ff``) as ``prefix/l{i}``, then the
-    groups.  Each stacked ``[G, ...]`` leaf is allocated once and group
+    unrolled dense prefix (``first_k_dense`` layers of ``prefix_mixer``,
+    attention but for Kimi-Linear's KDA, and a dense FFN of
+    ``first_k_dense_d_ff``) as ``prefix/l{i}``, then the groups, then the
+    unrolled ``suffix`` layers as ``suffix/l{i}`` (Kimi-Linear's last
+    two).  Each stacked ``[G, ...]`` leaf is allocated once and group
     ``g`` is drawn into slice ``[g]``, groups in order, so the peak holds
     the params and one group more (not twice the params); a single group
     (jamba cut to 4 layers) is its own ``[1, ...]`` view; a config with no
@@ -197,7 +199,8 @@ def init_params(
         d_ff = cfg.first_k_dense_d_ff or cfg.d_ff
         params["prefix"] = {
             f"l{i}": kept(
-                block_init(cfg, ATTN, FFN_DENSE, generator, d_ff=d_ff), f"prefix/l{i}"
+                block_init(cfg, cfg.prefix_mixer, FFN_DENSE, generator, d_ff=d_ff),
+                f"prefix/l{i}",
             )
             for i in range(cfg.first_k_dense)
         }
@@ -216,6 +219,11 @@ def init_params(
         _put(groups, one, g)
         del one
     params["groups"] = groups if groups is not None else {}
+    if cfg.suffix:
+        params["suffix"] = {
+            f"l{i}": kept(block_init(cfg, mixer, ffn, generator), f"suffix/l{i}")
+            for i, (mixer, ffn) in enumerate(cfg.suffix)
+        }
     return params
 
 
@@ -243,7 +251,8 @@ def init_caches(
     if cfg.first_k_dense:
         caches["prefix"] = {
             f"l{i}": kept(
-                block_cache_init(cfg, ATTN, batch, clen, dtype, device), f"prefix/l{i}"
+                block_cache_init(cfg, cfg.prefix_mixer, batch, clen, dtype, device),
+                f"prefix/l{i}",
             )
             for i in range(cfg.first_k_dense)
         }
@@ -256,6 +265,13 @@ def init_caches(
     for g in range(cfg.n_groups):
         _put(groups, one, g)
     caches["groups"] = groups
+    if cfg.suffix:
+        caches["suffix"] = {
+            f"l{i}": kept(
+                block_cache_init(cfg, mixer, batch, clen, dtype, device), f"suffix/l{i}"
+            )
+            for i, (mixer, _) in enumerate(cfg.suffix)
+        }
     return caches
 
 
@@ -315,15 +331,10 @@ def forward(
     kw = dict(mode=mode, positions=positions, attn_impl=attn_impl, layout=L)
     handed: dict[str, Any] = {}
     if cfg.first_k_dense:
-        handed["prefix"] = {}
-        for i in range(cfg.first_k_dense):
-            name = f"l{i}"
-            c = caches["prefix"][name] if caches is not None else None
-            x, nc, _ = block_apply(
-                cfg, params["prefix"][name], x, mixer=ATTN, ffn=FFN_DENSE, cache=c,
-                path=f"prefix/{name}", **kw,
-            )  # fmt: skip
-            handed["prefix"][name] = nc
+        kinds = ((cfg.prefix_mixer, FFN_DENSE),) * cfg.first_k_dense
+        x, aux, handed["prefix"] = _unrolled(
+            cfg, params, caches, "prefix", kinds, x, aux, kw
+        )
     groups = _unbind(params["groups"], cfg.n_groups)
     in_groups = {f"b{j}": [] for j in range(len(cfg.pattern))}
     if remat and mode == "train" and torch.is_grad_enabled():
@@ -343,6 +354,10 @@ def forward(
                 in_groups[f"b{j}"].append(nc)
                 if a is not None:
                     aux = aux + a
+    if cfg.suffix:
+        x, aux, handed["suffix"] = _unrolled(
+            cfg, params, caches, "suffix", cfg.suffix, x, aux, kw
+        )
     final = params["final_norm"]
     if L is not None:
         final = use_tree(L, final, "final_norm", L.vary_stream)
@@ -351,6 +366,24 @@ def forward(
         handed["groups"] = {k: _stack(v) for k, v in in_groups.items() if v}
         return x, aux, handed
     return x, aux, caches
+
+
+def _unrolled(cfg: ModelConfig, params, caches, where: str, kinds, x, aux, kw: dict):
+    """The unrolled layers ``params[where]`` (the dense prefix, the
+    suffix) of ``kinds``, in order, outside any checkpoint: ``(x, aux,
+    their caches)``.  A decode cache is written in place."""
+    handed = {}
+    for i, (mixer, ffn) in enumerate(kinds):
+        name = f"l{i}"
+        c = caches[where][name] if caches is not None else None
+        x, nc, a = block_apply(
+            cfg, params[where][name], x, mixer=mixer, ffn=ffn, cache=c,
+            path=f"{where}/{name}", **kw,
+        )  # fmt: skip
+        handed[name] = nc
+        if a is not None:
+            aux = aux + a
+    return x, aux, handed
 
 
 def _remat(fn, *args, **kw):

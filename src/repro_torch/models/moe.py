@@ -2,6 +2,17 @@
 capacity-based dispatch to a grouped SwiGLU, on one card or expert
 parallel over a ``(data, model)`` :class:`~torch.distributed.device_mesh.DeviceMesh`.
 
+Two things only the port has (``MoEConfig.router``, ``n_held``): the
+sigmoid router of DeepSeek-V3 and Kimi-Linear (scores ``s = sigmoid(x
+W_r)`` over every expert, the top-k chosen by ``s + bias``, a per-expert
+leaf used only for the choice, the gates ``s`` of the chosen renormalised
+and scaled by ``routed_scale``), and a held share: the layer holds
+``n_held`` experts from ``held_offset`` (one card's share under expert
+parallelism), routes over all ``n_experts`` with their capacity, and
+computes the part of the result its own experts give.  Pairs routed to an
+expert not held add nothing, and nothing stands in for the cards that
+hold them; the shared experts run here whole.
+
 The port of the reference's ``models/moe.py``.  Dispatch keeps its
 capacity semantics.  Each expert takes at most ``C = max(1, ceil(top_k *
 T * capacity_factor / E))`` of a shard's ``T * top_k`` (token, expert)
@@ -39,7 +50,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import mlp_apply, mlp_init, torch_dtype, truncated_normal
+from repro_torch.models.layers import (
+    mlp_apply,
+    mlp_init,
+    span,
+    torch_dtype,
+    truncated_normal,
+)
 from repro_torch.models.sharding import (
     ShardingPolicy,
     axis_size,
@@ -66,12 +83,15 @@ def moe_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     m = cfg.moe
     dtype = torch_dtype(cfg.dtype)
     d, e, f = cfg.d_model, m.n_experts, m.d_ff_expert
+    held = m.held
     p = {
         "router": truncated_normal((d, e), d**-0.5, F32, generator),
-        "w1": truncated_normal((e, d, f), d**-0.5, dtype, generator),
-        "w3": truncated_normal((e, d, f), d**-0.5, dtype, generator),
-        "w2": truncated_normal((e, f, d), f**-0.5, dtype, generator),
+        "w1": truncated_normal((held, d, f), d**-0.5, dtype, generator),
+        "w3": truncated_normal((held, d, f), d**-0.5, dtype, generator),
+        "w2": truncated_normal((held, f, d), f**-0.5, dtype, generator),
     }
+    if m.router == "sigmoid":  # the selection bias, zero at init
+        p["bias"] = {"b": torch.zeros((e,), dtype=F32, device=generator.device)}
     if m.n_shared_experts:
         p["shared"] = mlp_init(cfg, d, m.n_shared_experts * f, generator)
     return p
@@ -126,14 +146,26 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
     return flat.new_zeros(n).scatter_add_(0, flat, torch.ones_like(flat))
 
 
-def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
+def _route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor, bias=None):
     """x_flat [T, D] -> gates [T, k] (x's dtype), eidx [T, k], aux (f32):
     softmax in float32, top-k, gates renormalised, Switch's load-balance
-    loss ``E * sum_e f_e * P_e``."""
+    loss ``E * sum_e f_e * P_e``.  The sigmoid router (``bias`` [E], its
+    selection bias): scores ``sigmoid`` in float32, the top-k by score
+    plus bias, the chosen scores renormalised and scaled by
+    ``routed_scale``; ``P_e`` of its loss the scores normalised over the
+    experts."""
     m = cfg.moe
-    probs = torch.softmax(x_flat.to(F32) @ router_w, dim=-1)  # [T, E]
-    gates, eidx = torch.topk(probs, m.top_k, dim=-1)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if m.router == "sigmoid":
+        scores = torch.sigmoid(x_flat.to(F32) @ router_w)  # [T, E]
+        eidx = torch.topk(scores + bias, m.top_k, dim=-1).indices
+        gates = scores.gather(-1, eidx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        gates = gates * m.routed_scale
+        probs = scores / scores.sum(-1, keepdim=True)
+    else:
+        probs = torch.softmax(x_flat.to(F32) @ router_w, dim=-1)  # [T, E]
+        gates, eidx = torch.topk(probs, m.top_k, dim=-1)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     pe = probs.mean(0)
     counts = _counts(eidx, m.n_experts)
     fe = counts.to(F32) * (1.0 / (x_flat.shape[0] * m.top_k))
@@ -171,9 +203,11 @@ def moe_local(
     seq_sharded: bool,
     model=None,
     data=None,
+    bias=None,
 ):
     """The per-shard body (the reference's ``_moe_local``): x_flat
-    ``[T_loc, D]``, ``w*`` the ``E_loc`` experts this rank holds.
+    ``[T_loc, D]``, ``w*`` the ``E_loc`` experts this rank holds;
+    ``bias``: the sigmoid router's selection bias.
     Returns ``(y [T_loc, D], aux)``, ``aux`` this shard's own router loss
     (the caller averages it over the mesh).
 
@@ -184,7 +218,9 @@ def moe_local(
     over every source rank's rows, and exchanged back.  Otherwise the
     replicated branch: the tokens are the same on every model rank, each
     serves the pairs of its own experts (offset ``rank * E_loc``) and ``y``
-    is summed over ``model``.  Weights whose ``d_model`` axis is a slice
+    is summed over ``model``.  Without ``model``, the experts held are the
+    config's share (``held_offset``; all of them by default).  Weights
+    whose ``d_model`` axis is a slice
     (FSDP) are gathered over ``data`` here, so the whole copies live only
     inside the layer."""
     m = cfg.moe
@@ -196,7 +232,7 @@ def moe_local(
         w3 = _Gather.apply(w3, data, 1, True)
         w2 = _Gather.apply(w2, data, 2, True)
     cap = capacity(cfg, t)
-    gates, eidx, aux = _route(cfg, router_w, x_flat)
+    gates, eidx, aux = _route(cfg, router_w, x_flat, bias)
     e_flat, slot, keep = _dispatch_indices(eidx, e, cap)
     pairs = x_flat.repeat_interleave(k, dim=0)  # pair (t, j) is row t * k + j
     if seq_sharded and model is not None:
@@ -214,7 +250,7 @@ def moe_local(
         w = gates.reshape(-1, 1) * keep[:, None].to(gates.dtype)
         y_pairs = back[torch.where(keep, row, 0)] * w
     else:
-        first = dist.get_rank(model) * e_loc if model is not None else 0
+        first = dist.get_rank(model) * e_loc if model is not None else m.held_offset
         e_rel = e_flat - first
         local = (e_rel >= 0) & (e_rel < e_loc) & keep
         # row of each pair in the flat [E_loc * C (+ 1 spare), D] buffer
@@ -233,6 +269,11 @@ def moe_local(
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
+def _bias(p: dict):
+    """The sigmoid router's selection bias, None for the softmax router."""
+    return p["bias"]["b"] if "bias" in p else None
+
+
 def _whole_experts(cfg: ModelConfig, p: dict, mesh, tp: bool):
     """The whole ``w1, w3, w2`` for the local path: a rank's slices
     gathered over the axes their layout split (the computation after is
@@ -297,6 +338,7 @@ def _moe_ep(cfg: ModelConfig, p: dict, xs: torch.Tensor, mesh, *, seq_sharded, t
     y, aux = moe_local(
         cfg, xs.reshape(-1, d), router, w1, w3, w2,
         seq_sharded=seq_sharded, model=mesh.get_group("model"), data=data,
+        bias=_bias(p),
     )  # fmt: skip
     # the reference's pmean over model in the body, then over every axis:
     # one mean of each rank's own loss over the mesh
@@ -346,9 +388,11 @@ def moe_apply(
         bt = ()
     if mesh is None or not _ep_ok(cfg, axes, bt, tp):
         w1, w3, w2 = _whole_experts(cfg, p, mesh, tp)
-        y, aux = moe_local(
-            cfg, x.reshape(-1, d), p["router"], w1, w3, w2, seq_sharded=False
-        )
+        with span("moe.held"):
+            y, aux = moe_local(
+                cfg, x.reshape(-1, d), p["router"], w1, w3, w2, seq_sharded=False,
+                bias=_bias(p),
+            )  # fmt: skip
         y = y.reshape(b, s, d)
     else:
         if seq_sharded and s % n_model:
@@ -413,8 +457,9 @@ def moe_stream(cfg: ModelConfig, p: dict, h: torch.Tensor, L, *, mode: str, path
         b, s, d = t.shape
         w1, w3, w2 = _whole_experts(cfg, p, L.mesh, L.tp)
         y, aux = moe_local(
-            cfg, t.reshape(-1, d), p["router"], w1, w3, w2, seq_sharded=False
-        )
+            cfg, t.reshape(-1, d), p["router"], w1, w3, w2, seq_sharded=False,
+            bias=_bias(p),
+        )  # fmt: skip
         index = (L.rows(b), L.seq_block(s))
         split = L.batch + ((L.model,) if L.seq else ())
         y = _Enter.apply(y.reshape(b, s, d), index, L.groups(split))

@@ -293,9 +293,12 @@ def take_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def param_specs(cfg, mesh_shape: dict, policy: ShardingPolicy = ShardingPolicy()) -> dict:
     """``{path: stored spec}`` of every parameter of ``cfg`` (a stacked
     ``groups/...`` leaf's spec with its leading group axis), from the
-    params' global shapes on ``meta``."""
+    params' global shapes on ``meta``.  Raises for a config the mesh
+    paths do not support (the KDA mixer, a held share of the experts)."""
+    from repro_torch.configs.base import refuse_unplanned
     from repro_torch.models.model import meta_params
 
+    refuse_unplanned(cfg, "the (data, model) mesh")
     specs: dict = {}
 
     def one(path, leaf):

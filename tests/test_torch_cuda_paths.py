@@ -103,6 +103,7 @@ from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.core.erb import TaskTag, erb_add, erb_flatten, erb_init, flat_columns  # noqa: E402
 from repro_torch.core.replay import SelectiveReplaySampler  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
+from repro_torch.kernels.kda_step import kda_step, kda_step_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
 from repro_torch.configs.base import FFN_NONE, get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -942,3 +943,33 @@ def test_wall_span_holds_its_kernel_on_the_profiler_timeline_on_card(cuda):
     # an H100; the first kernel trails the span's start by the profiler's
     # set-up of its first launch, milliseconds, so that end says nothing)
     assert hi - last <= 1000.0, (lo, first, last, hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype, o_rtol", [(torch.bfloat16, 2**-7), (torch.float32, 1e-5)]
+)
+def test_kda_step_matches_plain_on_card(cuda, dtype, o_rtol):
+    """The fused KDA decode step at Kimi-Linear's decode shape (B 128, H
+    32, d 128), three steps in a row from one state: one launch a step,
+    the float32 state within 1e-5 of the plain version's largest magnitude
+    (float32 both sides, sums in another order) and ``o`` within
+    ``o_rtol`` of its largest (bf16: the output's rounding, one part in
+    2**8, twice; float32 as the state)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, h, d = 128, 32, 128
+    state = torch.randn(b, h, d, d, generator=gen, device=cuda) * 0.1
+    mine, plain = state.clone(), state.clone()
+    for _ in range(3):
+        qkv = torch.randn(b, 3, h, d, generator=gen, device=cuda).to(dtype)
+        g = -torch.exp(torch.randn(b, h, d, generator=gen, device=cuda))
+        beta = torch.rand(b, h, generator=gen, device=cuda)
+        before = kda_step.launches
+        o = kda_step(mine, qkv, g, beta, d**-0.5)
+        assert kda_step.launches == before + 1
+        want = kda_step_plain(plain, qkv, g, beta, d**-0.5)
+        assert o.dtype == dtype and o.shape == (b, h, d)
+        err = float((o.float() - want.float()).abs().max())
+        assert err <= o_rtol * float(want.float().abs().max()), err
+        err = float((mine - plain).abs().max())
+        assert err <= 1e-5 * float(plain.abs().max()), err

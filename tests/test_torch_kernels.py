@@ -33,6 +33,7 @@ from repro_torch.core.erb import (  # noqa: E402
 )
 from repro_torch.kernels import flash_attention as attention_module  # noqa: E402
 from repro_torch.kernels import fused_td as td_module  # noqa: E402
+from repro_torch.kernels import kda_step as kda_module  # noqa: E402
 from repro_torch.kernels import launch_cost, lib, rmsnorm  # noqa: E402
 from repro_torch.kernels import replay_gather as gather_module  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
@@ -447,12 +448,18 @@ def test_packed_argument_layouts():
     assert lib.FLASH_ATTENTION_ARGS.size == 5 * 8 + 8 * 4 + 2 * 4
     raw = attention_module.launch_args(*range(1, 12), 1, 0, 0.25, 2.0)
     assert struct.unpack("<5Q8i2f", raw) == (*range(1, 12), 1, 0, 0.25, 2.0)
+    assert lib.KDA_STEP_ARGS.size == 6 * 8 + 4 * 4 + 2 * 4
+    raw = kda_module.launch_args(*range(1, 11), 0.25)
+    fields = struct.unpack("<6Q4i2f", raw)
+    assert fields[:11] == (*range(1, 11), 0.25)
+    assert fields[11] == pytest.approx(kda_module.L2_EPS)  # float32 in the struct
     # one calling convention: every entry point takes one packed struct
     assert {fmt for _, fmt in lib.ENTRY_POINTS.values()} == {
         lib.REPLAY_GATHER_ARGS,
         lib.FUSED_TD_ARGS,
         lib.RMSNORM_ARGS,
         lib.FLASH_ATTENTION_ARGS,
+        lib.KDA_STEP_ARGS,
     }
 
 

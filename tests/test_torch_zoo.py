@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
+from zoo_config_fields import assert_reference_copy  # noqa: E402
 from repro_torch.configs.base import get_config, param_count  # noqa: E402
 from repro_torch.convert import zoo_params_from_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -94,7 +95,7 @@ def _np(x) -> np.ndarray:
 def test_config_is_the_reference_copy(ref):
     for name in (ARCH, ARCH + "-smoke"):
         got, want = get_config(name), ref.get_config(name)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert_reference_copy(got, want)
         assert param_count(got) == ref.param_count(want)
     assert param_count(get_config(ARCH))[0] == 3_961_651_200  # 3.96 B
 

@@ -24,7 +24,9 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
+from zoo_config_fields import assert_reference_copy  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
+    ASSIGNED,
     get_config,
     list_configs,
     param_count,
@@ -82,22 +84,32 @@ def _params(ref, arch, seed=0):
 
 
 def test_configs_are_the_reference_copies(ref):
-    assert list_configs() == [
-        "deepseek-v2-lite-16b",
-        "h2o-danube-3-4b",
-        "jamba-1.5-large-398b",
-        "moonshot-v1-16b-a3b",
-        "musicgen-medium",
-        "qwen2-vl-2b",
-        "qwen2.5-14b",
-        "qwen3-moe-235b-a22b",
-        "starcoder2-15b",
-        "xlstm-125m",
-    ]
+    """The reference's ten and the port's own two are registered; each of
+    the ten is the reference's copy (its keys; the port's own fields at
+    their defaults)."""
+    assert list_configs() == sorted(
+        [
+            "deepseek-v2-lite-16b",
+            "h2o-danube-3-4b",
+            "jamba-1.5-large-398b",
+            "moonshot-v1-16b-a3b",
+            "musicgen-medium",
+            "qwen2-vl-2b",
+            "qwen2.5-14b",
+            "qwen3-moe-235b-a22b",
+            "starcoder2-15b",
+            "xlstm-125m",
+            "kimi-linear-48b-a3b",
+            "kimi-linear-48b-a3b-ep4",
+        ]
+    )
+    for arch in ASSIGNED:
+        for name in (arch, arch + "-smoke"):
+            assert_reference_copy(get_config(name), ref.get_config(name))
     for arch in ARCHS:
         for name in (arch, arch + "-smoke"):
             got, want = get_config(name), ref.get_config(name)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert_reference_copy(got, want)
             assert param_count(got) == ref.param_count(want)
     assert param_count(get_config("qwen2.5-14b"))[0] == 14_769_192_960
     assert param_count(get_config("starcoder2-15b"))[0] == 15_955_132_416

@@ -26,8 +26,10 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
+from zoo_config_fields import assert_reference_copy  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
     ASSIGNED,
+    PORT_ONLY,
     get_config,
     list_configs,
     param_count,
@@ -120,17 +122,18 @@ def test_configs_are_the_reference_copies(ref):
     for arch in ARCHS:
         for name in (arch, arch + "-smoke"):
             got, want = get_config(name), ref.get_config(name)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert_reference_copy(got, want)
             assert param_count(got) == ref.param_count(want)
     assert param_count(get_config("deepseek-v2-lite-16b"))[0] == 15_709_372_416
     assert param_count(get_config("qwen3-moe-235b-a22b"))[0] == 235_092_836_352
 
 
 def test_mamba_and_xlstm_configs_still_raise():
-    """The port registers every assigned config: the Mamba and xLSTM ones
-    and their smoke variants resolve (tests/test_torch_zoo_ssm.py holds
-    them to the reference); only an unknown name raises."""
-    assert list_configs() == sorted(ASSIGNED)
+    """The port registers every assigned config and its own
+    (``PORT_ONLY``): the Mamba and xLSTM ones and their smoke variants
+    resolve (tests/test_torch_zoo_ssm.py holds them to the reference);
+    only an unknown name raises."""
+    assert list_configs() == sorted(ASSIGNED + PORT_ONLY)
     for name in ("jamba-1.5-large-398b", "xlstm-125m"):
         assert get_config(name).name == name
         assert get_config(name + "-smoke").name == name + "-smoke"

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 # OpenMP threads in parallel test workers would starve the other tests
 torch.set_num_threads(1)
 
+from zoo_config_fields import assert_reference_copy  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
     ATTN,
     FFN_DENSE,
@@ -108,7 +109,7 @@ def test_configs_are_the_reference_copies(ref):
     for arch in ARCHS:
         for name in (arch, arch + "-smoke"):
             got, want = get_config(name), ref.get_config(name)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert_reference_copy(got, want)
             assert param_count(got) == ref.param_count(want)
     assert param_count(get_config("jamba-1.5-large-398b"))[0] == 398_551_859_200
     assert param_count(get_config("xlstm-125m"))[0] == 164_643_840
