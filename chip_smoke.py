@@ -149,7 +149,9 @@ non-zero exit code and no result line:
    positions against the teacher-forced ``forward`` on the card (an MoE
    arch: on a second generation at capacity factor 16, where no pair is
    dropped; the timed one runs at the published 1.25 and prints the
-   pairs it dropped at prefill and at decode).  Init, peak memory,
+   pairs it dropped at prefill and at decode, counted on an eager twin
+   of it: the timed decode replays the model's CUDA graphs, which make
+   no Python call to record).  Init, peak memory,
    prefill and decode times printed for each.  Then
    kimi-linear-48b-a3b-ep4 (KDA, NoPE MLA, the sigmoid router; one card's
    64 of 256 experts a layer, full depth) the same way at prompt 1024:
@@ -401,7 +403,7 @@ from repro_torch.models.model import (  # noqa: E402
 )
 from repro_torch.models import spmd  # noqa: E402
 from repro_torch.models.blocks import block_apply, block_init  # noqa: E402
-from repro_torch.models.layers import torch_dtype  # noqa: E402
+from repro_torch.models.layers import named_ranges, torch_dtype  # noqa: E402
 from repro_torch.models.sharding import (  # noqa: E402
     ShardingPolicy,
     mesh_axes,
@@ -2878,7 +2880,9 @@ def phase_cli(dev) -> dict[str, int]:
 def moe_dispatches():
     """Each MoE layer's dispatch in call order, as (its expert choices
     [T, k], the pairs it dropped): ``models/moe.py``'s dispatch wrapped
-    for the block (one device reduction a layer, no host sync)."""
+    for the block (one device reduction a layer, no host sync).  The
+    zoo's named ranges are on inside, so a generation there decodes
+    eagerly: a replayed decode graph makes no Python call to record."""
     calls = []
     dispatch = moe._dispatch_indices
 
@@ -2889,7 +2893,8 @@ def moe_dispatches():
 
     moe._dispatch_indices = recording
     try:
-        yield calls
+        with named_ranges():
+            yield calls
     finally:
         moe._dispatch_indices = dispatch
 
@@ -2919,8 +2924,8 @@ def replayed_routing(choices: list[torch.Tensor]):
     route = moe._route
     layers = iter(choices)
 
-    def replay(cfg, router_w, x_flat):
-        _, _, aux = route(cfg, router_w, x_flat)
+    def replay(cfg, router_w, x_flat, bias=None):
+        _, _, aux = route(cfg, router_w, x_flat, bias)
         eidx = next(layers).reshape(x_flat.shape[0], -1)
         probs = torch.softmax(x_flat.float() @ router_w, dim=-1)
         gates = probs.gather(-1, eidx)
@@ -3062,8 +3067,7 @@ def phase_zoo_main(
     n_moe = sum(ffn == FFN_MOE for _, ffn in cfg.layer_pattern)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with moe_dispatches() as calls:
-        out = serve.generate(model, params, prompt, ZOO_GEN)
+    out = serve.generate(model, params, prompt, ZOO_GEN)
     launches = read_launches()
     by_route = {
         "flash_attention": dict(flash_attention.launches_by_route),
@@ -3074,6 +3078,10 @@ def phase_zoo_main(
     finite = bool(torch.isfinite(out.logits).all())
     prefill_s, decode_s = out.prefill_s, out.decode_s
     sample_ids = out.tokens[0, :8].tolist()
+    calls = []
+    if n_moe:  # the timed generation's pairs, from its eager twin (bit for bit)
+        with moe_dispatches() as calls:
+            serve.generate(model, params, prompt, ZOO_GEN)
     n_dispatches = len(calls)
     dropped = {
         "prefill": int(sum(n for _, n in calls[:n_moe])),

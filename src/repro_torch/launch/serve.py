@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, graphs_apply
 
 
 @dataclass
@@ -49,7 +49,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def load_prefill(caches, pre_caches):
+def load_prefill(caches, pre_caches, fills=None):
     """Copy the prefill's caches (k/v/kpos, MLA's latent ckv/krope/kpos,
     the dense prefix's and the groups') into the decode caches (the
     reference's ``_load_prefill``).
@@ -57,17 +57,26 @@ def load_prefill(caches, pre_caches):
     Every prefill leaf must either match its decode leaf exactly or be a
     same-rank prefix of it (kv caches sized for the whole conversation);
     anything else is a wiring bug, and silently keeping the empty decode
-    cache would serve garbage, so it raises."""
+    cache would serve garbage, so it raises.
+
+    ``fills`` (a tree like ``caches``: each leaf's empty value, ``kpos``'s
+    -1): load in place, into caches that may hold an earlier
+    conversation.  Every leaf keeps its tensor (a CUDA graph reads them),
+    and a leaf the prefill fills only in part is emptied first, so the
+    slots past the prompt hold no earlier request's entries."""
     if isinstance(caches, dict):
         if not isinstance(pre_caches, dict) or caches.keys() != pre_caches.keys():
             raise ValueError("prefill caches do not have the decode caches' leaves")
-        return {k: load_prefill(caches[k], pre_caches[k]) for k in caches}
+        fill = dict.fromkeys(caches) if fills is None else fills
+        return {k: load_prefill(caches[k], pre_caches[k], fill[k]) for k in caches}
     dst, src = caches, pre_caches
     if dst.shape == src.shape:
-        return src.to(dst.dtype)
+        return src.to(dst.dtype) if fills is None else dst.copy_(src)
     if dst.dim() == src.dim() and all(
         sd <= dd for sd, dd in zip(src.shape, dst.shape, strict=True)
     ):
+        if fills is not None:
+            dst.fill_(fills)
         # group-stacked kv: [G, B, L, H, D] <- [G, B, s, H, D]
         dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
         return dst
@@ -96,7 +105,12 @@ def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Gene
     """Prefill ``prompt`` (token ids [B, S], or embeds [B, S, D] for an
     embeds config) once, then ``gen`` greedy decode steps, each feeding
     the previous step's argmax (an embeds config: zero embeds, as the
-    reference's driver feeds)."""
+    reference's driver feeds).  Each step is one ``model.serve_step``
+    call.  Where ``models/model.py::graphs_apply`` holds (a card, no
+    mesh, no named ranges) the caches are the model's arena's, of a length
+    rounded up to a multiple of 64 slots, and each step replays the
+    arena's CUDA graph of the shape (its first step captures it);
+    elsewhere they are fresh caches of ``S + gen`` slots, run eagerly."""
     dev = model.device
     b, s = prompt.shape[:2]
     embeds = model.cfg.input_kind == "embeds"
@@ -105,7 +119,11 @@ def generate(model: Model, params: dict, prompt: torch.Tensor, gen: int) -> Gene
     t0 = time.perf_counter()
     last_logits, pre_caches = model.prefill_step(params, {key: prompt})
     # decode caches sized for the whole conversation; the prefill's k/v in
-    caches = load_prefill(model.init_caches(b, s + gen), pre_caches)
+    if graphs_apply(model):  # the arena's, whose steps replay a graph
+        caches = model.arena.load(pre_caches, b, s + gen)
+    else:
+        caches = load_prefill(model.init_caches(b, s + gen), pre_caches)
+    del pre_caches  # copied into the arena's: not held through the decode
     tok = last_logits.argmax(-1).to(torch.int32)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0

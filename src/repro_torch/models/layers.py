@@ -40,6 +40,11 @@ def named_ranges():
         _RANGES.reset(token)
 
 
+def ranges_on() -> bool:
+    """Whether a :func:`named_ranges` block is open."""
+    return _RANGES.get()
+
+
 def span(name: str):
     """``record_function(name)`` inside :func:`named_ranges`, else nothing."""
     return torch.profiler.record_function(name) if _RANGES.get() else nullcontext()
@@ -171,6 +176,7 @@ __all__ = [
     "named_ranges",
     "norm_apply",
     "norm_init",
+    "ranges_on",
     "span",
     "torch_dtype",
     "truncated_normal",

@@ -29,11 +29,21 @@ all-gathered at each mixer and FFN entry (``_full_s``); logits are
 vocab-sharded over ``model`` and the cross entropy is vocab parallel,
 normalised by the global token count.  Prefill and decode return the
 whole logits on every rank.
+
+Decode graphs: on a card, without a mesh and outside ``named_ranges()``,
+``launch/serve.py::generate`` decodes into caches of a
+:class:`DecodeArena` (one a ``Model``), and ``serve_step`` replays a
+captured CUDA graph of the whole step for them in place of eager
+dispatch, one graph per (batch, cache length).  Any other caches run the
+step eagerly.  ``make_serve_step.steps_by_route`` counts the process's
+decode steps by route.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
+import time
 from typing import Any
 
 import torch
@@ -41,6 +51,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.kda_step import kda_step
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init
 from repro_torch.models.layers import (
@@ -48,6 +61,7 @@ from repro_torch.models.layers import (
     embed_init,
     norm_apply,
     norm_init,
+    ranges_on,
     torch_dtype,
     unembed_apply,
 )
@@ -850,16 +864,30 @@ def make_prefill_step(
 
 
 def make_serve_step(
-    cfg: ModelConfig, *, mesh=None, policy: ShardingPolicy = ShardingPolicy()
+    cfg: ModelConfig,
+    *,
+    mesh=None,
+    policy: ShardingPolicy = ShardingPolicy(),
+    arena: DecodeArena | None = None,
 ):
     """One decode step: (params, caches, batch{tokens|embeds, pos [B]}) ->
     (logits [B, V], caches).  The caches are written in place and
     returned.  On a ``mesh``: the global batch in, the whole logits on
-    every rank, the caches this rank's blocks (``Model.init_caches``)."""
+    every rank, the caches this rank's blocks (``Model.init_caches``).
+    Caches of ``arena`` (:meth:`DecodeArena.load`) run the step as the
+    arena's CUDA graph of their shape, captured on its first step; any
+    other caches run it eagerly."""
     specs = None if mesh is None else param_specs(cfg, mesh_axes(mesh), policy)
     cache_specs = None if mesh is None else _cache_specs_for(cfg, mesh, policy)
 
     def serve_step(params, caches, batch):
+        graph = None if arena is None else arena.graph_of(caches)
+        if graph is not None:
+            return arena.step(graph, eager_step, params, batch)
+        make_serve_step.steps_by_route["eager"] += 1
+        return eager_step(params, caches, batch)
+
+    def eager_step(params, caches, batch):
         inputs = batch.get("tokens", batch.get("embeds"))
         pos = batch["pos"]
         L = None
@@ -882,6 +910,193 @@ def make_serve_step(
         return _whole_logits(cfg, params, hidden, L)[:, 0], new_caches
 
     return serve_step
+
+
+# The process's decode steps by route: run eagerly, captured (a graph's
+# first step: its work runs eagerly on the capture stream, then is
+# recorded) or replayed; and the host seconds spent recording graphs.
+make_serve_step.steps_by_route = dict.fromkeys(("eager", "capture", "replay"), 0)
+make_serve_step.capture_s = 0.0
+
+
+# ---------------------------------------------------------------------------
+# decode graphs
+# ---------------------------------------------------------------------------
+GRAPH_SLOTS = 64  # the graph path's cache lengths are multiples of this
+# the zoo's kernels whose launch counters a replay advances
+_ZOO_KERNELS = (rmsnorm, flash_attention, kda_step)
+# one capture stream a device, shared by every arena: cuBLAS keeps a
+# workspace for each stream it ran on, for the life of the process
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def graph_cache_len(seq_len: int) -> int:
+    """The graph path's cache length for ``seq_len`` tokens: the next
+    multiple of :data:`GRAPH_SLOTS`, so conversations of nearby lengths
+    share a graph."""
+    return -(-seq_len // GRAPH_SLOTS) * GRAPH_SLOTS
+
+
+def graphs_apply(model) -> bool:
+    """Whether ``model``'s decode takes the graph path: a CUDA device, no
+    mesh, and no ``named_ranges()`` open (a replay emits no ranges)."""
+    return model.device.type == "cuda" and model.mesh is None and not ranges_on()
+
+
+def _launch_counts() -> list:
+    return [
+        (k.launches, dict(getattr(k, "launches_by_route", {}))) for k in _ZOO_KERNELS
+    ]
+
+
+def _advance(counts: list, sign: int = 1) -> None:
+    """Add ``sign`` x ``counts`` to the zoo kernels' launch counters."""
+    for k, (n, routes) in zip(_ZOO_KERNELS, counts, strict=True):
+        k.launches += sign * n
+        for r, m in routes.items():
+            k.launches_by_route[r] += sign * m
+
+
+class _DecodeGraph:
+    """One (batch, cache length) of a :class:`DecodeArena`: its static
+    caches, and once captured its static inputs, graph and logits, the
+    zoo kernels' launches the graph holds, and what it was captured on
+    (the params' addresses, the inputs' shapes and dtypes)."""
+
+    __slots__ = ("caches", "inputs", "graph", "logits", "launches", "key")
+
+    def __init__(self, caches: dict):
+        self.caches = caches
+        self.inputs: dict[str, torch.Tensor] = {}
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.logits: torch.Tensor | None = None
+        self.launches: list = []
+        self.key: tuple | None = None
+
+
+class DecodeArena:
+    """The decode caches and CUDA graphs of one ``Model`` on its card,
+    freed with it.  One entry a (batch, cache length), built on the
+    first decode of that shape: caches with ``init_caches``' layout, and
+    a graph of the whole serve step (forward, cache writes, logits) over
+    them.  A leaf is one static tensor per (leaf path, shape, dtype), so
+    entries of one batch share every leaf whose shape does not depend on
+    the cache length (a recurrent state, a convolution's tail, a window's
+    ring): entries never run at once, and :meth:`load` rewrites every
+    leaf before a decode.  The graphs take one private memory pool and
+    record on the device's capture stream; each replay's logits are
+    copied out before the next replay."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.graphs: dict[tuple[int, int], _DecodeGraph] = {}
+        self._leaves: dict[tuple, torch.Tensor] = {}
+        self._fills = None
+        self._pool = None
+
+    def load(self, pre_caches: dict, batch: int, seq_len: int) -> dict:
+        """The caches of ``batch`` rows for ``seq_len`` tokens (the
+        length rounded up by :func:`graph_cache_len`), the prefill's
+        caches copied in and every slot past the prompt's empty again
+        (``launch/serve.py::load_prefill`` in place)."""
+        from repro_torch.launch.serve import load_prefill
+
+        entry = self._entry(batch, graph_cache_len(seq_len))
+        if self._fills is None:  # init_caches' value of each leaf
+            self._fills = _tree_map(_fill_value, init_caches(self.cfg, 1, 1, "cpu"))
+        with torch.no_grad():
+            load_prefill(entry.caches, pre_caches, fills=self._fills)
+        return entry.caches
+
+    def _entry(self, batch: int, cache_len: int) -> _DecodeGraph:
+        entry = self.graphs.get((batch, cache_len))
+        if entry is None:
+            shapes = init_caches(self.cfg, batch, cache_len, META)
+            entry = _DecodeGraph(_map_with_path(self._leaf, shapes))
+            self.graphs[(batch, cache_len)] = entry
+        return entry
+
+    def _leaf(self, path: str, like: torch.Tensor) -> torch.Tensor:
+        key = (path, tuple(like.shape), like.dtype)
+        if key not in self._leaves:
+            self._leaves[key] = torch.empty_like(like, device=self.device)
+        return self._leaves[key]
+
+    def graph_of(self, caches) -> _DecodeGraph | None:
+        """The entry whose caches ``caches`` are, else None."""
+        return next((e for e in self.graphs.values() if e.caches is caches), None)
+
+    def step(self, entry: _DecodeGraph, eager_step, params: dict, batch: dict):
+        """One decode step on ``entry``'s caches: a replay of its graph,
+        or, on its first step or where the params' addresses or the
+        inputs' shapes differ from its graph's, a capture.  Returns a
+        copy of the logits (the next replay overwrites its graph's)."""
+        key = (
+            tuple(t.data_ptr() for t in tree_leaves(params)),
+            tuple((k, v.shape, v.dtype) for k, v in sorted(batch.items())),
+        )
+        if entry.graph is None or key != entry.key:
+            return self._capture(entry, eager_step, params, batch, key)
+        for k, v in batch.items():
+            entry.inputs[k].copy_(v)
+        with torch.cuda.device(self.device):
+            entry.graph.replay()
+        _advance(entry.launches)
+        make_serve_step.steps_by_route["replay"] += 1
+        return entry.logits.clone(), entry.caches
+
+    def _capture(self, entry: _DecodeGraph, eager_step, params, batch, key):
+        """Run the step on the capture stream (the warm-up capture asks
+        for, whose logits are this step's), then record it into a new
+        graph over ``entry``'s caches and static copies of ``batch``."""
+        dev = self.device
+        stream = _CAPTURE_STREAMS.get(dev)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        entry.graph = entry.logits = None
+        entry.inputs = {k: v.clone() for k, v in batch.items()}
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            logits, _ = eager_step(params, entry.caches, entry.inputs)
+        current.wait_stream(stream)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # no garbage collection while capturing: a collection that frees
+        # another model's graphs destroys them mid-capture, which the
+        # capture does not survive
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev), torch.cuda.graph(
+                graph, pool=self._pool, stream=stream
+            ):
+                entry.logits, _ = eager_step(params, entry.caches, entry.inputs)
+        finally:
+            if collecting:
+                gc.enable()
+        make_serve_step.capture_s += time.perf_counter() - t0
+        # a capture launches nothing: each replay counts what it holds
+        entry.launches = [
+            (n - n0, {r: m - r0[r] for r, m in routes.items()})
+            for (n, routes), (n0, r0) in zip(_launch_counts(), before, strict=True)
+        ]
+        _advance(entry.launches, -1)
+        entry.graph, entry.key = graph, key
+        make_serve_step.steps_by_route["capture"] += 1
+        return logits, entry.caches
+
+
+def _fill_value(leaf: torch.Tensor):
+    """The one value a freshly initialised cache leaf holds."""
+    value = leaf.reshape(-1)[0]
+    if not bool((leaf == value).all()):
+        raise ValueError("a cache leaf's init is not one value")
+    return value.item()
 
 
 class Model:
@@ -929,7 +1144,9 @@ class Model:
             **sh,
         )
         self.prefill_step = make_prefill_step(cfg, **sh)
-        self.serve_step = make_serve_step(cfg, **sh)
+        # the decode graph path's caches and graphs (launch/serve.py::generate)
+        self.arena = DecodeArena(cfg, self.device)
+        self.serve_step = make_serve_step(cfg, arena=self.arena, **sh)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -1028,11 +1245,14 @@ def build_model(cfg: ModelConfig, **kw) -> Model:
 
 
 __all__ = [
+    "DecodeArena",
     "Model",
     "build_model",
     "cache_len_for",
     "chunked_xent",
     "forward",
+    "graph_cache_len",
+    "graphs_apply",
     "init_caches",
     "init_params",
     "init_train_state",

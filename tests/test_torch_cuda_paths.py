@@ -80,6 +80,17 @@ imports JAX, so the tests run where the card is.
   the same init, losses and grad norms within 1e-5 relative, params
   within 1e-4 of their scale, logits within 1e-4.
 
+* the zoo's decode graphs (``models/model.py::DecodeArena``):
+  ``generate`` on the graph path against the eager loop on fresh caches
+  of the same bucketed length, bit for bit (tokens and logits), for every
+  zoo architecture's smoke config and DeepSeek-V2-Lite's and
+  Kimi-Linear's in bf16 (a capture, then replays; a second generation all
+  replays); a longer prompt, then a shorter one in the same 64-slot
+  bucket (the stale slots emptied); two buckets of one batch alternating
+  on Kimi-Linear's shared KDA state; the kernels' launch counters per
+  replay as per eager step; the allocated bytes back to the model-free
+  level once the model goes.
+
 * the tracer's clock anchor: a kernel synchronised inside a wall span
   lies inside the span on the profiler's timeline
   (``Tracer.to_profiler_us``), within 50 us at each end.
@@ -89,6 +100,7 @@ Run on a machine with a card:
 """
 
 import dataclasses
+import gc
 import json
 
 import numpy as np
@@ -112,8 +124,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     Model,
     forward,
+    graph_cache_len,
     logits_fn,
     make_loss_fn,
+    make_serve_step,
 )
 from repro_torch.optim.adamw import leaves, tree_leaves  # noqa: E402
 from repro_torch.models.sharding import FleetMesh, ShardingPolicy  # noqa: E402
@@ -973,3 +987,162 @@ def test_kda_step_matches_plain_on_card(cuda, dtype, o_rtol):
         assert err <= o_rtol * float(want.float().abs().max()), err
         err = float((mine - plain).abs().max())
         assert err <= 1e-5 * float(plain.abs().max()), err
+
+
+# -- the zoo's decode graphs ----------------------------------------------------
+# every zoo architecture's smoke config (dense GQA, a sliding window, M-RoPE
+# and embeds in, MoE, MLA, Mamba, mLSTM/sLSTM, KDA), and the two decode
+# cells' models in bf16 (kernels C and E on their bf16 routes)
+GRAPH_ARCHS = [f"{name}-smoke" for name in (
+    "h2o-danube-3-4b", "qwen2.5-14b", "starcoder2-15b", "qwen2-vl-2b",
+    "musicgen-medium", "qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b",
+    "deepseek-v2-lite-16b", "jamba-1.5-large-398b", "xlstm-125m",
+    "kimi-linear-48b-a3b-ep4",
+)] + ["deepseek-v2-lite-16b-smoke:bf16",
+      "kimi-linear-48b-a3b-ep4-smoke:bf16"]  # fmt: skip
+
+
+def _graph_model(arch: str, dev):
+    name, _, dtype = arch.partition(":")
+    cfg = get_config(name)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    model = Model(cfg, dev)
+    return model, model.init_params(0)
+
+
+def _graph_prompt(cfg, b: int, s: int, seed: int, dev) -> torch.Tensor:
+    if cfg.input_kind == "embeds":
+        return torch.tensor(serve.prompt_embeds(cfg.d_model, b, s, seed), device=dev)
+    tok = serve.prompt_tokens(cfg.vocab_size, b, s, seed)
+    return torch.tensor(tok, dtype=torch.int32, device=dev)
+
+
+def _eager_generate(model, params, prompt, gen: int):
+    """``serve.generate``'s loop, eager, on fresh caches of the graph
+    path's (bucketed) length: (tokens [B, gen + 1], logits [gen, B, V])."""
+    b, s = prompt.shape[:2]
+    dev = model.device
+    key = "embeds" if model.cfg.input_kind == "embeds" else "tokens"
+    zeros = torch.zeros((b, 1, model.cfg.d_model), device=dev)
+    last, pre = model.prefill_step(params, {key: prompt})
+    caches = serve.load_prefill(model.init_caches(b, graph_cache_len(s + gen)), pre)
+    tok = last.argmax(-1).to(torch.int32)[:, None]
+    tokens, logits = [tok], []
+    for i in range(gen):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        step = {key: zeros if key == "embeds" else tok, "pos": pos}
+        lg, caches = model.serve_step(params, caches, step)
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        tokens.append(tok)
+        logits.append(lg.float().clone())
+    return torch.cat(tokens, 1), torch.stack(logits)
+
+
+def _routes() -> dict[str, int]:
+    return dict(make_serve_step.steps_by_route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_graphs_match_eager_on_card(cuda, arch):
+    """``generate`` on the graph path against the eager loop on fresh
+    caches of the same bucketed length, bit for bit (tokens and logits):
+    the first step captures, the rest replay, and a second generation of
+    the shape replays every step."""
+    model, params = _graph_model(arch, cuda)
+    prompt = _graph_prompt(model.cfg, 3, 37, 1, cuda)
+    want = _eager_generate(model, params, prompt, 6)
+    for captures in (1, 0):
+        before = _routes()
+        out = serve.generate(model, params, prompt, 6)
+        after = _routes()
+        assert after["capture"] - before["capture"] == captures
+        assert after["replay"] - before["replay"] == 6 - captures
+        assert after["eager"] == before["eager"]
+        assert torch.equal(out.tokens, want[0])
+        assert torch.equal(out.logits, want[1])
+    assert list(model.arena.graphs) == [(3, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "arch", ["deepseek-v2-lite-16b-smoke", "kimi-linear-48b-a3b-ep4-smoke"]
+)
+def test_decode_graph_forgets_a_longer_prompt_on_card(cuda, arch):
+    """A longer prompt, then a shorter one in the same 64-slot bucket, on
+    one model: the second generation equals a fresh eager run (the slots
+    the first prompt filled past the second's hold ``kpos`` -1 again, so
+    they are not attended to)."""
+    model, params = _graph_model(arch, cuda)
+    serve.generate(model, params, _graph_prompt(model.cfg, 2, 50, 2, cuda), 5)
+    short = _graph_prompt(model.cfg, 2, 21, 3, cuda)
+    out = serve.generate(model, params, short, 5)
+    assert list(model.arena.graphs) == [(2, 64)]
+    want = _eager_generate(model, params, short, 5)
+    assert torch.equal(out.tokens, want[0])
+    assert torch.equal(out.logits, want[1])
+
+
+@pytest.mark.cuda
+def test_decode_graphs_alternate_on_a_shared_state_on_card(cuda):
+    """Two shapes of one batch (buckets 64 and 128) alternating A, B, A on
+    Kimi-Linear's smoke config: the KDA state and convolution tail are one
+    tensor for both entries, and each generation equals the eager run."""
+    model, params = _graph_model("kimi-linear-48b-a3b-ep4-smoke", cuda)
+    for s, seed in ((30, 4), (90, 5), (30, 6)):
+        prompt = _graph_prompt(model.cfg, 2, s, seed, cuda)
+        out = serve.generate(model, params, prompt, 4)
+        want = _eager_generate(model, params, prompt, 4)
+        assert torch.equal(out.tokens, want[0])
+        assert torch.equal(out.logits, want[1])
+    a, b = (model.arena.graphs[k].caches for k in ((2, 64), (2, 128)))
+    assert a["groups"]["b0"]["state"] is b["groups"]["b0"]["state"]
+    assert a["groups"]["b1"]["ckv"] is not b["groups"]["b1"]["ckv"]
+
+
+@pytest.mark.cuda
+def test_decode_graph_replays_count_their_launches_on_card(cuda):
+    """The zoo kernels' launch counters advance per replay as they do per
+    eager step: C and E (and D, none at decode) over a generation on the
+    graph path equal the eager loop's, route by route."""
+    model, params = _graph_model("kimi-linear-48b-a3b-ep4-smoke:bf16", cuda)
+    prompt = _graph_prompt(model.cfg, 2, 40, 7, cuda)
+    counted = []
+    for run in (lambda: _eager_generate(model, params, prompt, 5),
+                lambda: serve.generate(model, params, prompt, 5),
+                lambda: serve.generate(model, params, prompt, 5)):  # fmt: skip
+        before = (rmsnorm.launches, dict(rmsnorm.launches_by_route),
+                  kda_step.launches, flash_attention.launches)  # fmt: skip
+        run()
+        torch.cuda.synchronize()
+        counted.append((
+            rmsnorm.launches - before[0],
+            {r: n - before[1][r] for r, n in rmsnorm.launches_by_route.items()},
+            kda_step.launches - before[2],
+            flash_attention.launches - before[3],
+        ))  # fmt: skip
+    assert counted[0][2] == 5 * 3  # E: one a KDA layer (of 3) a decode step
+    assert counted[1] == counted[0] and counted[2] == counted[0]
+
+
+@pytest.mark.cuda
+def test_decode_arena_is_freed_with_its_model_on_card(cuda):
+    """The arena's caches, graphs and graph pool go with the model: the
+    allocated bytes return to the level before it was built.  (A first
+    model warms the process's capture stream, whose cuBLAS workspace
+    outlives every model.)"""
+    model, params = _graph_model("kimi-linear-48b-a3b-ep4-smoke", cuda)
+    serve.generate(model, params, _graph_prompt(model.cfg, 2, 30, 8, cuda), 3)
+    del model, params
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    model, params = _graph_model("kimi-linear-48b-a3b-ep4-smoke", cuda)
+    for s in (30, 90):
+        out = serve.generate(model, params, _graph_prompt(model.cfg, 2, s, 8, cuda), 3)
+    assert len(model.arena.graphs) == 2
+    del model, params, out
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == base
