@@ -6,6 +6,10 @@
 * :mod:`repro_torch.kernels.rmsnorm` — the model zoo's RMSNorm;
 * :mod:`repro_torch.kernels.flash_attention` — the model zoo's prefill
   attention;
+* :mod:`repro_torch.kernels.kda_step` — Kimi Delta Attention's decode step;
 * :mod:`repro_torch.kernels.lib` — builds ``csrc/*.cu`` with ``nvcc`` and
-  loads the library with ``ctypes``.
+  loads the library with ``ctypes``;
+* :mod:`repro_torch.kernels.graphs` — the port's CUDA-graph capture and
+  replay, and the kernels' launch counts across them;
+* :mod:`repro_torch.kernels.launch_cost` — what a kernel call costs.
 """

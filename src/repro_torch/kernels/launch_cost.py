@@ -49,6 +49,7 @@ import torch
 from repro_torch.configs.adfll_dqn import DQNConfig
 from repro_torch.core.erb import flat_columns, flat_width
 from repro_torch.kernels import fused_td as td
+from repro_torch.kernels import graphs
 from repro_torch.kernels import lib
 from repro_torch.kernels import replay_gather as rg
 from repro_torch.kernels import rmsnorm as rn
@@ -74,25 +75,20 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 20) -> float:
 
 def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 10) -> float:
     """Device time of one ``fn()``: ``launches`` calls captured in one
-    CUDA graph, the graph replayed ``replays`` times between CUDA events.
-    ``fn`` is warmed up on a side stream first, as capture wants."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()  # the first replay uploads the graph
+    CUDA graph (:mod:`repro_torch.kernels.graphs`, after three warm-up
+    calls on its capture stream), the graph replayed ``replays`` times
+    between CUDA events."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    graphs.warm_up(lambda: [fn() for _ in range(3)], dev)
+    pool = torch.cuda.graph_pool_handle()
+    graph = graphs.capture(lambda: [fn() for _ in range(launches)], dev, pool)
+    graphs.replay(graph)  # the first replay uploads the graph
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(replays):
-        graph.replay()
+        graphs.replay(graph)
     end.record()
     end.synchronize()
     del graph

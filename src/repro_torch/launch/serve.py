@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.models.model import Model, graphs_apply
+from repro_torch.models.model import Model, graphs_apply, load_prefill
 
 
 @dataclass
@@ -47,43 +47,6 @@ class Generation:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def load_prefill(caches, pre_caches, fills=None):
-    """Copy the prefill's caches (k/v/kpos, MLA's latent ckv/krope/kpos,
-    the dense prefix's and the groups') into the decode caches (the
-    reference's ``_load_prefill``).
-
-    Every prefill leaf must either match its decode leaf exactly or be a
-    same-rank prefix of it (kv caches sized for the whole conversation);
-    anything else is a wiring bug, and silently keeping the empty decode
-    cache would serve garbage, so it raises.
-
-    ``fills`` (a tree like ``caches``: each leaf's empty value, ``kpos``'s
-    -1): load in place, into caches that may hold an earlier
-    conversation.  Every leaf keeps its tensor (a CUDA graph reads them),
-    and a leaf the prefill fills only in part is emptied first, so the
-    slots past the prompt hold no earlier request's entries."""
-    if isinstance(caches, dict):
-        if not isinstance(pre_caches, dict) or caches.keys() != pre_caches.keys():
-            raise ValueError("prefill caches do not have the decode caches' leaves")
-        fill = dict.fromkeys(caches) if fills is None else fills
-        return {k: load_prefill(caches[k], pre_caches[k], fill[k]) for k in caches}
-    dst, src = caches, pre_caches
-    if dst.shape == src.shape:
-        return src.to(dst.dtype) if fills is None else dst.copy_(src)
-    if dst.dim() == src.dim() and all(
-        sd <= dd for sd, dd in zip(src.shape, dst.shape, strict=True)
-    ):
-        if fills is not None:
-            dst.fill_(fills)
-        # group-stacked kv: [G, B, L, H, D] <- [G, B, s, H, D]
-        dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
-        return dst
-    raise ValueError(
-        f"prefill cache leaf {tuple(src.shape)} does not fit decode cache "
-        f"leaf {tuple(dst.shape)} (rank or axis mismatch)"
-    )
 
 
 def prompt_tokens(

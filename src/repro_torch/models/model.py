@@ -41,9 +41,8 @@ decode steps by route.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-import gc
-import time
 from typing import Any
 
 import torch
@@ -51,9 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.kda_step import kda_step
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels import graphs
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init
 from repro_torch.models.layers import (
@@ -833,6 +830,43 @@ def _cache_len(caches: dict) -> int:
     return 1
 
 
+def load_prefill(caches, pre_caches, fills=None):
+    """Copy the prefill's caches (k/v/kpos, MLA's latent ckv/krope/kpos,
+    the dense prefix's and the groups') into the decode caches (the
+    reference's ``_load_prefill``).
+
+    Every prefill leaf must either match its decode leaf exactly or be a
+    same-rank prefix of it (kv caches sized for the whole conversation);
+    anything else is a wiring bug, and silently keeping the empty decode
+    cache would serve garbage, so it raises.
+
+    ``fills`` (a tree like ``caches``: each leaf's empty value, ``kpos``'s
+    -1): load in place, into caches that may hold an earlier
+    conversation.  Every leaf keeps its tensor (a CUDA graph reads them),
+    and a leaf the prefill fills only in part is emptied first, so the
+    slots past the prompt hold no earlier request's entries."""
+    if isinstance(caches, dict):
+        if not isinstance(pre_caches, dict) or caches.keys() != pre_caches.keys():
+            raise ValueError("prefill caches do not have the decode caches' leaves")
+        fill = dict.fromkeys(caches) if fills is None else fills
+        return {k: load_prefill(caches[k], pre_caches[k], fill[k]) for k in caches}
+    dst, src = caches, pre_caches
+    if dst.shape == src.shape:
+        return src.to(dst.dtype) if fills is None else dst.copy_(src)
+    if dst.dim() == src.dim() and all(
+        sd <= dd for sd, dd in zip(src.shape, dst.shape, strict=True)
+    ):
+        if fills is not None:
+            dst.fill_(fills)
+        # group-stacked kv: [G, B, L, H, D] <- [G, B, s, H, D]
+        dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
+        return dst
+    raise ValueError(
+        f"prefill cache leaf {tuple(src.shape)} does not fit decode cache "
+        f"leaf {tuple(dst.shape)} (rank or axis mismatch)"
+    )
+
+
 def make_prefill_step(
     cfg: ModelConfig, *, mesh=None, policy: ShardingPolicy = ShardingPolicy()
 ):
@@ -914,20 +948,14 @@ def make_serve_step(
 
 # The process's decode steps by route: run eagerly, captured (a graph's
 # first step: its work runs eagerly on the capture stream, then is
-# recorded) or replayed; and the host seconds spent recording graphs.
+# recorded) or replayed.
 make_serve_step.steps_by_route = dict.fromkeys(("eager", "capture", "replay"), 0)
-make_serve_step.capture_s = 0.0
 
 
 # ---------------------------------------------------------------------------
 # decode graphs
 # ---------------------------------------------------------------------------
 GRAPH_SLOTS = 64  # the graph path's cache lengths are multiples of this
-# the zoo's kernels whose launch counters a replay advances
-_ZOO_KERNELS = (rmsnorm, flash_attention, kda_step)
-# one capture stream a device, shared by every arena: cuBLAS keeps a
-# workspace for each stream it ran on, for the life of the process
-_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 
 def graph_cache_len(seq_len: int) -> int:
@@ -943,35 +971,17 @@ def graphs_apply(model) -> bool:
     return model.device.type == "cuda" and model.mesh is None and not ranges_on()
 
 
-def _launch_counts() -> list:
-    return [
-        (k.launches, dict(getattr(k, "launches_by_route", {}))) for k in _ZOO_KERNELS
-    ]
-
-
-def _advance(counts: list, sign: int = 1) -> None:
-    """Add ``sign`` x ``counts`` to the zoo kernels' launch counters."""
-    for k, (n, routes) in zip(_ZOO_KERNELS, counts, strict=True):
-        k.launches += sign * n
-        for r, m in routes.items():
-            k.launches_by_route[r] += sign * m
-
-
+@dataclasses.dataclass(eq=False)
 class _DecodeGraph:
     """One (batch, cache length) of a :class:`DecodeArena`: its static
-    caches, and once captured its static inputs, graph and logits, the
-    zoo kernels' launches the graph holds, and what it was captured on
-    (the params' addresses, the inputs' shapes and dtypes)."""
+    caches, and once captured its static inputs, its graph (whose output
+    is the logits) and what it was captured on (the params' addresses,
+    the inputs' shapes and dtypes)."""
 
-    __slots__ = ("caches", "inputs", "graph", "logits", "launches", "key")
-
-    def __init__(self, caches: dict):
-        self.caches = caches
-        self.inputs: dict[str, torch.Tensor] = {}
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.logits: torch.Tensor | None = None
-        self.launches: list = []
-        self.key: tuple | None = None
+    caches: dict
+    inputs: dict = dataclasses.field(default_factory=dict)
+    graph: graphs.Graph | None = None
+    key: tuple | None = None
 
 
 class DecodeArena:
@@ -983,9 +993,9 @@ class DecodeArena:
     entries of one batch share every leaf whose shape does not depend on
     the cache length (a recurrent state, a convolution's tail, a window's
     ring): entries never run at once, and :meth:`load` rewrites every
-    leaf before a decode.  The graphs take one private memory pool and
-    record on the device's capture stream; each replay's logits are
-    copied out before the next replay."""
+    leaf before a decode.  The graphs are recorded and replayed by
+    :mod:`repro_torch.kernels.graphs`, in one memory pool of the arena's;
+    each replay's logits are copied out before the next replay."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         self.cfg = cfg
@@ -999,9 +1009,7 @@ class DecodeArena:
         """The caches of ``batch`` rows for ``seq_len`` tokens (the
         length rounded up by :func:`graph_cache_len`), the prefill's
         caches copied in and every slot past the prompt's empty again
-        (``launch/serve.py::load_prefill`` in place)."""
-        from repro_torch.launch.serve import load_prefill
-
+        (:func:`load_prefill` in place)."""
         entry = self._entry(batch, graph_cache_len(seq_len))
         if self._fills is None:  # init_caches' value of each leaf
             self._fills = _tree_map(_fill_value, init_caches(self.cfg, 1, 1, "cpu"))
@@ -1040,53 +1048,24 @@ class DecodeArena:
             return self._capture(entry, eager_step, params, batch, key)
         for k, v in batch.items():
             entry.inputs[k].copy_(v)
-        with torch.cuda.device(self.device):
-            entry.graph.replay()
-        _advance(entry.launches)
         make_serve_step.steps_by_route["replay"] += 1
-        return entry.logits.clone(), entry.caches
+        return graphs.replay(entry.graph).clone(), entry.caches
 
     def _capture(self, entry: _DecodeGraph, eager_step, params, batch, key):
-        """Run the step on the capture stream (the warm-up capture asks
-        for, whose logits are this step's), then record it into a new
-        graph over ``entry``'s caches and static copies of ``batch``."""
-        dev = self.device
-        stream = _CAPTURE_STREAMS.get(dev)
-        if stream is None:
-            stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        """Warm the step up (its logits are this step's), then record it
+        into a new graph over ``entry``'s caches and static copies of
+        ``batch``."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        entry.graph = entry.logits = None
+        entry.graph = None
         entry.inputs = {k: v.clone() for k, v in batch.items()}
-        current = torch.cuda.current_stream(dev)
-        stream.wait_stream(current)
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            logits, _ = eager_step(params, entry.caches, entry.inputs)
-        current.wait_stream(stream)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        # no garbage collection while capturing: a collection that frees
-        # another model's graphs destroys them mid-capture, which the
-        # capture does not survive
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(dev), torch.cuda.graph(
-                graph, pool=self._pool, stream=stream
-            ):
-                entry.logits, _ = eager_step(params, entry.caches, entry.inputs)
-        finally:
-            if collecting:
-                gc.enable()
-        make_serve_step.capture_s += time.perf_counter() - t0
-        # a capture launches nothing: each replay counts what it holds
-        entry.launches = [
-            (n - n0, {r: m - r0[r] for r, m in routes.items()})
-            for (n, routes), (n0, r0) in zip(_launch_counts(), before, strict=True)
-        ]
-        _advance(entry.launches, -1)
-        entry.graph, entry.key = graph, key
+
+        def run():
+            return eager_step(params, entry.caches, entry.inputs)[0]
+
+        logits = graphs.warm_up(run, self.device)
+        entry.graph = graphs.capture(run, self.device, self._pool)
+        entry.key = key
         make_serve_step.steps_by_route["capture"] += 1
         return logits, entry.caches
 
@@ -1203,12 +1182,10 @@ class Model:
 
     def load_prefill(self, caches: dict[str, Any], pre_caches: dict[str, Any]):
         """The prefill's caches into decode caches from
-        :meth:`init_caches` (``launch/serve.py::load_prefill``).  On a mesh
+        :meth:`init_caches` (:func:`load_prefill`).  On a mesh
         a cache that ``model`` splits along the sequence at the prompt's
         length or at the decode caches' is all-gathered and cut to the
         rank's slots first."""
-        from repro_torch.launch.serve import load_prefill
-
         if self.mesh is None:
             return load_prefill(caches, pre_caches)
         axes = mesh_axes(self.mesh)
@@ -1256,6 +1233,7 @@ __all__ = [
     "init_caches",
     "init_params",
     "init_train_state",
+    "load_prefill",
     "logits_fn",
     "make_loss_fn",
     "make_prefill_step",

@@ -71,27 +71,24 @@ cards and overlap across them need a host with several.
 CUDA graphs: a flush's chunk is a fixed chain of a few hundred small
 launches a stacked step, at shapes that recur from flush to flush, and
 on the card its host dispatch, not the device, sets the pace.  So the
-engine replays it.  A chunk's key is what the engine observes in its
-operands: its shape (device, rows N, steps K, batch B, statistics on or
-off) and the row capacity of the device's replay pool.  The first chunk
-of a shape runs eagerly (it warms cuDNN's algorithm choice, the
-allocator and the kernel library); the second is run once on a side
-stream and captured there into a :class:`torch.cuda.CUDAGraph` (one
-private memory pool per device, shared by its graphs: each replay's
-outputs are copied out before the next replay); every later chunk of
-the key replays it.  Other device types never capture.  A captured
-chunk reads fixed addresses: the replay pool is one buffer per device
-whose row capacity is a power of two, reallocated with room for four
-times the rows when the pool outgrows it (the union of a flush's ERBs
-grows as ERBs are shared), which is a new key for every shape, so each shape's next chunk
-captures again, with no second warm-up, and replays its new graph for
-its result; the index goes into a static ``[K, N, B]`` buffer, the
-chunk's state into static tensors, and the outputs are copied out after
-the replay.  The work inside is the eager chunk's, launch for launch:
-one ``replay_gather`` and one ``fused_td`` a stacked step per shard,
-whose ``launches`` counters a replay advances by what its capture
-launched.  ``n_graph_captures`` and ``n_graph_replays`` count chunks;
-with enabled telemetry so do ``fleet.graph.captures`` and
+engine replays it, recorded by :mod:`repro_torch.kernels.graphs` into
+a memory pool the engine keeps a device.  A chunk's key is what the
+engine observes in its operands: its shape (device, rows N, steps K,
+batch B, statistics on or off) and the row capacity of the device's
+replay pool.  The first chunk of a shape runs eagerly (it warms cuDNN's
+algorithm choice, the allocator and the kernel library); the second is
+warmed up and captured; every later chunk of the key replays it.  Other
+device types never capture.  A captured chunk reads fixed addresses: the
+replay pool is one buffer per device whose row capacity is a power of
+two, reallocated with room for four times the rows when the pool
+outgrows it (the union of a flush's ERBs grows as ERBs are shared),
+which is a new key for every shape, so each shape's next chunk captures
+again, with no second warm-up, and replays its new graph for its result;
+the index goes into a static ``[K, N, B]`` buffer, the chunk's state
+into static tensors, and the outputs are copied out after the replay.
+The work inside is the eager chunk's, launch for launch, and so are the
+kernels' launch counts.  ``n_graph_captures`` and ``n_graph_replays``
+count chunks; with enabled telemetry so do ``fleet.graph.captures`` and
 ``fleet.graph.replays``, and a flush span's ``graph`` is ``"eager"``
 where some chunk ran eagerly, else ``"capture"`` where one was captured,
 else ``"replay"``.
@@ -103,7 +100,7 @@ resident ones), so a tensor handed out by ``get_params`` or
 
 from __future__ import annotations
 
-import gc
+import functools
 import time
 from collections import OrderedDict
 from collections.abc import Callable, Sequence
@@ -115,7 +112,8 @@ import torch
 from repro_torch.configs.adfll_dqn import DQNConfig
 from repro_torch.core.erb import ERB, erb_add, erb_flatten, flat_columns, flat_width
 from repro_torch.device import resolve_device
-from repro_torch.kernels.fused_td import fused_td, td_loss
+from repro_torch.kernels import graphs
+from repro_torch.kernels.fused_td import td_loss
 from repro_torch.kernels.replay_gather import replay_gather
 from repro_torch.models.sharding import FleetMesh, FleetSharding
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
@@ -560,21 +558,15 @@ def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+@dataclass(eq=False)
 class _ChunkGraph:
     """One key's chunk as a CUDA graph: the static operands it reads
-    (``state``, ``idx``; the device's replay pool besides), the graph,
-    the outputs it writes (``new``, ``out``), and the ``replay_gather``
-    and ``fused_td`` launches it holds."""
+    (``state``, ``idx``; the device's replay pool besides) and, once
+    captured, the graph, whose outputs are ``(new state, losses)``."""
 
-    __slots__ = ("state", "idx", "graph", "new", "out", "launches")
-
-    def __init__(self, state: FleetState, idx: torch.Tensor):
-        self.state = state
-        self.idx = idx
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.new: FleetState | None = None
-        self.out: torch.Tensor | None = None
-        self.launches = (0, 0)
+    state: FleetState
+    idx: torch.Tensor
+    captured: graphs.Graph | None = None
 
 
 # bounds of the device cache of flattened ERBs: entries and total bytes
@@ -661,13 +653,12 @@ class FleetEngine:
         self._pool_bufs: dict[torch.device, torch.Tensor] = {}
         self._pool_held: dict[torch.device, set] = {}
         # CUDA graphs of the chunk: shapes run once, shapes captured once
-        # (warm on the capture stream), the graphs of the pools' current
-        # capacities, and per device their memory pool and capture stream
+        # (warmed up), the graphs of the pools' current capacities, and
+        # per device their memory pool
         self._graph_shapes: set = set()
         self._graph_warm: set = set()
         self._graphs: dict[tuple, _ChunkGraph] = {}
         self._graph_pools: dict[torch.device, tuple] = {}
-        self._graph_streams: dict[torch.device, torch.cuda.Stream] = {}
         self.n_graph_captures = 0
         self.n_graph_replays = 0
         # observability (observe-only)
@@ -898,49 +889,19 @@ class FleetEngine:
     def _capture(
         self, graph: _ChunkGraph, chunk: Callable, pool: torch.Tensor, key: tuple
     ) -> tuple[FleetState, torch.Tensor]:
-        """Capture ``chunk`` on the graph's static operands on the
-        device's capture stream, into the device's graph memory pool.
-        The first capture of a shape runs the chunk there first (the
-        warm-up ``torch.cuda.graph`` asks for), and its outputs are this
-        chunk's result; a shape captured before, at a smaller pool, is
-        warm, so its new graph is replayed for the result instead (the
-        caller copies the static state out)."""
+        """Capture ``chunk`` on the graph's static operands.  A shape's
+        first capture warms it up, whose outputs are this chunk's result;
+        a shape captured before, at a smaller pool, replays its new graph
+        for the result instead (the caller copies the static state out)."""
         dev = pool.device
-        stream = self._graph_streams.get(dev)
-        if stream is None:
-            stream = self._graph_streams[dev] = torch.cuda.Stream(dev)
         if dev not in self._graph_pools:
             self._graph_pools[dev] = torch.cuda.graph_pool_handle()
         warm = key[:-1] in self._graph_warm
+        run = functools.partial(chunk, graph.state, pool, graph.idx)
         if not warm:
-            current = torch.cuda.current_stream(dev)
-            stream.wait_stream(current)
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                new, out = chunk(graph.state, pool, graph.idx)
-            current.wait_stream(stream)
+            new, out = graphs.warm_up(run, dev)
             self._graph_warm.add(key[:-1])
-        launched = (replay_gather.launches, fused_td.launches)
-        cuda_graph = torch.cuda.CUDAGraph()
-        # no garbage collection while capturing: a collection that frees
-        # another engine's graph destroys it mid-capture, which the
-        # capture does not survive
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.device(dev), torch.cuda.graph(
-                cuda_graph, pool=self._graph_pools[dev], stream=stream
-            ):
-                graph.new, graph.out = chunk(graph.state, pool, graph.idx)
-        finally:
-            if collecting:
-                gc.enable()
-        # a capture launches nothing: each replay counts what it holds
-        graph.launches = (
-            replay_gather.launches - launched[0],
-            fused_td.launches - launched[1],
-        )
-        replay_gather.launches, fused_td.launches = launched
-        graph.graph = cuda_graph
+        graph.captured = graphs.capture(run, dev, self._graph_pools[dev])
         self._graphs[key] = graph
         self.n_graph_captures += 1
         self.telemetry.count("fleet.graph.captures", 1)
@@ -957,11 +918,8 @@ class FleetEngine:
 
     @staticmethod
     def _launch(graph: _ChunkGraph) -> tuple[FleetState, torch.Tensor]:
-        with torch.cuda.device(graph.idx.device):
-            graph.graph.replay()
-        replay_gather.launches += graph.launches[0]
-        fused_td.launches += graph.launches[1]
-        return graph.new, graph.out.clone()
+        new, out = graphs.replay(graph.captured)
+        return new, out.clone()
 
     # -- one step now (the stepwise backend) -----------------------------------
     def train_step(self, slot: int, plan) -> float:
@@ -1169,7 +1127,7 @@ class FleetEngine:
                 new, out = chunk(sub, pool, idx_d)
             # a replay's state is the graph's own, overwritten by its next
             # replay: copied out here (index_copy, a clone) before that
-            static = graph is not None and new is graph.new
+            static = graph is not None and new is graph.captured.outputs[0]
             if lone:
                 new = new.map(lambda x: x[:1].clone())
                 out = out[:, :1]

@@ -40,7 +40,8 @@ imports JAX, so the tests run where the card is.
   bit, through a growth of the replay pool that captures again (warm,
   its new graph replayed for the flush's result); a
   snapshot taken before a replay unchanged by it; graphs that turn to
-  garbage during another engine's capture are not collected inside it.
+  garbage during another engine's capture are not collected inside it;
+  engines that captured leave no device memory behind once deleted.
 * the zoo's LM train step: C's backward (``RMSNorm``) against autograd
   through ``rmsnorm_plain`` at the danube train shape; a reduced
   float32 h2o-danube-3-4b's ``loss_fn`` and its gradients on the card
@@ -566,6 +567,35 @@ def test_capture_outlives_a_collected_graph_on_card(cuda):
     torch.cuda.synchronize()
     assert new.n_graph_captures == 2 and new.n_graph_replays == 1
     assert all(torch.isfinite(t).all() for t in leaves(new.get_params(0)))
+
+
+@pytest.mark.cuda
+def test_engines_that_captured_are_freed_on_card(cuda):
+    """Three engines in turn, each capturing a chunk and replaying it,
+    then deleted: after the first, the allocated bytes return to their
+    level each time.  (The first warms the process's capture stream,
+    whose cuBLAS workspace outlives every engine; a stream of each
+    engine's own would leave one workspace behind each.)"""
+    rng = np.random.default_rng(11)
+    erb = erb_init(1024, TINY.box_size, task=TaskTag("t1", "axial", "HGG"))
+    erb_add(erb, _random_rows(rng, 100))
+    sampler = SelectiveReplaySampler()
+    levels = []
+    for _ in range(3):
+        engine = FleetEngine(TINY, device=cuda)
+        for seed in range(2):
+            engine.add_slot(seed)
+        for _ in range(3):  # eager, captured, replayed
+            for slot in range(2):
+                plans = [sampler.plan(rng, TINY.batch_size, erb) for _ in range(3)]
+                engine.submit(slot, plans)
+            engine.flush()
+        assert engine.n_graph_captures == engine.n_graph_replays == 1
+        del engine
+        gc.collect()
+        torch.cuda.synchronize()
+        levels.append(torch.cuda.memory_allocated(cuda))
+    assert levels[1:] == [levels[0]] * 2
 
 
 def _records(report):

@@ -130,3 +130,29 @@ def test_entry_points_default_to_cuda():
     assert sweeps_main([*args, "--workers", "1", "--store", "none"]) == 1
     assert FleetEngine(cfg, device="cpu").device.type == "cpu"
     assert Model(get_config("h2o-danube-3-4b-smoke"), "cpu").device.type == "cpu"
+
+
+def test_lower_layers_import_nothing_of_the_cli():
+    """No module under ``repro_torch.models``, ``.rl``, ``.core`` or
+    ``.kernels`` imports ``repro_torch.launch``, at its top or inside a
+    function: the entry points sit above the layers they drive."""
+    import ast
+
+    src = ROOT / "src" / "repro_torch"
+    found = []
+    for layer in ("models", "rl", "core", "kernels"):
+        for path in sorted((src / layer).rglob("*.py")):
+            package = ["repro_torch", *path.relative_to(src).parent.parts]
+            for node in ast.walk(ast.parse(path.read_text(), str(path))):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    up = len(package) + 1 - node.level
+                    base = package[:up] if node.level else []
+                    mod = ".".join([*base, node.module or ""]).strip(".")
+                    names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+                else:
+                    continue
+                if any(n.split(".")[:2] == ["repro_torch", "launch"] for n in names):
+                    found.append(f"{path.relative_to(src)}:{node.lineno}")
+    assert found == []
