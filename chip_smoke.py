@@ -123,7 +123,14 @@ non-zero exit code and no result line:
    one state (the state within 1e-5 of its largest magnitude, ``o``
    within 2**-7 in bf16 and 1e-5 in float32), the bf16 call timed like
    phase 3 (no library call computes it) against its bytes' bound (543
-   MB at B 128 over 3.35 TB/s).
+   MB at B 128 over 3.35 TB/s).  Then ``kda_chunk`` (F, KDA's chunked
+   prefill from a zero state) against its plain version at the main
+   path's slice (32 rows of 128 x 1024, H 32, d 128, o in bf16), in
+   float32 (2 rows) and at a ragged one (B 3, S 200, H 5, d 72), decays
+   whose negation overflows: the state within 1e-4 of its largest
+   magnitude, ``o`` within 1e-4 (float32) or 2**-7 (bf16) of its
+   largest; the slice timed (``device_ms`` over 10 calls in a graph)
+   against its operations' bound (FFMA at 67 TFLOP/s) and its bytes'.
 14. zoo_chunk — a reduced float32 h2o-danube-3-4b (2 kv heads, window 64)
    on the card and on the CPU from the same params and tokens: prefill
    of 96 tokens (past the window), then 8 decode steps; logits must
@@ -322,9 +329,9 @@ table2_sweep, observatory, cli, examples) and the stepwise path,
 ``rmsnorm`` and ``flash_attention`` on the zoo's (lm_train_chunk,
 lm_train_main, lm_train_remat, zoo_main for each arch, zoo_window, moe_ep,
 lm_train_mesh,
-lm_mixers_mesh and examples), ``kda_step`` on Kimi-Linear's zoo_main; the
-planner path launches none.  Every entry carries ``launches_by_path``
-and ``launches`` is its sum.
+lm_mixers_mesh and examples), ``kda_step`` and ``kda_chunk`` on
+Kimi-Linear's zoo_main; the planner path launches none.  Every entry
+carries ``launches_by_path`` and ``launches`` is its sum.
 """
 
 from __future__ import annotations
@@ -378,6 +385,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     route,
 )
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
+from repro_torch.kernels.kda_chunk import kda_chunk, kda_chunk_plain  # noqa: E402
 from repro_torch.kernels.kda_step import kda_step, kda_step_plain  # noqa: E402
 from repro_torch.kernels.launch_cost import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
@@ -506,7 +514,7 @@ CLI_SCENARIOS = ("churn_addition_fig4", "gossip_hetero")
 ROOT = Path(__file__).resolve().parent
 BENCH_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_experiments.json"
 RMS_EPS = get_config(ZOO_ARCH).norm_eps
-KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step)
+KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step, kda_chunk)
 FLEET_KERNELS = ("replay_gather", "fused_td")
 # Table 1 / FedAvg scenarios: (n_rounds, stacked train steps) at --fast
 BASELINES = {
@@ -547,6 +555,9 @@ EXTRA_FIELDS = (
     "library_causal_device_ms",
     "xlstm_125m_train",
     "quickstart_scalar",
+    "operations_ms",
+    "bytes_ms",
+    "gflop",
 )
 
 
@@ -2162,6 +2173,111 @@ def check_kda_step(dev) -> dict:
     return main
 
 
+def kda_chunk_flops(b: int, s: int, h: int, d: int) -> int:
+    """The products a ``kda_chunk`` launch needs (multiply and add, two
+    flops), per (sequence, head) and 64-token chunk (the last counted
+    whole): the pairwise products (q.k on and below the diagonal, k.k
+    below it), the substitution over 2d right-hand columns, W S and q S,
+    Aqk w on and below the diagonal, and the state's update."""
+    c, lower, strict = 64, 64 * 65 // 2, 64 * 63 // 2
+    per_chunk = (
+        (lower + strict) * d  # Aqk, L
+        + strict * 2 * d  # (I + L) [U | W] = [beta v | beta k exp(gc)]
+        + 2 * c * d * d  # W S, q S
+        + lower * d  # Aqk w
+        + c * d * d  # the state's update
+    )
+    return 2 * b * h * -(-s // c) * per_chunk
+
+
+def kda_chunk_bytes(b: int, s: int, h: int, d: int, out_bytes: int) -> int:
+    """The least a ``kda_chunk`` launch moves: q, k, v and g read in
+    float32, beta read, o written in its dtype, the float32 state written."""
+    return b * s * h * (4 * d * 4 + 4 + d * out_bytes) + b * h * d * d * 4
+
+
+def check_kda_chunk(dev) -> dict:
+    """F (``kda_chunk``) against ``kda_chunk_plain`` on the card: a slice of
+    Kimi-Linear's prefill at batch 128 (32 rows of prompt 1024, H 32, d 128,
+    ``o`` in bf16), its slice at prompt 512 (64 rows: ``SLICE_BYTES`` over
+    S H d 4), the same 1024 in float32 at 2 rows, and a ragged one (B 3,
+    S 200: a chunk and a partial one past three; H 5, d 72), decays drawn as
+    the CPU test's (``-exp(2 randn)`` up to 60: a chunk's cumulative decay
+    reaches hundreds), one launch a call.  Tolerances as
+    tests/test_torch_cuda_paths.py's card test: the float32 state within
+    1e-4 of the plain state's largest magnitude and float32 ``o`` within
+    1e-4 of its largest (float32 both sides; the substitution, the halving's
+    sums and the state's products in another order), bf16 ``o`` within
+    2**-7 (each side rounds once to bf16: one part in 2**8, twice).  The
+    bf16 slice timed like phase 3 (no library call computes it; ``device_ms``
+    over 10 calls in a graph, each allocating its outputs); bound: the
+    larger of its products at 67 TFLOP/s (FFMA) and its bytes at 3.35 TB/s."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = (
+        ("prefill", 32, 1024, 32, 128, torch.bfloat16, 2**-7),
+        ("prefill_512", 64, 512, 32, 128, torch.bfloat16, 2**-7),
+        ("prefill_f32", 2, 1024, 32, 128, torch.float32, 1e-4),
+        ("ragged", 3, 200, 5, 72, torch.bfloat16, 2**-7),
+    )
+    worst, timed = 0.0, {}
+    for name, b, s, h, d, dtype, o_rtol in cases:
+        qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev)
+        g = -torch.exp(2 * torch.randn(b, s, h, d, generator=gen, device=dev))
+        g = g.clamp(min=-60.0)
+        beta = torch.rand(b, s, h, generator=gen, device=dev)
+        before = kda_chunk.launches
+        o, state = kda_chunk(qkv, g, beta, d**-0.5, 64, dtype)
+        want, want_state = kda_chunk_plain(qkv, g, beta, d**-0.5, 64, dtype)
+        torch.cuda.synchronize()
+        require(
+            kda_chunk.launches == before + 1,
+            f"kda_chunk {name}: {kda_chunk.launches - before} launches, not 1",
+        )
+        err = float((o.float() - want.float()).abs().max())
+        require(
+            err <= o_rtol * float(want.float().abs().max()),
+            f"kda_chunk {name} [{b}, {s}, {h}, {d}] {dtype}: o max|d|={err}",
+        )
+        worst = max(worst, err)
+        err = float((state - want_state).abs().max())
+        require(
+            err <= 1e-4 * float(want_state.abs().max()),
+            f"kda_chunk {name} [{b}, {s}, {h}, {d}] {dtype}: state max|d|={err}",
+        )
+        del want, want_state
+        if name != "prefill":
+            continue
+
+        def call():
+            return kda_chunk(qkv, g, beta, d**-0.5, 64, dtype)
+
+        flops = kda_chunk_flops(b, s, h, d)
+        nbytes = kda_chunk_bytes(b, s, h, d, o.element_size())
+        f_ms, b_ms = flops / PEAK_FLOPS[torch.float32] * 1e3, bound_ms(nbytes)
+        timed = {
+            "ms": cuda_ms(call, reps=20, warmup=3),
+            "device_ms": graph_ms(call, launches=10, replays=3),
+            "library_ms": None,
+            "library_device_ms": None,
+            "floor_ms": cuda_ms(lambda: torch.mul(o, 2.0), reps=20, warmup=3),
+            "plain_ms": cuda_ms(
+                lambda: kda_chunk_plain(qkv, g, beta, d**-0.5, 64, dtype),
+                reps=3,
+                warmup=1,
+            ),
+            "bound_ms": max(f_ms, b_ms),
+            "bound_by": "operations" if f_ms >= b_ms else "bytes",
+            "operations_ms": f_ms,
+            "bytes_ms": b_ms,
+            "gflop": flops / 1e9,
+            "shape": [b, s, h, d, str(dtype).removeprefix("torch.")],
+        }
+        del o, state
+    main = {"max_abs_err": worst, **timed}
+    emit({"phase": "kernel", "name": "kda_chunk", **main})
+    return main
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -3195,7 +3311,8 @@ def phase_kimi_main(dev) -> dict[str, int]:
     0 in bfloat16, batch 4, 32 greedy steps) at prompt 1024 (the
     ``perfbench`` cell's longer prompt); launches read around the
     generation alone.  E once a KDA layer a decode step (20 x 32), never at
-    prefill (the chunked form is plain PyTorch); C a norm per mixer, per
+    prefill; F once a KDA layer at prefill (20: the 4 rows are one slice);
+    C a norm per mixer, per
     FFN and the final one, and KDA's gated output norm, a forward (55 + 20,
     x 33; the prefill's KDA runs the 4 rows as one slice), all on the
     ``cta`` route; D never (MLA attends through ``chunked_attention``).
@@ -3253,6 +3370,10 @@ def phase_kimi_main(dev) -> dict[str, int]:
         f"not {n_kda} x {ZOO_GEN}",
     )
     require(
+        launches["kda_chunk"] == n_kda,
+        f"{KIMI_ARCH}: kda_chunk launched {launches['kda_chunk']} times, not {n_kda}",
+    )
+    require(
         launches["flash_attention"] == 0,
         f"{KIMI_ARCH}: flash_attention launched {launches['flash_attention']} times",
     )
@@ -3260,7 +3381,9 @@ def phase_kimi_main(dev) -> dict[str, int]:
         rms_routes == {"cta": want_rms, "masked": 0},
         f"{KIMI_ARCH}: rmsnorm routes {rms_routes}, not {want_rms} on cta",
     )
-    return {k: launches[k] for k in ("rmsnorm", "flash_attention", "kda_step")}
+    return {
+        k: launches[k] for k in ("rmsnorm", "flash_attention", "kda_step", "kda_chunk")
+    }
 
 
 def phase_zoo_window(dev) -> dict[str, int]:
@@ -4328,6 +4451,7 @@ def main() -> int:
     results["rmsnorm"] = check_rmsnorm(dev)
     results["flash_attention"] = check_flash_attention(dev)
     results["kda_step"] = check_kda_step(dev)
+    results["kda_chunk"] = check_kda_chunk(dev)
     phase_zoo_chunk(dev)
     # the zoo's paths, C and D launches read around each alone
     measured: dict = {}  # peaks and step times the planner is set beside
@@ -4347,7 +4471,7 @@ def main() -> int:
     zoo_paths["planner"] = phase_planner(dev, measured)
     by_path["planner"] = {k: 0 for k in FLEET_KERNELS}
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
-    for name in ("rmsnorm", "flash_attention", "kda_step"):
+    for name in ("rmsnorm", "flash_attention", "kda_step", "kda_chunk"):
         launches[name] = sum(p.get(name, 0) for p in zoo_paths.values())
         results[name]["launches_by_path"] = {
             p: n.get(name, 0) for p, n in zoo_paths.items()
@@ -4370,6 +4494,7 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:106",
         ),
         "kda_step": ("src/repro_torch/csrc/kda_step.cu", "none: new in the port"),
+        "kda_chunk": ("src/repro_torch/csrc/kda_chunk.cu", "none: new in the port"),
     }
     kernels = [
         {

@@ -7,6 +7,8 @@
 * :mod:`repro_torch.kernels.flash_attention` — the model zoo's prefill
   attention;
 * :mod:`repro_torch.kernels.kda_step` — Kimi Delta Attention's decode step;
+* :mod:`repro_torch.kernels.kda_chunk` — Kimi Delta Attention's chunked
+  prefill;
 * :mod:`repro_torch.kernels.lib` — builds ``csrc/*.cu`` with ``nvcc`` and
   loads the library with ``ctypes``;
 * :mod:`repro_torch.kernels.graphs` — the port's CUDA-graph capture and

@@ -15,11 +15,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_td import fused_td
+from repro_torch.kernels.kda_chunk import kda_chunk
 from repro_torch.kernels.kda_step import kda_step
 from repro_torch.kernels.replay_gather import replay_gather
 from repro_torch.kernels.rmsnorm import rmsnorm
 
-KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step)
+KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step, kda_chunk)
 _STREAMS: dict[int, torch.cuda.Stream] = {}  # by device index
 
 

@@ -23,13 +23,15 @@ only what a launch needs:
   :data:`fused_td_f32`, :data:`rmsnorm_f32`, :data:`rmsnorm_bf16`,
   :data:`flash_attention_f32`, :data:`flash_attention_bf16`,
   :data:`flash_attention_bf16_wgmma`, :data:`kda_step_f32`,
-  :data:`kda_step_bf16`); a wrapper calls the handle, with
+  :data:`kda_step_bf16`, :data:`kda_chunk_f32`, :data:`kda_chunk_bf16`);
+  a wrapper calls the handle, with
   no ``load()`` or ``getattr`` on the library per call.
 * An entry point takes one argument: a pointer to a C struct of the
   launch's arguments, which the wrapper packs into ``bytes`` with a
   precompiled ``struct.Struct`` (:data:`REPLAY_GATHER_ARGS`,
   :data:`FUSED_TD_ARGS`, :data:`RMSNORM_ARGS`,
-  :data:`FLASH_ATTENTION_ARGS`, :data:`KDA_STEP_ARGS`), through its kernel
+  :data:`FLASH_ATTENTION_ARGS`, :data:`KDA_STEP_ARGS`,
+  :data:`KDA_CHUNK_ARGS`), through its kernel
   module's ``launch_args``,
   the one place that packs it.  ``ctypes`` converts each declared argument on
   its own, at a few hundred nanoseconds each; one packed buffer costs one
@@ -76,6 +78,7 @@ SOURCES = (
     "rmsnorm.cu",
     "flash_attention.cu",
     "kda_step.cu",
+    "kda_chunk.cu",
 )
 HEADERS = ("launch.cuh",)  # included by the sources; part of the build's hash
 
@@ -118,6 +121,9 @@ FLASH_ATTENTION_ARGS = struct.Struct("@5P8i2f")
 # kda_step.cu KdaStepArgs: state, qkv, g, beta, o, stream; device, bh, h,
 # d; scale, eps.
 KDA_STEP_ARGS = struct.Struct("@6P4i2f")
+# kda_chunk.cu KdaChunkArgs: qkv, g, beta, o, state, stream; device, b, s,
+# h, d; scale, eps; the C struct's tail padding to 8 bytes.
+KDA_CHUNK_ARGS = struct.Struct("@6P5i2f4x")
 # each entry point, and the sizeof function of the struct it takes
 ENTRY_POINTS = {
     "replay_gather_f32": ("replay_gather_args_size", REPLAY_GATHER_ARGS),
@@ -132,6 +138,8 @@ ENTRY_POINTS = {
     ),
     "kda_step_f32": ("kda_step_args_size", KDA_STEP_ARGS),
     "kda_step_bf16": ("kda_step_args_size", KDA_STEP_ARGS),
+    "kda_chunk_f32": ("kda_chunk_args_size", KDA_CHUNK_ARGS),
+    "kda_chunk_bf16": ("kda_chunk_args_size", KDA_CHUNK_ARGS),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -145,6 +153,8 @@ flash_attention_bf16 = None
 flash_attention_bf16_wgmma = None
 kda_step_f32 = None
 kda_step_bf16 = None
+kda_chunk_f32 = None
+kda_chunk_bf16 = None
 raw_stream = None  # device index -> its current stream as a cudaStream_t
 
 
@@ -208,7 +218,7 @@ def load() -> ctypes.CDLL:
     entry points' module-level handles."""
     global _LIB, replay_gather_f32, fused_td_f32, rmsnorm_f32, rmsnorm_bf16
     global flash_attention_f32, flash_attention_bf16, flash_attention_bf16_wgmma
-    global kda_step_f32, kda_step_bf16, raw_stream
+    global kda_step_f32, kda_step_bf16, kda_chunk_f32, kda_chunk_bf16, raw_stream
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, (size_name, fmt) in ENTRY_POINTS.items():
@@ -227,6 +237,7 @@ def load() -> ctypes.CDLL:
         flash_attention_bf16 = lib.flash_attention_bf16
         flash_attention_bf16_wgmma = lib.flash_attention_bf16_wgmma
         kda_step_f32, kda_step_bf16 = lib.kda_step_f32, lib.kda_step_bf16
+        kda_chunk_f32, kda_chunk_bf16 = lib.kda_chunk_f32, lib.kda_chunk_bf16
         raw_stream = torch._C._cuda_getCurrentRawStream
         _LIB = lib
     return _LIB
@@ -267,6 +278,7 @@ __all__ = [
     "FLASH_ATTENTION_ARGS",
     "FUSED_TD_ARGS",
     "HEADERS",
+    "KDA_CHUNK_ARGS",
     "KDA_STEP_ARGS",
     "REPLAY_GATHER_ARGS",
     "RMSNORM_ARGS",

@@ -15,9 +15,10 @@ decode separately: the unprofiled wall seconds, the device's busy
 seconds (CUDA kernel and memcpy time the profiler saw), the idle share
 ``1 - busy / profiled wall``, the device operations launched and the ten
 kernels with the most device time.  The zoo's named ranges
-(``models/layers.py::named_ranges``: ``kda.prefill``, ``kda.step``,
-``moe.held``) are on for the run, so Kimi-Linear's trace names its mixer's and its
-held experts' time, under ``ranges`` (each range's span on the device,
+(``models/layers.py::named_ranges``: ``kda.prefill``, ``kda.chunk`` (kernel
+F inside it), ``kda.step``, ``moe.held``) are on for the run, so Kimi-Linear's
+trace names its mixer's and its held experts' time, under ``ranges`` (each
+range's span on the device,
 gaps included; not counted as operations).  Kimi-Linear serves at prompt 1024 (its MLA
 prefill, like deepseek's, goes through ``chunked_attention``).
 """

@@ -29,14 +29,17 @@ side, ``[d, 3 H d_k]``), ``conv`` (their taps, ``[conv_width, 3 H d_k]``),
 ``[1, H d_k]``, ``b`` (beta), ``g_a``/``g_b`` (the gate, ``g_b`` with the
 bias ``b_g``), ``o_norm`` and ``wo``.
 
-Two forms.  Train and prefill run the chunkwise-parallel (WY/UT) form,
-:func:`chunk_kda`: within a chunk of ``chunk`` tokens a unit
+Two forms.  Train and prefill run the chunkwise-parallel (WY/UT) form
+(``kernels/kda_chunk.py``): within a chunk of ``chunk`` tokens a unit
 lower-triangular solve gives the delta rule's corrections, across chunks
-the state is carried.  Decode runs one recurrent step a token through the
-fused ``kda_step`` kernel (``kernels/kda_step.py``: the state read and
-written once).  The decode cache of a layer is ``{"state": [B, H, d_k,
-d_v] float32, "conv": [B, conv_width - 1, 3 H d_k]}``, the state and the
-last inputs of the three convolutions, written in place at decode.
+the state is carried; on a card, where no gradient is recorded, one
+launch of the ``kda_chunk`` kernel a slice of rows (the L2 norms
+included), else its plain version (``kda_chunk_plain``).  Decode runs one
+recurrent step a token through the fused ``kda_step`` kernel
+(``kernels/kda_step.py``: the state read and written once).  The decode
+cache of a layer is ``{"state": [B, H, d_k, d_v] float32, "conv": [B,
+conv_width - 1, 3 H d_k]}``, the state and the last inputs of the three
+convolutions, written in place at decode.
 
 Prefill runs the batch in slices of rows (:data:`SLICE_BYTES` of float32
 ``q`` a slice), so a layer's working memory does not grow with the batch.
@@ -50,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.kda_chunk import kda_chunk
 from repro_torch.kernels.kda_step import kda_step
 from repro_torch.kernels.rmsnorm import RMSNorm
 from repro_torch.models.layers import (
@@ -61,7 +65,6 @@ from repro_torch.models.layers import (
 )
 
 F32 = torch.float32
-L2_EPS = 1e-6
 SLICE_BYTES = 512 << 20  # float32 q of one slice of the prefill's rows
 
 
@@ -131,10 +134,6 @@ def _short_conv(p: dict, proj: torch.Tensor, tail: torch.Tensor | None):
     return F.silu(y, inplace=not y.requires_grad), full[:, s:]
 
 
-def _l2(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + L2_EPS)
-
-
 def _decay(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """g [B, S, H, d_k] float32, the per-channel log-decay (<= 0)."""
     k = cfg.kda
@@ -158,105 +157,6 @@ def _out(cfg: ModelConfig, p: dict, x: torch.Tensor, o: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# the chunkwise-parallel form
-# ---------------------------------------------------------------------------
-def _intra(q, k, gc):
-    """The chunk's pairwise products with the decay between the two
-    tokens: ``Aqk[t, i] = sum_c q_tc k_ic exp(gc_tc - gc_ic)`` for ``i <=
-    t`` and ``Akk`` the same of ``k`` with itself for ``i < t`` (zero
-    elsewhere), over ``[..., C, d_k]`` chunks (``C`` a power of two).
-
-    Halving: at each level the chunk splits into blocks of ``2 h`` tokens,
-    each a left and a right half; the pairs with ``t`` in the right half
-    and ``i`` in the left one factor through ``gc_m``, the cumulative
-    decay at the left half's last token, as ``(q_t exp(gc_t - gc_m)) .
-    (k_i exp(gc_m - gc_i))``: both exponents are ``-|gc - gc_m|``, never
-    positive, and one product a block gives them all.  Every pair below
-    the diagonal falls in exactly one level; the diagonal itself is
-    ``q_t . k_t``."""
-    *lead, c, dk = q.shape
-    aqk = torch.diag_embed((q * k).sum(-1))
-    akk = q.new_zeros((*lead, c, c))
-    h = 1
-    while h < c:
-        nb = c // (2 * h)
-        shape = (*lead, nb, 2, h, dk)
-        gb = gc.reshape(shape)
-        e = torch.exp(-(gb - gb[..., :1, -1:, :]).abs())
-        qr = q.reshape(shape)[..., 1, :, :] * e[..., 1, :, :]
-        ke = k.reshape(shape) * e
-        kl = ke[..., 0, :, :].transpose(-1, -2)
-        blocks = torch.arange(nb, device=q.device)
-        for a, rows in ((aqk, qr), (akk, ke[..., 1, :, :])):
-            a.view(*lead, nb, 2, h, nb, 2, h)[..., blocks, 1, :, blocks, 0, :] = (
-                rows @ kl
-            ).movedim(-3, 0)
-        h *= 2
-    return aqk, akk
-
-
-def _chunk_rows(q, k, v, g, beta, state):
-    """:func:`chunk_kda` on ``[b, H, N, C, d]`` chunks (contiguous),
-    ``beta [b, H, N, C]``, ``state [b, H, d_k, d_v]``."""
-    b, h, n, c, dk = q.shape
-    dv = v.shape[-1]
-    gc = g.cumsum(-2)
-    aqk, akk = _intra(q, k, gc)
-    eg = torch.exp(gc)
-    bcol = beta[..., None]
-    # (I + diag(beta) strictly-lower(Akk)) [U | W] = beta [v | k e^gc]: the
-    # unit lower-triangular inverse T once, then one product
-    eye = torch.eye(c, dtype=q.dtype, device=q.device).expand_as(akk)
-    t = torch.linalg.solve_triangular(akk * bcol, eye, upper=False, unitriangular=True)
-    u, wk = (t @ (torch.cat([v, k * eg], -1) * bcol)).split([dv, dk], -1)
-    qg = q * eg
-    glast = gc[..., -1:, :]
-    kend = (k * torch.exp(glast - gc)).transpose(-1, -2)  # [b, H, N, d_k, C]
-    decay = torch.exp(glast).transpose(-1, -2)  # [b, H, N, d_k, 1]
-    s = state.reshape(b * h, dk, dv)
-    flat = [t.reshape(b * h, n, *t.shape[-2:]) for t in (u, wk, qg, aqk, kend, decay)]
-    u, wk, qg, aqk, kend, decay = flat
-    outs = []
-    for i in range(n):
-        w = torch.baddbmm(u[:, i], wk[:, i], s, alpha=-1.0)
-        outs.append(torch.baddbmm(aqk[:, i] @ w, qg[:, i], s))
-        s = torch.baddbmm(decay[:, i] * s, kend[:, i], w)
-    o = torch.stack(outs, 1).reshape(b, h, n, c, dv)
-    return o, s.reshape(b, h, dk, dv)
-
-
-def chunk_kda(q, k, v, g, beta, *, chunk: int = 64, state=None):
-    """The recurrence over whole sequences, chunk by chunk: q, k [B, S, H,
-    d_k] (normalised, q scaled), v [B, S, H, d_v], g [B, S, H, d_k] (the
-    log-decay), beta [B, S, H], all float32; ``state`` [B, H, d_k, d_v]
-    before the first token (None: zeros).  Returns (o [B, S, H, d_v], the
-    state after the last token), both float32.
-
-    A length that is no multiple of ``chunk`` (a power of two) is padded
-    at the end with ``beta = 0, g = 0`` (and zero q, k, v), which leave
-    the state as it is.  Decays are only ever taken as ``exp(gc_i -
-    gc_j)`` with ``i`` after ``j``, ``gc`` the cumulative log-decay inside
-    the chunk, so no exponent is positive: ``-gc`` alone reaches hundreds
-    over a chunk."""
-    b, s, h, dk = q.shape
-    dv = v.shape[-1]
-    pad = (-s) % chunk
-    n = (s + pad) // chunk
-
-    def chunks(t):  # [B, S, H, ...] -> [B, H, N, C, ...], contiguous
-        if pad:
-            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-        t = t.reshape(b, n, chunk, h, *t.shape[3:])
-        return t.movedim(3, 1).contiguous()
-
-    if state is None:
-        state = q.new_zeros((b, h, dk, dv))
-    o, state = _chunk_rows(*(chunks(t) for t in (q, k, v, g, beta)), state)
-    o = o.movedim(1, 3).reshape(b, n * chunk, h, dv)
-    return o[:, :s], state
-
-
-# ---------------------------------------------------------------------------
 # the mixer
 # ---------------------------------------------------------------------------
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, tail):
@@ -272,12 +172,10 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, tail):
 def _prefill_rows(cfg: ModelConfig, p: dict, x: torch.Tensor):
     k = cfg.kda
     qkv, tail = _qkv(cfg, p, x, None)
-    q, kk, v = qkv.unbind(2)
-    q = _l2(q) * k.head_dim**-0.5
-    o, state = chunk_kda(
-        q, _l2(kk), v, _decay(cfg, p, x), _beta(p, x), chunk=k.chunk
-    )
-    return _out(cfg, p, x, o.to(x.dtype)), state, tail
+    g, beta = _decay(cfg, p, x), _beta(p, x)
+    with span("kda.chunk"):
+        o, state = kda_chunk(qkv, g, beta, k.head_dim**-0.5, k.chunk, x.dtype)
+    return _out(cfg, p, x, o), state, tail
 
 
 def kda_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str, state=None):
@@ -315,4 +213,4 @@ def _decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict):
     return _out(cfg, p, x, o.reshape(b, 1, k.n_heads, k.head_dim)), cache
 
 
-__all__ = ["chunk_kda", "kda_apply", "kda_init", "kda_state_init"]
+__all__ = ["kda_apply", "kda_init", "kda_state_init"]

@@ -81,6 +81,12 @@ imports JAX, so the tests run where the card is.
   the same init, losses and grad norms within 1e-5 relative, params
   within 1e-4 of their scale, logits within 1e-4.
 
+* KDA's chunked prefill, kernel F: ``kda_chunk`` against its plain
+  version at 1-1024 tokens and three head widths, float32 and bf16
+  outputs, steep decays; the route by autograd (``calls_by_route``); and
+  Kimi-Linear's smoke model, prefill through F then teacher-forced
+  decode, against the CPU.
+
 * the zoo's decode graphs (``models/model.py::DecodeArena``):
   ``generate`` on the graph path against the eager loop on fresh caches
   of the same bucketed length, bit for bit (tokens and logits), for every
@@ -116,9 +122,10 @@ from repro_torch.experiments.runner import build, evaluate_into  # noqa: E402
 from repro_torch.core.erb import TaskTag, erb_add, erb_flatten, erb_init, flat_columns  # noqa: E402
 from repro_torch.core.replay import SelectiveReplaySampler  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
+from repro_torch.kernels.kda_chunk import kda_chunk, kda_chunk_plain  # noqa: E402
 from repro_torch.kernels.kda_step import kda_step, kda_step_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
-from repro_torch.configs.base import FFN_NONE, get_config  # noqa: E402
+from repro_torch.configs.base import FFN_NONE, KDA, get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -1017,6 +1024,124 @@ def test_kda_step_matches_plain_on_card(cuda, dtype, o_rtol):
         assert err <= o_rtol * float(want.float().abs().max()), err
         err = float((mine - plain).abs().max())
         assert err <= 1e-5 * float(plain.abs().max()), err
+
+
+# -- kernel F: KDA's chunked prefill --------------------------------------------
+def _kda_chunk_draw(b, s, h, d, device, seed):
+    """qkv, the CPU test's steep decays (``-exp(2 randn)`` up to 60: a
+    chunk's cumulative decay reaches hundreds, whose negation overflows
+    ``exp``) and beta."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device=device)
+    g = -torch.exp(2 * torch.randn(b, s, h, d, generator=gen, device=device))
+    beta = torch.rand(b, s, h, generator=gen, device=device)
+    return qkv, g.clamp(min=-60.0), beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype, o_rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2**-7)]
+)
+@pytest.mark.parametrize("bhd", [(2, 32, 128), (3, 2, 32), (2, 5, 72)])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1024])
+def test_kda_chunk_matches_plain_on_card(cuda, s, bhd, dtype, o_rtol):
+    """F against its plain version (the L2 norms and ``chunk_kda``) at
+    Kimi-Linear's heads (32 x 128), the smoke config's (2 x 32) and a ragged
+    width (5 x 72: fewer columns than the tiles), lengths from one token to
+    sixteen chunks, a partial chunk among them: one launch a call, the
+    float32 state within 1e-4 of the plain state's largest magnitude and
+    float32 ``o`` within 1e-4 of its largest (float32 both sides: the
+    substitution, the halving's sums and the state's products in another
+    order), bf16 ``o`` within 2**-7 (each side rounds once to bf16, one part
+    in 2**8, so the two may differ by that twice)."""
+    b, h, d = bhd
+    qkv, g, beta = _kda_chunk_draw(b, s, h, d, cuda, seed=s + d)
+    before = kda_chunk.launches
+    o, state = kda_chunk(qkv, g, beta, d**-0.5, 64, dtype)
+    assert kda_chunk.launches == before + 1
+    want, want_state = kda_chunk_plain(qkv, g, beta, d**-0.5, 64, dtype)
+    assert o.dtype == dtype and o.shape == (b, s, h, d)
+    assert state.dtype == torch.float32 and state.shape == (b, h, d, d)
+    assert bool(torch.isfinite(o.float()).all() and torch.isfinite(state).all())
+    err = float((state - want_state).abs().max())
+    assert err <= 1e-4 * float(want_state.abs().max()), err
+    err = float((o.float() - want.float()).abs().max())
+    assert err <= o_rtol * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_kda_chunk_routes_by_autograd_on_card(cuda):
+    """On the card F runs unless autograd would record the call: an input
+    that requires a gradient under ``torch.is_grad_enabled()`` takes the
+    plain form (``calls_by_route["plain"]``, no launch) and its gradient
+    flows; the same input under ``no_grad``, or a detached one with the
+    gradient on, launches F (``calls_by_route["kernel"]``), within 1e-4 of
+    the plain output's largest."""
+    qkv, g, beta = _kda_chunk_draw(2, 70, 2, 32, cuda, seed=3)
+    qkv.requires_grad_()
+    routes = kda_chunk.calls_by_route
+
+    def moved(fn):
+        before = dict(routes), kda_chunk.launches
+        out = fn()
+        after = {r: n - before[0][r] for r, n in routes.items()}
+        return out, after, kda_chunk.launches - before[1]
+
+    def call(x):
+        return lambda: kda_chunk(x, g, beta, 32**-0.5, 64, torch.float32)
+
+    (want, _), by, n = moved(call(qkv))
+    assert by == {"kernel": 0, "plain": 1} and n == 0 and want.requires_grad
+    want.square().sum().backward()
+    assert bool(torch.isfinite(qkv.grad).all()) and bool((qkv.grad != 0).any())
+    with torch.no_grad():
+        (got, _), by, n = moved(call(qkv))
+    assert by == {"kernel": 1, "plain": 0} and n == 1
+    (again, _), by, n = moved(call(qkv.detach()))
+    assert by == {"kernel": 1, "plain": 0} and n == 1
+    for o in (got, again):
+        err = float((o - want.detach()).abs().max())
+        assert err <= 1e-4 * float(want.detach().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_kimi_prefill_through_kda_chunk_card_matches_cpu(cuda):
+    """Kimi-Linear's smoke model (float32; capacity factor 16, so no pair is
+    dropped) from one init: a 70-token prefill (F once a KDA layer on the
+    card, the plain form on the CPU), then 4 teacher-forced decode steps
+    through the loaded caches; the prefill's and every step's logits on the
+    card within 1e-4 of the CPU's largest (float32 both sides)."""
+    cfg = get_config("kimi-linear-48b-a3b-ep4-smoke")
+    moe_cfg = dataclasses.replace(cfg.moe, capacity_factor=16.0)
+    cfg = dataclasses.replace(cfg, moe=moe_cfg)
+    params = Model(cfg, "cpu").init_params(0)
+    n_kda = sum(m == KDA for m, _ in cfg.layer_pattern)
+    rng = np.random.default_rng(4)
+    b, s, steps = 2, 70, 4
+    toks = rng.integers(0, cfg.vocab_size, (b, s + steps))
+    toks = torch.tensor(toks, dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model, live = Model(cfg, dev), _to(params, dev)
+        t = toks.to(dev)
+        before = kda_chunk.launches
+        with torch.no_grad():
+            last, pre = model.prefill_step(live, {"tokens": t[:, :s]})
+            launched = kda_chunk.launches - before
+            caches = serve.load_prefill(model.init_caches(b, s + steps), pre)
+            logits = [last[:, None]]
+            for i in range(steps):
+                step = {
+                    "tokens": t[:, s + i : s + i + 1],
+                    "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev),
+                }
+                lg, caches = model.serve_step(live, caches, step)
+                logits.append(lg[:, None])
+        out[str(dev)] = (torch.cat(logits, 1).float().cpu(), launched)
+    (cpu, n_cpu), (card, n_card) = out["cpu"], out["cuda"]
+    assert n_cpu == 0 and n_card == n_kda == 3
+    assert bool(torch.isfinite(card).all())
+    assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
 
 
 # -- the zoo's decode graphs ----------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.core.erb import (  # noqa: E402
 )
 from repro_torch.kernels import flash_attention as attention_module  # noqa: E402
 from repro_torch.kernels import fused_td as td_module  # noqa: E402
+from repro_torch.kernels import kda_chunk as chunk_module  # noqa: E402
 from repro_torch.kernels import kda_step as kda_module  # noqa: E402
 from repro_torch.kernels import launch_cost, lib, rmsnorm  # noqa: E402
 from repro_torch.kernels import replay_gather as gather_module  # noqa: E402
@@ -460,7 +461,52 @@ def test_packed_argument_layouts():
         lib.RMSNORM_ARGS,
         lib.FLASH_ATTENTION_ARGS,
         lib.KDA_STEP_ARGS,
+        lib.KDA_CHUNK_ARGS,
     }
+
+
+def test_kda_chunk_packed_arguments():
+    """F's ``KdaChunkArgs``: six pointers (the stream last), five 32-bit
+    ints (device, b, s, h, d), scale and the L2 norms' eps, then the C
+    struct's padding to a multiple of 8 bytes."""
+    assert lib.KDA_CHUNK_ARGS.size == 6 * 8 + 5 * 4 + 2 * 4 + 4
+    raw = chunk_module.launch_args(*range(1, 12), 0.25)
+    fields = struct.unpack("<6Q5i2f4x", raw)
+    assert fields[:12] == (*range(1, 12), 0.25)
+    assert fields[12] == pytest.approx(chunk_module.L2_EPS)  # float32 in the struct
+
+
+# a case of (qkv, g, beta, o's dtype) changed from a good call: B 2, S 9,
+# H 2, d 32, all float32; and the error it raises
+KDA_CHUNK_REFUSED = {
+    "qkv_4d": ({"qkv": torch.zeros(2, 9, 3, 64)}, ValueError),
+    "qkv_not_3": ({"qkv": torch.zeros(2, 9, 2, 2, 32)}, ValueError),
+    "g_shape": ({"g": torch.zeros(2, 9, 2, 16)}, ValueError),
+    "beta_shape": ({"beta": torch.zeros(2, 9)}, ValueError),
+    "qkv_bf16": ({"qkv": torch.zeros(2, 9, 3, 2, 32, dtype=torch.bfloat16)}, TypeError),
+    "g_f64": ({"g": torch.zeros(2, 9, 2, 32, dtype=torch.float64)}, TypeError),
+    "o_f16": ({"dtype": torch.float16}, TypeError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KDA_CHUNK_REFUSED))
+def test_kda_chunk_refuses_what_no_route_takes(case):
+    """A shape or dtype the recurrence does not take raises on every route,
+    the CPU's included, before anything runs or is counted."""
+    changed, err = KDA_CHUNK_REFUSED[case]
+    call = {
+        "qkv": torch.zeros(2, 9, 3, 2, 32),
+        "g": torch.zeros(2, 9, 2, 32),
+        "beta": torch.zeros(2, 9, 2),
+        "dtype": torch.float32,
+        **changed,
+    }
+    routes = dict(chunk_module.kda_chunk.calls_by_route)
+    with pytest.raises(err):
+        chunk_module.kda_chunk(
+            call["qkv"], call["g"], call["beta"], 0.25, 64, call["dtype"]
+        )
+    assert chunk_module.kda_chunk.calls_by_route == routes
 
 
 @pytest.mark.parametrize("name", sorted(launch_cost.FORCED_PLANS))

@@ -26,10 +26,11 @@ from repro_torch.configs.base import (
     list_configs,
     param_count,
 )
+from repro_torch.kernels.kda_chunk import chunk_kda, kda_chunk
 from repro_torch.kernels.kda_step import kda_step, kda_step_plain
 from repro_torch.launch import serve
-from repro_torch.models import attention, moe
-from repro_torch.models.kda import chunk_kda, kda_apply
+from repro_torch.models import attention, kda, moe
+from repro_torch.models.kda import kda_apply
 from repro_torch.models.layers import named_ranges
 from repro_torch.models.model import Model, init_caches
 
@@ -90,7 +91,7 @@ def test_config_layout_and_counts():
 
 @pytest.mark.parametrize("on", [False, True])
 def test_named_ranges_only_when_turned_on(on):
-    """``kda.prefill``, ``kda.step`` and ``moe.held`` appear on the
+    """``kda.prefill``, ``kda.chunk``, ``kda.step`` and ``moe.held`` appear on the
     profiler's timeline only inside ``named_ranges()`` (which
     ``launch/profile_serve.py`` opens; the benchmark's trace would count
     their device-side annotations as operations), and are off again once
@@ -99,7 +100,7 @@ def test_named_ranges_only_when_turned_on(on):
     model = Model(cfg, "cpu")
     params = _params(cfg)
     prompt = torch.zeros(2, 9, dtype=torch.long)
-    want = {"kda.prefill", "kda.step", "moe.held"}
+    want = {"kda.prefill", "kda.chunk", "kda.step", "moe.held"}
     with torch.profiler.profile() as prof:
         with named_ranges() if on else contextlib.nullcontext():
             serve.generate(model, params, prompt, 1)
@@ -172,6 +173,51 @@ def test_chunked_kda_matches_token_by_token(s):
     assert torch.isfinite(got).all() and torch.isfinite(state).all()
     for a, b in ((got, want), (state, want_state)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _l2_today(x):
+    """The mixer's L2 norm before the prefill moved to ``kernels/``."""
+    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [F32, torch.bfloat16])
+def test_kda_chunk_cpu_route_is_the_plain_form(dtype):
+    """On the CPU ``kda_chunk`` runs the plain form: bit for bit the L2
+    norms, q's scale and ``chunk_kda`` as the mixer composed them, ``o``
+    cast to the asked dtype; counted as ``plain``, no launch."""
+    b, s, h, d = 2, 70, 3, 32
+    gen = _gen(7)
+    qkv = torch.randn(b, s, 3, h, d, generator=gen)
+    g = -torch.exp(2 * torch.randn(b, s, h, d, generator=gen)).clamp(max=60.0)
+    beta = torch.rand(b, s, h, generator=gen)
+    routes, launches = dict(kda_chunk.calls_by_route), kda_chunk.launches
+    o, state = kda_chunk(qkv, g, beta, d**-0.5, 64, dtype)
+    assert kda_chunk.calls_by_route == {**routes, "plain": routes["plain"] + 1}
+    assert kda_chunk.launches == launches
+    q, k, v = qkv.unbind(2)
+    q, k = _l2_today(q) * d**-0.5, _l2_today(k)
+    want, want_state = chunk_kda(q, k, v, g, beta, chunk=64)
+    assert o.dtype == dtype and torch.equal(o, want.to(dtype))
+    assert torch.equal(state, want_state)
+
+
+def test_kda_prefill_calls_kda_chunk_once_a_slice(monkeypatch):
+    """The mixer's prefill runs ``kda_chunk`` once a slice of rows
+    (``SLICE_BYTES`` of float32 q a slice: here two rows of five, so three
+    calls), and the slices' outputs and caches equal one call over all
+    rows (each row is its own recurrence)."""
+    cfg = _cfg()
+    p = _params(cfg)["prefix"]["l0"]["mixer"]
+    x = torch.randn(5, 70, cfg.d_model, generator=_gen(8))
+    whole_y, whole = kda_apply(cfg, p, x, mode="prefill")
+    hk = cfg.kda.n_heads * cfg.kda.head_dim
+    monkeypatch.setattr(kda, "SLICE_BYTES", 2 * 70 * hk * 4)
+    before = kda_chunk.calls_by_route["plain"]
+    y, cache = kda_apply(cfg, p, x, mode="prefill")
+    assert kda_chunk.calls_by_route["plain"] == before + 3
+    assert torch.allclose(y, whole_y, rtol=0, atol=1e-6 * float(whole_y.abs().max()))
+    for key in ("state", "conv"):
+        assert torch.allclose(cache[key], whole[key], rtol=0, atol=1e-6)
 
 
 def test_fused_step_plain_matches_one_reference_step():
