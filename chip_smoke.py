@@ -387,6 +387,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
 from repro_torch.kernels.kda_chunk import kda_chunk, kda_chunk_plain  # noqa: E402
 from repro_torch.kernels.kda_step import kda_step, kda_step_plain  # noqa: E402
+from repro_torch.kernels.mhc import mhc, mhc_post_plain, mhc_pre_plain  # noqa: E402
 from repro_torch.kernels.launch_cost import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
     replay_gather,
@@ -459,8 +460,9 @@ ZOO_ARCHS = (
     "xlstm-125m",
 )
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 1000, 32
-# served apart from ZOO_ARCHS (the planner refuses KDA and a held share)
+# served apart from ZOO_ARCHS (the planner refuses KDA, mHC and a held share)
 KIMI_ARCH = "kimi-linear-48b-a3b-ep4"
+XING_ARCH = "xing4.0-29b-a4b-ep4"
 # zoo_main's cuts (launch/profile_serve.py): deepseek-v2-lite at prompt
 # 480, qwen3-moe at 8 of its 94 layers, jamba-1.5-large at 4 of its 72
 ZOO_PROMPTS, ZOO_LAYERS = profile_serve.PROMPTS, profile_serve.LAYERS
@@ -514,7 +516,7 @@ CLI_SCENARIOS = ("churn_addition_fig4", "gossip_hetero")
 ROOT = Path(__file__).resolve().parent
 BENCH_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_experiments.json"
 RMS_EPS = get_config(ZOO_ARCH).norm_eps
-KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step, kda_chunk)
+KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step, kda_chunk, mhc)
 FLEET_KERNELS = ("replay_gather", "fused_td")
 # Table 1 / FedAvg scenarios: (n_rounds, stacked train steps) at --fast
 BASELINES = {
@@ -2278,6 +2280,106 @@ def check_kda_chunk(dev) -> dict:
     return main
 
 
+MHC_KW = dict(norm_eps=1e-6)
+
+
+def mhc_site_bytes(t: int, c: int, act_bytes: int) -> int:
+    """The least one mHC site's two launches move over ``t`` tokens of 4
+    rows of ``c``: the stream read by ``mhc_pre_kernel``, read and written
+    by ``mhc_post_kernel``; u written and y read; phi [4c, 24] and the
+    norm's scale read once; H_post and H_res written and read."""
+    return 3 * t * 4 * c * act_bytes + 2 * t * c * act_bytes + 4 * c * 25 * 4 + 2 * t * 20 * 4
+
+
+def mhc_site_flops(t: int, c: int) -> int:
+    """One site's products: the 24 columns of the projection and the
+    squares over 4c, u's 4 a column, the new stream's 5 a column of a row."""
+    return 2 * t * 4 * c * 25 + 2 * t * 4 * c + 2 * t * 4 * c * 5
+
+
+def check_mhc(dev) -> dict:
+    """G (``mhc.pre``, ``mhc.post``: one mHC site) against its plain forms
+    on the card: Xing4.0's decode call (128 rows of 4 x 3584) in bf16 and
+    float32, a slice of its 1024-token prefill at batch 128 (16,384 rows:
+    32 rows a CTA), and a ragged one (37 rows of 4 x 256), a site's
+    parameters drawn away from their init.  Two launches a site;
+    tolerances as tests/test_torch_cuda_paths.py's card test: H_post and
+    H_res within 1e-5, ``u`` and the new stream within 2**-7 (bf16: each
+    side rounds once) or 1e-5 (float32) of their largest.  The bf16
+    decode site and the prefill slice timed like phase 3 (no library call
+    computes it); bound: the larger of the products at the float32 units'
+    67 TFLOP/s and the bytes at 3.35 TB/s."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = (
+        ("decode", 128, 3584, torch.bfloat16, 2**-7),
+        ("decode_f32", 128, 3584, torch.float32, 1e-5),
+        ("prefill", 16384, 3584, torch.bfloat16, 2**-7),
+        ("ragged", 37, 256, torch.bfloat16, 2**-7),
+    )
+    worst, timed = 0.0, {}
+    for name, t, c, dtype, rtol in cases:
+        x = torch.randn(t, 4, c, generator=gen, device=dev).to(dtype)
+        p = (
+            (4 * c) ** -0.5 * torch.randn(4 * c, 24, generator=gen, device=dev),
+            1 + 0.3 * torch.randn(3, generator=gen, device=dev),
+            0.5 * torch.randn(24, generator=gen, device=dev),
+            1 + 0.3 * torch.randn(4 * c, generator=gen, device=dev),
+        )
+        y = torch.randn(t, c, generator=gen, device=dev).to(dtype)
+        before = mhc.launches
+        u, h_post, h_res = mhc.pre(x, *p, **MHC_KW)
+        out = mhc.post(x, y, h_post, h_res)
+        torch.cuda.synchronize()
+        require(mhc.launches == before + 2, f"mhc {name}: {mhc.launches - before} launches, not 2")
+        want_u, want_post, want_res = mhc_pre_plain(x, *p, **MHC_KW)
+        want_out = mhc_post_plain(x, y, h_post, h_res)
+        for what, got, want in (("H_post", h_post, want_post), ("H_res", h_res, want_res)):
+            err = float((got - want).abs().max())
+            require(err <= 1e-5, f"mhc {name} [{t}, 4, {c}] {dtype}: {what} max|d|={err}")
+        for what, got, want in (("u", u, want_u), ("stream", out, want_out)):
+            err = float((got.float() - want.float()).abs().max())
+            require(
+                err <= rtol * float(want.float().abs().max()),
+                f"mhc {name} [{t}, 4, {c}] {dtype}: {what} max|d|={err}",
+            )
+            worst = max(worst, err)
+        del want_u, want_out
+        if name not in ("decode", "prefill"):
+            continue
+
+        def site():
+            u, h_post, h_res = mhc.pre(x, *p, **MHC_KW)
+            return mhc.post(x, y, h_post, h_res)
+
+        def plain():
+            u, h_post, h_res = mhc_pre_plain(x, *p, **MHC_KW)
+            return mhc_post_plain(x, y, h_post, h_res)
+
+        flops, nbytes = mhc_site_flops(t, c), mhc_site_bytes(t, c, x.element_size())
+        f_ms, b_ms = flops / PEAK_FLOPS[torch.float32] * 1e3, bound_ms(nbytes)
+        row = {
+            "ms": cuda_ms(site, reps=50, warmup=5),
+            "device_ms": graph_ms(site, launches=20, replays=3),
+            "library_ms": None,
+            "library_device_ms": None,
+            "floor_ms": cuda_ms(lambda: torch.mul(out, 2.0), reps=50, warmup=5),
+            "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+            "bound_ms": max(f_ms, b_ms),
+            "bound_by": "operations" if f_ms >= b_ms else "bytes",
+            "operations_ms": f_ms,
+            "bytes_ms": b_ms,
+            "shape": [t, 4, c, str(dtype).removeprefix("torch.")],
+        }
+        if name == "decode":
+            timed = row
+        else:
+            timed["prefill"] = row
+        del site, plain
+    main = {"max_abs_err": worst, **timed}
+    emit({"phase": "kernel", "name": "mhc", **main})
+    return main
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -3386,6 +3488,89 @@ def phase_kimi_main(dev) -> dict[str, int]:
     }
 
 
+def phase_xing_main(dev) -> dict[str, int]:
+    """Xing4.0-29B-A4B's serving path at full width and depth on one card's
+    expert share (``XING_ARCH``: experts 0-15 of each layer's 64, every
+    other weight whole), as zoo_main serves (random weights from seed 0 in
+    bfloat16, batch 4, 32 greedy steps) at prompt 1024 (the ``perfbench``
+    cell's longer prompt); launches read around the generation alone.  G
+    twice a site, two sites a layer, a forward (160 x 33: the decode steps'
+    counted by their graph replays), every site on the ``kernel`` route; C
+    a norm per mixer, per FFN, the final one and the q and kv latents'
+    norms, a forward ((81 + 80) x 33), all ``cta``; D never (MLA attends
+    through ``chunked_attention``).  Finite logits; init, prefill and decode
+    times and the peak printed.  The model's logits are held to a plain
+    reference by the cell's check
+    (``perfbench/reference/xing4.0-29b-a4b-ep4.py``)."""
+    prompt_len = ZOO_PROMPTS[XING_ARCH]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, prompt = serve.setup(XING_ARCH, ZOO_BATCH, prompt_len, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    sites = 2 * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    routes_before = dict(mhc.calls_by_route)
+    out = serve.generate(model, params, prompt, ZOO_GEN)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rms_routes = dict(rmsnorm.launches_by_route)
+    mhc_routes = {r: n - routes_before[r] for r, n in mhc.calls_by_route.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(out.logits).all())
+    forwards = ZOO_GEN + 1
+    want_rms = (norms_per_forward(cfg) + 2 * cfg.n_layers) * forwards
+    emit(
+        {
+            "phase": "zoo_main",
+            "arch": XING_ARCH,
+            "cuts": "16 of 64 experts a layer held (one card of expert parallel 4)",
+            "weights": "random from seed 0",
+            "n_layers": cfg.n_layers,
+            "mhc_sites": sites,
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "batch": ZOO_BATCH,
+            "prompt": prompt_len,
+            "gen": ZOO_GEN,
+            "init_s": init_s,
+            "prefill_s": out.prefill_s,
+            "decode_s": out.decode_s,
+            "decode_tok_per_s": ZOO_GEN * ZOO_BATCH / out.decode_s,
+            "peak_gb": peak_gb,
+            "launches": launches,
+            "launches_by_route": {"rmsnorm": rms_routes, "mhc_sites": mhc_routes},
+            "sample_ids": out.tokens[0, :8].tolist(),
+        }
+    )
+    del model, params, prompt, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(finite, f"zoo main {XING_ARCH}: non-finite logits")
+    require(
+        launches["mhc"] == 2 * sites * forwards,
+        f"{XING_ARCH}: mhc launched {launches['mhc']} times, not 2 x {sites} x {forwards}",
+    )
+    # the prefill's sites are counted by route; a replayed decode step's are
+    # not (a graph replay makes no Python call)
+    require(
+        mhc_routes["kernel"] >= sites * 2 and mhc_routes["plain"] == 0,
+        f"{XING_ARCH}: mhc sites by route {mhc_routes}",
+    )
+    require(
+        launches["flash_attention"] == 0,
+        f"{XING_ARCH}: flash_attention launched {launches['flash_attention']} times",
+    )
+    require(
+        rms_routes == {"cta": want_rms, "masked": 0},
+        f"{XING_ARCH}: rmsnorm routes {rms_routes}, not {want_rms} on cta",
+    )
+    return {k: launches[k] for k in ("rmsnorm", "flash_attention", "mhc")}
+
+
 def phase_zoo_window(dev) -> dict[str, int]:
     """The sliding-window prefill -> decode handoff at full width:
     h2o-danube-3-4b (window 4096), batch 1, a prompt of ``WINDOW_PROMPT``
@@ -4452,6 +4637,7 @@ def main() -> int:
     results["flash_attention"] = check_flash_attention(dev)
     results["kda_step"] = check_kda_step(dev)
     results["kda_chunk"] = check_kda_chunk(dev)
+    results["mhc"] = check_mhc(dev)
     phase_zoo_chunk(dev)
     # the zoo's paths, C and D launches read around each alone
     measured: dict = {}  # peaks and step times the planner is set beside
@@ -4463,6 +4649,7 @@ def main() -> int:
         zoo_paths[f"zoo_main:{arch}"], routes = phase_zoo_main(dev, arch, measured)
         by_route = by_route or routes  # danube's: the zoo's reference path
     zoo_paths[f"zoo_main:{KIMI_ARCH}"] = phase_kimi_main(dev)
+    zoo_paths[f"zoo_main:{XING_ARCH}"] = phase_xing_main(dev)
     zoo_paths["zoo_window"] = phase_zoo_window(dev)
     zoo_paths["moe_ep"] = phase_moe_ep(dev)
     zoo_paths["lm_train_mesh"] = phase_lm_train_mesh(dev)
@@ -4471,7 +4658,7 @@ def main() -> int:
     zoo_paths["planner"] = phase_planner(dev, measured)
     by_path["planner"] = {k: 0 for k in FLEET_KERNELS}
     launches = {k: sum(p[k] for p in by_path.values()) for k in FLEET_KERNELS}
-    for name in ("rmsnorm", "flash_attention", "kda_step", "kda_chunk"):
+    for name in ("rmsnorm", "flash_attention", "kda_step", "kda_chunk", "mhc"):
         launches[name] = sum(p.get(name, 0) for p in zoo_paths.values())
         results[name]["launches_by_path"] = {
             p: n.get(name, 0) for p, n in zoo_paths.items()
@@ -4495,6 +4682,7 @@ def main() -> int:
         ),
         "kda_step": ("src/repro_torch/csrc/kda_step.cu", "none: new in the port"),
         "kda_chunk": ("src/repro_torch/csrc/kda_chunk.cu", "none: new in the port"),
+        "mhc": ("src/repro_torch/csrc/mhc.cu", "none: new in the port"),
     }
     kernels = [
         {

@@ -10,12 +10,15 @@ the published hyper-parameters and registers it under its id.
 <=4 experts) from the same config, so the CPU tests run the code path of
 the full-width run.  The port registers every architecture the
 reference assigns (:data:`ASSIGNED`), and the port's own
-(:data:`PORT_ONLY`: Kimi-Linear, ``configs/kimi_linear.py``), which need
-fields the reference's config lacks: a dense prefix whose mixer is not
-attention (``prefix_mixer``), unrolled layers after the groups
-(``suffix``), the KDA mixer (``kda``), a sigmoid router and a held share
-of the experts (``MoEConfig.router``, ``routed_scale``, ``n_held``,
-``held_offset``).  Each defaults to what the reference's configs run.
+(:data:`PORT_ONLY`: Kimi-Linear, ``configs/kimi_linear.py``, and
+Xing4.0, ``configs/xing4.py``), which need fields the reference's config
+lacks: a dense prefix whose mixer is not attention (``prefix_mixer``),
+unrolled layers after the groups (``suffix``), the KDA mixer (``kda``), a
+sigmoid router and a held share of the experts (``MoEConfig.router``,
+``routed_scale``, ``n_held``, ``held_offset``), MLA's latent norms
+(``MLAConfig.latent_norms``) and the manifold-constrained
+hyper-connection residual (``hc_mult``; ``models/hyper.py``).  Each
+defaults to what the reference's configs run.
 """
 
 from __future__ import annotations
@@ -65,6 +68,10 @@ class MLAConfig:
     rope_head_dim: int = 64
     nope_head_dim: int = 128
     v_head_dim: int = 128
+    # the port's own: an RMSNorm on the q latent (after ``w_dq``, where
+    # there is one) and on the kv latent (after ``w_dkv``, before the
+    # cache), DeepSeek-V3's q_a_layernorm and kv_a_layernorm
+    latent_norms: bool = False
 
 
 @dataclass(frozen=True)
@@ -134,6 +141,10 @@ class ModelConfig:
     ssm: SSMConfig = field(default_factory=SSMConfig)
     xlstm: XLSTMConfig = field(default_factory=XLSTMConfig)
     kda: KDAConfig | None = None
+    # --- the port's own: manifold-constrained hyper-connections (mHC,
+    # ``models/hyper.py``): ``hc_mult`` residual streams around every
+    # sublayer, 0 => today's single stream ------------------------------------
+    hc_mult: int = 0
     # --- io ------------------------------------------------------------------
     # "tokens": int32 token ids; "embeds": precomputed frontend embeddings
     # (audio codec frames / vision patches) — the one allowed stub.
@@ -299,6 +310,8 @@ ASSIGNED = (
 PORT_ONLY = (
     "kimi-linear-48b-a3b",
     "kimi-linear-48b-a3b-ep4",
+    "xing4.0-29b-a4b",
+    "xing4.0-29b-a4b-ep4",
 )
 
 
@@ -321,25 +334,40 @@ def _ensure_loaded() -> None:
         "starcoder2_15b",
         "qwen2_vl_2b",
         "kimi_linear",
+        "xing4",
     ):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def refuse_unplanned(cfg: ModelConfig, what: str) -> None:
     """Raise for a config that ``what`` (the mesh paths, the planner) does
-    not support yet: a KDA mixer, or a held share of the experts (one
+    not support yet: a KDA mixer, a held share of the experts (one
     card's expert-parallel slice, which the mesh paths would split
-    again)."""
-    if any(m == KDA for m, _ in cfg.layer_pattern) or cfg.moe.n_held:
+    again), or the mHC residual (``hc_mult > 0``: its stream of
+    ``hc_mult`` rows has no sharded layout)."""
+    if any(m == KDA for m, _ in cfg.layer_pattern) or cfg.moe.n_held or cfg.hc_mult:
         raise NotImplementedError(
-            f"{what} does not support {cfg.name}: the KDA mixer and a held "
-            "share of the experts run on one card only (Model without a mesh)"
+            f"{what} does not support {cfg.name}: the KDA mixer, a held "
+            "share of the experts and the mHC residual run on one card only "
+            "(Model without a mesh)"
         )
+
+
+def hc_site_params(cfg: ModelConfig) -> int:
+    """One mHC site's parameters (``models/hyper.py``): the projection
+    ``phi`` [n d, 2n + n^2], its bias, the three group scales and the
+    norm over ``n d``; 0 without mHC."""
+    n = cfg.hc_mult
+    if not n:
+        return 0
+    cols = 2 * n + n * n
+    return n * cfg.d_model * cols + cols + 3 + n * cfg.d_model
 
 
 def param_count(cfg: ModelConfig) -> tuple[int, int]:
     """(total params, active params per token) — analytic, for roofline.
-    A held share counts the experts held here."""
+    A held share counts the experts held here; MLA's latent norms and
+    each mHC site (``hc_site_params``) count with their sublayer."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     active = total
@@ -355,6 +383,7 @@ def param_count(cfg: ModelConfig) -> tuple[int, int]:
                 + d * (a.kv_lora_rank + a.rope_head_dim)
                 + a.kv_lora_rank * cfg.n_heads * (a.nope_head_dim + a.v_head_dim)
                 + cfg.n_heads * a.v_head_dim * d
+                + (a.q_lora_rank + a.kv_lora_rank if a.latent_norms else 0)
             )
         elif mixer == MAMBA:
             di = cfg.ssm.expand * d
@@ -388,6 +417,7 @@ def param_count(cfg: ModelConfig) -> tuple[int, int]:
             )
         else:
             raise ValueError(mixer)
+        m += hc_site_params(cfg) * (1 if ffn == FFN_NONE else 2)
         total += m
         active += m
         if ffn == FFN_DENSE:

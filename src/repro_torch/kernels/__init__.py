@@ -9,6 +9,8 @@
 * :mod:`repro_torch.kernels.kda_step` — Kimi Delta Attention's decode step;
 * :mod:`repro_torch.kernels.kda_chunk` — Kimi Delta Attention's chunked
   prefill;
+* :mod:`repro_torch.kernels.mhc` — kernel G, a site of the
+  manifold-constrained hyper-connection residual (Xing4.0);
 * :mod:`repro_torch.kernels.lib` — builds ``csrc/*.cu`` with ``nvcc`` and
   loads the library with ``ctypes``;
 * :mod:`repro_torch.kernels.graphs` — the port's CUDA-graph capture and

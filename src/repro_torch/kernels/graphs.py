@@ -17,10 +17,11 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_td import fused_td
 from repro_torch.kernels.kda_chunk import kda_chunk
 from repro_torch.kernels.kda_step import kda_step
+from repro_torch.kernels.mhc import mhc
 from repro_torch.kernels.replay_gather import replay_gather
 from repro_torch.kernels.rmsnorm import rmsnorm
 
-KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step, kda_chunk)
+KERNELS = (replay_gather, fused_td, rmsnorm, flash_attention, kda_step, kda_chunk, mhc)
 _STREAMS: dict[int, torch.cuda.Stream] = {}  # by device index
 
 

@@ -23,7 +23,9 @@ only what a launch needs:
   :data:`fused_td_f32`, :data:`rmsnorm_f32`, :data:`rmsnorm_bf16`,
   :data:`flash_attention_f32`, :data:`flash_attention_bf16`,
   :data:`flash_attention_bf16_wgmma`, :data:`kda_step_f32`,
-  :data:`kda_step_bf16`, :data:`kda_chunk_f32`, :data:`kda_chunk_bf16`);
+  :data:`kda_step_bf16`, :data:`kda_chunk_f32`, :data:`kda_chunk_bf16`,
+  :data:`mhc_pre_f32`, :data:`mhc_pre_bf16`, :data:`mhc_post_f32`,
+  :data:`mhc_post_bf16`);
   a wrapper calls the handle, with
   no ``load()`` or ``getattr`` on the library per call.
 * An entry point takes one argument: a pointer to a C struct of the
@@ -31,7 +33,8 @@ only what a launch needs:
   precompiled ``struct.Struct`` (:data:`REPLAY_GATHER_ARGS`,
   :data:`FUSED_TD_ARGS`, :data:`RMSNORM_ARGS`,
   :data:`FLASH_ATTENTION_ARGS`, :data:`KDA_STEP_ARGS`,
-  :data:`KDA_CHUNK_ARGS`), through its kernel
+  :data:`KDA_CHUNK_ARGS`, :data:`MHC_PRE_ARGS`, :data:`MHC_POST_ARGS`),
+  through its kernel
   module's ``launch_args``,
   the one place that packs it.  ``ctypes`` converts each declared argument on
   its own, at a few hundred nanoseconds each; one packed buffer costs one
@@ -79,6 +82,7 @@ SOURCES = (
     "flash_attention.cu",
     "kda_step.cu",
     "kda_chunk.cu",
+    "mhc.cu",
 )
 HEADERS = ("launch.cuh",)  # included by the sources; part of the build's hash
 
@@ -124,6 +128,12 @@ KDA_STEP_ARGS = struct.Struct("@6P4i2f")
 # kda_chunk.cu KdaChunkArgs: qkv, g, beta, o, state, stream; device, b, s,
 # h, d; scale, eps; the C struct's tail padding to 8 bytes.
 KDA_CHUNK_ARGS = struct.Struct("@6P5i2f4x")
+# mhc.cu MhcPreArgs: x, phi, alpha, bias, norm, u, h_post, h_res, partial,
+# counters (both null for one slice), stream; device, t, c, n,
+# rows_per_warp, splits, tiles_per_split; norm_eps.
+MHC_PRE_ARGS = struct.Struct("@11P7if")
+# mhc.cu MhcPostArgs: x, y, h_post, h_res, out, stream; device, t, c, n.
+MHC_POST_ARGS = struct.Struct("@6P4i")
 # each entry point, and the sizeof function of the struct it takes
 ENTRY_POINTS = {
     "replay_gather_f32": ("replay_gather_args_size", REPLAY_GATHER_ARGS),
@@ -140,6 +150,10 @@ ENTRY_POINTS = {
     "kda_step_bf16": ("kda_step_args_size", KDA_STEP_ARGS),
     "kda_chunk_f32": ("kda_chunk_args_size", KDA_CHUNK_ARGS),
     "kda_chunk_bf16": ("kda_chunk_args_size", KDA_CHUNK_ARGS),
+    "mhc_pre_f32": ("mhc_pre_args_size", MHC_PRE_ARGS),
+    "mhc_pre_bf16": ("mhc_pre_args_size", MHC_PRE_ARGS),
+    "mhc_post_f32": ("mhc_post_args_size", MHC_POST_ARGS),
+    "mhc_post_bf16": ("mhc_post_args_size", MHC_POST_ARGS),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -155,6 +169,10 @@ kda_step_f32 = None
 kda_step_bf16 = None
 kda_chunk_f32 = None
 kda_chunk_bf16 = None
+mhc_pre_f32 = None
+mhc_pre_bf16 = None
+mhc_post_f32 = None
+mhc_post_bf16 = None
 raw_stream = None  # device index -> its current stream as a cudaStream_t
 
 
@@ -219,6 +237,7 @@ def load() -> ctypes.CDLL:
     global _LIB, replay_gather_f32, fused_td_f32, rmsnorm_f32, rmsnorm_bf16
     global flash_attention_f32, flash_attention_bf16, flash_attention_bf16_wgmma
     global kda_step_f32, kda_step_bf16, kda_chunk_f32, kda_chunk_bf16, raw_stream
+    global mhc_pre_f32, mhc_pre_bf16, mhc_post_f32, mhc_post_bf16
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, (size_name, fmt) in ENTRY_POINTS.items():
@@ -238,6 +257,8 @@ def load() -> ctypes.CDLL:
         flash_attention_bf16_wgmma = lib.flash_attention_bf16_wgmma
         kda_step_f32, kda_step_bf16 = lib.kda_step_f32, lib.kda_step_bf16
         kda_chunk_f32, kda_chunk_bf16 = lib.kda_chunk_f32, lib.kda_chunk_bf16
+        mhc_pre_f32, mhc_pre_bf16 = lib.mhc_pre_f32, lib.mhc_pre_bf16
+        mhc_post_f32, mhc_post_bf16 = lib.mhc_post_f32, lib.mhc_post_bf16
         raw_stream = torch._C._cuda_getCurrentRawStream
         _LIB = lib
     return _LIB
@@ -280,6 +301,8 @@ __all__ = [
     "HEADERS",
     "KDA_CHUNK_ARGS",
     "KDA_STEP_ARGS",
+    "MHC_POST_ARGS",
+    "MHC_PRE_ARGS",
     "REPLAY_GATHER_ARGS",
     "RMSNORM_ARGS",
     "SOURCES",

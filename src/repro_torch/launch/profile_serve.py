@@ -16,11 +16,13 @@ seconds (CUDA kernel and memcpy time the profiler saw), the idle share
 ``1 - busy / profiled wall``, the device operations launched and the ten
 kernels with the most device time.  The zoo's named ranges
 (``models/layers.py::named_ranges``: ``kda.prefill``, ``kda.chunk`` (kernel
-F inside it), ``kda.step``, ``moe.held``) are on for the run, so Kimi-Linear's
-trace names its mixer's and its held experts' time, under ``ranges`` (each
-range's span on the device,
-gaps included; not counted as operations).  Kimi-Linear serves at prompt 1024 (its MLA
-prefill, like deepseek's, goes through ``chunked_attention``).
+F inside it), ``kda.step``, ``moe.held``, ``mhc.pre`` and ``mhc.post``
+(kernel G's two launches a site)) are on for the run, so Kimi-Linear's
+trace names its mixer's and its held experts' time, and Xing4.0's its
+mHC sites' apart from its held experts', under ``ranges`` (each range's
+span on the device, gaps included; not counted as operations).
+Kimi-Linear and Xing4.0 serve at prompt 1024 (their MLA prefill, like
+deepseek's, goes through ``chunked_attention``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,11 @@ ARCH, BATCH, PROMPT, GEN = "h2o-danube-3-4b", 4, 1000, 32
 # bf16 weights, 8 of them about 42 GB; jamba-1.5-large's 72 about 797 GB,
 # its first 4 (the first half of one 8-layer Jamba block: every block
 # kind) about 46 GB (widths untouched)
-PROMPTS = {"deepseek-v2-lite-16b": 480, "kimi-linear-48b-a3b-ep4": 1024}
+PROMPTS = {
+    "deepseek-v2-lite-16b": 480,
+    "kimi-linear-48b-a3b-ep4": 1024,
+    "xing4.0-29b-a4b-ep4": 1024,
+}
 LAYERS = {"qwen3-moe-235b-a22b": 8, "jamba-1.5-large-398b": 4}
 
 

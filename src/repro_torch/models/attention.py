@@ -22,7 +22,10 @@ its q/k heads (nope + rope, 192 wide at full width) are past the
 kernel's largest head_dim, and the reference runs it there too.  Decode
 is the absorbed path: scores and the weighted sum in the
 ``kv_lora_rank`` latent space, products in float32; its cache is the
-latent ``{ckv, krope, kpos}``.
+latent ``{ckv, krope, kpos}``.  Where the config asks for them
+(``MLAConfig.latent_norms``: Xing4.0's) the q latent passes an
+RMSNorm between ``w_dq`` and ``w_uq``, and the kv latent one after
+``w_dkv``, before it is cached.
 
 On a mesh a decode cache that ``model`` splits along the sequence (MLA's
 latent cache; a kv cache whose heads do not divide) is read through a
@@ -51,7 +54,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.layers import dense_apply, dense_init, torch_dtype
+from repro_torch.models.layers import (
+    dense_apply,
+    dense_init,
+    norm_apply,
+    norm_init,
+    torch_dtype,
+)
 
 F32 = torch.float32
 ATTN_IMPLS = ("kernel", "chunked")
@@ -388,8 +397,12 @@ def mla_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if a.q_lora_rank:
         p["w_dq"] = dense_init(d, a.q_lora_rank, dtype, generator)
         p["w_uq"] = dense_init(a.q_lora_rank, h * qd, dtype, generator)
+        if a.latent_norms:
+            p["q_norm"] = norm_init(cfg, a.q_lora_rank, generator.device)
     else:
         p["wq"] = dense_init(d, h * qd, dtype, generator)
+    if a.latent_norms:
+        p["kv_norm"] = norm_init(cfg, a.kv_lora_rank, generator.device)
     return p
 
 
@@ -416,7 +429,10 @@ def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     a = cfg.mla
     b, s, _ = x.shape
     if a.q_lora_rank:
-        q = dense_apply(p["w_uq"], dense_apply(p["w_dq"], x))
+        q = dense_apply(p["w_dq"], x)
+        if a.latent_norms:  # the q latent's RMSNorm
+            q = norm_apply(cfg, p["q_norm"], q)
+        q = dense_apply(p["w_uq"], q)
     else:
         q = dense_apply(p["wq"], x)
     q = q.reshape(b, s, -1, a.nope_head_dim + a.rope_head_dim)
@@ -450,6 +466,8 @@ def mla_apply(
     scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
     q_nope, q_rope, cs = _mla_q(cfg, p, x, positions)
     ckv = dense_apply(p["w_dkv"], x)  # [B, S, r]
+    if a.latent_norms:  # the kv latent's RMSNorm, before the cache
+        ckv = norm_apply(cfg, p["kv_norm"], ckv)
     krope = dense_apply(p["w_krope"], x)[:, :, None, :]
     if cs is not None:
         krope = rope_lib.apply_rope(krope, *cs)

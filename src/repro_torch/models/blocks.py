@@ -4,7 +4,10 @@ The port of the reference's ``models/blocks.py``: the GQA, MLA, Mamba,
 mLSTM and sLSTM mixers, the port's own KDA (``models/kda.py``; one card
 only: the mesh paths refuse it), and the dense, MoE or no FFN.  A block
 without an FFN (xLSTM's, whose mixers carry their own projections) has no
-second norm either, as in the reference.
+second norm either, as in the reference.  With ``cfg.hc_mult`` the
+residual is the port's mHC stream (``models/hyper.py``): each sublayer in
+a site of its own (``hc1`` around the mixer, ``hc2`` around the FFN), one
+card only.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from repro_torch.configs.base import (
     SLSTM,
     ModelConfig,
 )
-from repro_torch.models import attention, kda, ssm
+from repro_torch.models import attention, hyper, kda, ssm
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.moe import moe_apply, moe_init, moe_stream
 from repro_torch.models.sharding import _map_with_path, axis_size
@@ -83,6 +86,10 @@ def block_init(
     elif ffn == FFN_MOE:
         p["norm2"] = norm_init(cfg, cfg.d_model, dev)
         p["ffn"] = moe_init(cfg, generator)
+    if cfg.hc_mult:
+        p["hc1"] = hyper.hc_init(cfg, generator)
+        if ffn != FFN_NONE:
+            p["hc2"] = hyper.hc_init(cfg, generator)
     return p
 
 
@@ -133,14 +140,20 @@ def block_apply(
     when the stream is sequence-sharded); the sequence is all-gathered
     into the mixer and the FFN; every mixer and the dense FFN run tensor
     parallel where their widths divide over ``model`` (the ``*_region``
-    functions); the MoE takes the stream as it is (``moe.moe_stream``)."""
+    functions); the MoE takes the stream as it is (``moe.moe_stream``).
+
+    With ``cfg.hc_mult`` (one card), ``x`` is the mHC stream ``[B, S, n,
+    D]`` and each sublayer runs inside its site (``models/hyper.py``)."""
     _check_kinds(mixer, ffn)
     if layout is not None:
         return _block_on_mesh(
             cfg, p, x, mixer=mixer, ffn=ffn, mode=mode, positions=positions,
             cache=cache, attn_impl=attn_impl, L=layout, path=path,
         )  # fmt: skip
-    h = norm_apply(cfg, p["norm1"], x)
+    hc = cfg.hc_mult > 0
+    if hc:
+        u, coef = hyper.pre(cfg, p["hc1"], x)
+    h = norm_apply(cfg, p["norm1"], u if hc else x)
     if mixer == ATTN:
         y, new_cache = attention.gqa_apply(
             cfg,
@@ -163,14 +176,17 @@ def block_apply(
         y, new_cache = kda.kda_apply(cfg, p["mixer"], h, mode=mode, state=cache)
     else:
         y, new_cache = ssm.slstm_apply(cfg, p["mixer"], h, mode=mode, state=cache)
-    x = x + y
+    x = hyper.post(x, y, coef) if hc else x + y
     if ffn == FFN_NONE:
         return x, new_cache, None
-    h = norm_apply(cfg, p["norm2"], x)
+    if hc:
+        u, coef = hyper.pre(cfg, p["hc2"], x)
+    h = norm_apply(cfg, p["norm2"], u if hc else x)
     if ffn == FFN_DENSE:
-        return x + mlp_apply(cfg, p["ffn"], h), new_cache, None
-    y, aux = moe_apply(cfg, p["ffn"], h, mode=mode)
-    return x + y, new_cache, aux
+        y, aux = mlp_apply(cfg, p["ffn"], h), None
+    else:
+        y, aux = moe_apply(cfg, p["ffn"], h, mode=mode)
+    return (hyper.post(x, y, coef) if hc else x + y), new_cache, aux
 
 
 # ---------------------------------------------------------------------------

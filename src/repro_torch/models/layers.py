@@ -20,9 +20,10 @@ from repro_torch.kernels.rmsnorm import RMSNorm
 
 F32 = torch.float32
 # Named ranges on the profiler's timeline (``torch.profiler.record_function``)
-# around the zoo's own mixers and dispatch: "kda.prefill", "kda.step" and
+# around the zoo's own mixers and dispatch: "kda.prefill", "kda.step",
 # "moe.held" (a layer's local dispatch over the experts the card holds:
-# all of them unless the config holds a share).  Off unless a profiling entry point opens
+# all of them unless the config holds a share), and "mhc.pre" and
+# "mhc.post" (an mHC site's entry and exit, kernel G).  Off unless a profiling entry point opens
 # :func:`named_ranges` (``launch/profile_serve.py``): the profiler records
 # each range as a device-side annotation too, which a reader of device
 # operations would count as one.

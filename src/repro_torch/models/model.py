@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import FFN_DENSE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import graphs
+from repro_torch.models import hyper
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init
 from repro_torch.models.layers import (
@@ -304,6 +305,10 @@ def forward(
     """inputs: tokens [B,S] int or embeds [B,S,D]; positions [B,S] (or
     M-RoPE's [3,B,S]).
 
+    With ``cfg.hc_mult`` the embedding is copied into the mHC stream's
+    rows, every block runs on that stream and its rows are summed before
+    the final norm (``models/hyper.py``).
+
     Returns (hidden [B,S,D], aux, caches): ``aux`` is the sum of the MoE
     layers' router losses (a float32 scalar, 0 without MoE); the caches
     are, in prefill mode, the ones to hand to decode (kv caches and
@@ -338,6 +343,8 @@ def forward(
         if L is not None:
             x = x[:, L.seq_block(x.shape[1])]
         x = x.contiguous()
+    if cfg.hc_mult:  # the mHC stream: the embedding in each of its rows
+        x = hyper.expand(cfg, x)
     aux = torch.zeros((), dtype=F32, device=x.device)
     kw = dict(mode=mode, positions=positions, attn_impl=attn_impl, layout=L)
     handed: dict[str, Any] = {}
@@ -369,6 +376,8 @@ def forward(
         x, aux, handed["suffix"] = _unrolled(
             cfg, params, caches, "suffix", cfg.suffix, x, aux, kw
         )
+    if cfg.hc_mult:
+        x = hyper.readout(x)
     final = params["final_norm"]
     if L is not None:
         final = use_tree(L, final, "final_norm", L.vary_stream)

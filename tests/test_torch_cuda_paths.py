@@ -87,6 +87,16 @@ imports JAX, so the tests run where the card is.
   Kimi-Linear's smoke model, prefill through F then teacher-forced
   decode, against the CPU.
 
+* the mHC site, kernel G: ``mhc.pre`` and ``mhc.post`` against the plain
+  forms at Xing4.0's decode shape (128 rows of 4 x 3584), prefill slices
+  (4,096 and 16,384 rows: one slice a row block, then 32 rows a CTA) and
+  the smoke width, bf16 and float32: the coefficients and ``H_res``
+  within 1e-5, ``u`` and the new stream within 2**-7 (bf16) or 1e-5
+  (float32) of their largest; two launches a site; a call autograd would
+  record refused; a captured site's replays advance G's counter; Xing4.0's
+  smoke model, prefill through G (two launches a site, every site counted
+  as ``kernel``) then teacher-forced decode, against the CPU.
+
 * the zoo's decode graphs (``models/model.py::DecodeArena``):
   ``generate`` on the graph path against the eager loop on fresh caches
   of the same bucketed length, bit for bit (tokens and logits), for every
@@ -124,6 +134,8 @@ from repro_torch.core.replay import SelectiveReplaySampler  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain  # noqa: E402
 from repro_torch.kernels.kda_chunk import kda_chunk, kda_chunk_plain  # noqa: E402
 from repro_torch.kernels.kda_step import kda_step, kda_step_plain  # noqa: E402
+from repro_torch.kernels import graphs  # noqa: E402
+from repro_torch.kernels.mhc import mhc, mhc_post_plain, mhc_pre_plain  # noqa: E402
 from repro_torch.kernels.replay_gather import replay_gather  # noqa: E402
 from repro_torch.configs.base import FFN_NONE, KDA, get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -1144,6 +1156,149 @@ def test_kimi_prefill_through_kda_chunk_card_matches_cpu(cuda):
     assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
 
 
+# -- kernel G: an mHC site ------------------------------------------------------
+MHC_KW = dict(norm_eps=1e-6)
+
+
+def _mhc_draw(t, c, dtype, device, seed):
+    """A stream of 4 rows, a site's parameters drawn away from their init
+    (alpha, b and the norm's scale), and a sublayer's output."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    x = randn(t, 4, c).to(dtype)
+    p = ((4 * c) ** -0.5 * randn(4 * c, 24), 1 + 0.3 * randn(3), 0.5 * randn(24),
+         1 + 0.3 * randn(4 * c))  # fmt: skip
+    return x, p, randn(t, c).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype, rtol", [(torch.bfloat16, 2**-7), (torch.float32, 1e-5)]
+)
+@pytest.mark.parametrize("t,c", [(128, 3584), (4096, 3584), (16384, 3584), (3, 256),
+                                 (37, 256)])  # fmt: skip
+def test_mhc_matches_plain_on_card(cuda, t, c, dtype, rtol):
+    """G against the plain forms at Xing4.0's decode shape (128 rows: the
+    columns sliced over 14 CTAs a row block), a prefill slice of one
+    slice a row block and one of 32 rows a CTA, and the smoke width:
+    two launches; H_post and H_res within 1e-5 (float32 both sides, the
+    projection's 14,336-term sums and the Sinkhorn's in another order);
+    ``u`` and the new stream within ``rtol`` of their largest (bf16: each
+    side rounds once, one part in 2**8, twice; float32 as the
+    coefficients), the new stream from the kernel's own coefficients."""
+    x, p, y = _mhc_draw(t, c, dtype, cuda, seed=t + c)
+    before = mhc.launches
+    u, h_post, h_res = mhc.pre(x, *p, **MHC_KW)
+    out = mhc.post(x, y, h_post, h_res)
+    assert mhc.launches == before + 2
+    want_u, want_post, want_res = mhc_pre_plain(x, *p, **MHC_KW)
+    want_out = mhc_post_plain(x, y, h_post, h_res)
+    assert u.dtype == out.dtype == dtype and h_res.shape == (t, 4, 4)
+    for got, want in ((h_post, want_post), (h_res, want_res)):
+        assert float((got - want).abs().max()) <= 1e-5
+    for got, want in ((u, want_u), (out, want_out)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= rtol * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_mhc_routes_by_autograd_on_card(cuda):
+    """On the card G runs unless autograd would record the call, and then
+    each of its two wrappers raises (G has no backward; the plain forms
+    stay on the CPU), with nothing counted or launched; under ``no_grad``
+    the same stream launches (``calls_by_route["kernel"]``, two launches
+    a site) and matches the plain forms."""
+    x, p, y = _mhc_draw(8, 256, torch.float32, cuda, seed=2)
+    x.requires_grad_()
+    routes = mhc.calls_by_route
+
+    def site():
+        before = dict(routes), mhc.launches
+        u, h_post, h_res = mhc.pre(x, *p, **MHC_KW)
+        out = mhc.post(x, y + u, h_post, h_res)
+        return out, {r: n - before[0][r] for r, n in routes.items()}, mhc.launches - before[1]
+
+    before = dict(routes), mhc.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        site()
+    with torch.no_grad():
+        u, h_post, h_res = mhc.pre(x, *p, **MHC_KW)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        mhc.post(x, y + u, h_post, h_res)
+    assert routes == {**before[0], "kernel": before[0]["kernel"] + 1}
+    assert mhc.launches == before[1] + 1
+    with torch.no_grad():
+        got, by, n = site()
+    assert by == {"kernel": 1, "plain": 0} and n == 2
+    want_u, want_post, want_res = mhc_pre_plain(x.detach(), *p, **MHC_KW)
+    want = mhc_post_plain(x.detach(), y + want_u, want_post, want_res)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_mhc_site_replays_count_their_launches_on_card(cuda):
+    """A site (128 rows, sliced: its counters made by the eager warm-up)
+    captured into a CUDA graph: each replay equals the eager site bit for
+    bit and advances G's counter by its two launches."""
+    x, p, y = _mhc_draw(128, 3584, torch.bfloat16, cuda, seed=5)
+
+    def site():
+        u, h_post, h_res = mhc.pre(x, *p, **MHC_KW)
+        return mhc.post(x, y + u, h_post, h_res)
+
+    want = graphs.warm_up(site, cuda)
+    graph = graphs.capture(site, cuda, torch.cuda.graph_pool_handle())
+    for _ in range(2):
+        before = mhc.launches
+        got = graphs.replay(graph)
+        torch.cuda.synchronize()
+        assert mhc.launches == before + 2
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_xing_prefill_through_mhc_card_matches_cpu(cuda):
+    """Xing4.0's smoke model (float32; capacity factor 16, so no pair is
+    dropped) from one init: a 70-token prefill (G at every site on the
+    card, two launches each, the plain forms on the CPU), then 4
+    teacher-forced decode steps through the loaded caches; the prefill's
+    and every step's logits on the card within 1e-4 of the CPU's largest
+    (float32 both sides)."""
+    cfg = get_config("xing4.0-29b-a4b-ep4-smoke")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    params = Model(cfg, "cpu").init_params(0)
+    sites = 2 * cfg.n_layers
+    rng = np.random.default_rng(4)
+    b, s, steps = 2, 70, 4
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s + steps)), dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model, live = Model(cfg, dev), _to(params, dev)
+        t = toks.to(dev)
+        before = mhc.launches, mhc.calls_by_route["kernel"]
+        with torch.no_grad():
+            last, pre = model.prefill_step(live, {"tokens": t[:, :s]})
+            launched = (mhc.launches - before[0], mhc.calls_by_route["kernel"] - before[1])
+            caches = serve.load_prefill(model.init_caches(b, s + steps), pre)
+            logits = [last[:, None]]
+            for i in range(steps):
+                step = {
+                    "tokens": t[:, s + i : s + i + 1],
+                    "pos": torch.full((b,), s + i, dtype=torch.int32, device=dev),
+                }
+                lg, caches = model.serve_step(live, caches, step)
+                logits.append(lg[:, None])
+        out[str(dev)] = (torch.cat(logits, 1).float().cpu(), launched)
+    (cpu, n_cpu), (card, n_card) = out["cpu"], out["cuda"]
+    assert n_cpu == (0, 0) and n_card == (2 * sites, sites)
+    assert bool(torch.isfinite(card).all())
+    assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
 # -- the zoo's decode graphs ----------------------------------------------------
 # every zoo architecture's smoke config (dense GQA, a sliding window, M-RoPE
 # and embeds in, MoE, MLA, Mamba, mLSTM/sLSTM, KDA), and the two decode
@@ -1152,9 +1307,9 @@ GRAPH_ARCHS = [f"{name}-smoke" for name in (
     "h2o-danube-3-4b", "qwen2.5-14b", "starcoder2-15b", "qwen2-vl-2b",
     "musicgen-medium", "qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b",
     "deepseek-v2-lite-16b", "jamba-1.5-large-398b", "xlstm-125m",
-    "kimi-linear-48b-a3b-ep4",
-)] + ["deepseek-v2-lite-16b-smoke:bf16",
-      "kimi-linear-48b-a3b-ep4-smoke:bf16"]  # fmt: skip
+    "kimi-linear-48b-a3b-ep4", "xing4.0-29b-a4b-ep4",
+)] + ["deepseek-v2-lite-16b-smoke:bf16", "kimi-linear-48b-a3b-ep4-smoke:bf16",
+      "xing4.0-29b-a4b-ep4-smoke:bf16"]  # fmt: skip
 
 
 def _graph_model(arch: str, dev):

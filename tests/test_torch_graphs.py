@@ -26,7 +26,7 @@ def test_kernel_list_holds_every_counted_wrapper():
             if isinstance(getattr(obj, "launches", None), int)
             and getattr(obj, "__module__", None) == mod.__name__
         ]
-    assert len(counted) == len(graphs.KERNELS) == 6
+    assert len(counted) == len(graphs.KERNELS) == 7
     assert set(counted) == set(graphs.KERNELS)
 
 

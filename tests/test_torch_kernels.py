@@ -36,6 +36,7 @@ from repro_torch.kernels import fused_td as td_module  # noqa: E402
 from repro_torch.kernels import kda_chunk as chunk_module  # noqa: E402
 from repro_torch.kernels import kda_step as kda_module  # noqa: E402
 from repro_torch.kernels import launch_cost, lib, rmsnorm  # noqa: E402
+from repro_torch.kernels import mhc as mhc_module  # noqa: E402
 from repro_torch.kernels import replay_gather as gather_module  # noqa: E402
 from repro_torch.kernels.fused_td import fused_td, fused_td_plain, td_loss  # noqa: E402
 from repro_torch.kernels.replay_gather import (  # noqa: E402
@@ -462,7 +463,37 @@ def test_packed_argument_layouts():
         lib.FLASH_ATTENTION_ARGS,
         lib.KDA_STEP_ARGS,
         lib.KDA_CHUNK_ARGS,
+        lib.MHC_PRE_ARGS,
+        lib.MHC_POST_ARGS,
     }
+
+
+def test_mhc_packed_arguments():
+    """G's ``MhcPreArgs``: eleven pointers (the stream last), seven 32-bit
+    ints (device, t, c, n and the plan's rows a warp, slices and tiles a
+    slice), then the norm's eps as float32 (the Sinkhorn's alternations,
+    eps and clamp are the kernel's constants); ``MhcPostArgs``: six
+    pointers and four ints."""
+    assert lib.MHC_PRE_ARGS.size == 11 * 8 + 7 * 4 + 4
+    raw = mhc_module.pre_launch_args(*range(1, 16), (1, 14, 4), 1e-6)
+    fields = struct.unpack("<11Q7if", raw)
+    assert fields[:18] == (*range(1, 16), 1, 14, 4)
+    assert fields[18] == pytest.approx(1e-6)
+    assert lib.MHC_POST_ARGS.size == 6 * 8 + 4 * 4
+    raw = mhc_module.post_launch_args(*range(1, 11))
+    assert struct.unpack("<6Q4i", raw) == tuple(range(1, 11))
+
+
+@pytest.mark.parametrize(
+    "t,k,want",
+    [(128, 14336, (1, 14, 4)), (4, 1024, (1, 4, 1)), (4096, 14336, (1, 1, 56)),
+     (131072, 14336, (4, 1, 56)), (8192, 1024, (4, 1, 4))],
+)  # fmt: skip
+def test_mhc_pre_plan(t, k, want):
+    """G's plan: a decode's 128 rows spread over 14 slices of 4 tiles
+    (16 row blocks x 14 = 224 CTAs, about two an SM), a prefill's rows in
+    one slice, 32 rows a CTA from 8,192 rows on."""
+    assert mhc_module.pre_plan(t, k) == want
 
 
 def test_kda_chunk_packed_arguments():

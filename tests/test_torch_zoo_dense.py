@@ -84,7 +84,7 @@ def _params(ref, arch, seed=0):
 
 
 def test_configs_are_the_reference_copies(ref):
-    """The reference's ten and the port's own two are registered; each of
+    """The reference's ten and the port's own four are registered; each of
     the ten is the reference's copy (its keys; the port's own fields at
     their defaults)."""
     assert list_configs() == sorted(
@@ -101,6 +101,8 @@ def test_configs_are_the_reference_copies(ref):
             "xlstm-125m",
             "kimi-linear-48b-a3b",
             "kimi-linear-48b-a3b-ep4",
+            "xing4.0-29b-a4b",
+            "xing4.0-29b-a4b-ep4",
         ]
     )
     for arch in ASSIGNED:

@@ -3,7 +3,8 @@
 The port's ``ModelConfig`` and ``MoEConfig`` carry fields the
 reference's lack, for the port's own architectures (Kimi-Linear:
 ``prefix_mixer``, ``suffix``, ``kda``, ``MoEConfig.router``,
-``routed_scale``, ``n_held``, ``held_offset``).  A copy of a reference
+``routed_scale``, ``n_held``, ``held_offset``; Xing4.0: ``hc_mult``,
+``MLAConfig.latent_norms``).  A copy of a reference
 config equals it on every key the reference has, and holds each field
 only the port has at its default."""
 
